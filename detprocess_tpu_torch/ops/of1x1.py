@@ -1,0 +1,178 @@
+"""Batched single-channel optimal-filter fits on the natural half spectrum.
+
+Counterpart of the half-spectrum path of ``detprocess_tpu/ops/of1x1.py``
+(qetpy OF1x1 as used by detprocess/core/algorithms.py:278-570). For the
+half spectrum ṽ_h = rfft(trace) and bank tensors (phi_h, norm,
+denom_inv_h, s_fft_h, bin_w) of ``ops/filterbank.bank_to_torch``:
+
+- ``q(d)   = Re Σ_k phi_k ṽ_k e^{2πikd/N} = N·irfft(phi_h·ṽ_h)(d)``
+- ``amp(d) = q(d)/norm``,  ``χ²(d) = χ²₀ − q(d)²/norm``
+- ``χ²₀    = Σ_k w_k |ṽ_k|² denom_inv_k`` (w = bin_w)
+- low-frequency χ² over bins with f < fcutoff (DC excluded) at the fitted
+  (amp, delay).
+
+Delays are rolled by ``pretrigger`` so that absolute trace index i gives
+``t0 = (i − pretrigger)/fs``. Shapes: ṽ_h [..., S, N/2+1], bank tensors
+[S, N/2+1] / [S], results [..., S].
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from detprocess_tpu_torch.ops import fft
+
+
+class OF1x1Result(NamedTuple):
+    amp: torch.Tensor
+    t0: torch.Tensor
+    chi2: torch.Tensor
+    lowchi2: torch.Tensor
+    chi2_nopulse: torch.Tensor
+
+
+class DelayPick(NamedTuple):
+    """Winner of a delay scan (:func:`pick_delay`)."""
+
+    idx: torch.Tensor    # winning absolute trace index
+    im1: torch.Tensor    # (idx ± 1) % n — for quadratic amp refits
+    ip1: torch.Tensor
+    delta: torch.Tensor  # sub-sample offset (0.0 when not interpolating)
+    gain: Optional[torch.Tensor]  # Δχ² apex, only when interpolating
+    shift: torch.Tensor  # signed t0 in samples, including delta
+
+
+def _take_last(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    return torch.gather(x, -1, i.unsqueeze(-1)).squeeze(-1)
+
+
+def pick_delay(dchi2: torch.Tensor, n: int, pretrigger: int, *,
+               window_mask=None,
+               interpolate_t0: bool = False) -> DelayPick:
+    """Masked Δχ² argmax over ``dchi2`` [..., N] in absolute trace order,
+    the index → signed-t0 rule, and the optional parabolic sub-sample
+    refit. ``window_mask`` is a boolean [N] over absolute trace indices
+    (True = allowed)."""
+    if window_mask is None:
+        masked = dchi2
+    else:
+        if not isinstance(window_mask, torch.Tensor):
+            window_mask = torch.as_tensor(np.asarray(window_mask, bool))
+        mask = window_mask.to(dchi2.device)
+        masked = torch.where(mask, dchi2,
+                             torch.full_like(dchi2, -math.inf))
+    idx = torch.argmax(masked, dim=-1)
+    shift = idx.to(dchi2.dtype) - pretrigger
+    im1 = (idx - 1) % n
+    ip1 = (idx + 1) % n
+    if not interpolate_t0:
+        return DelayPick(idx, im1, ip1, torch.zeros_like(shift), None, shift)
+    delta, gain = parabola_refit(dchi2, idx, im1, ip1)
+    return DelayPick(idx, im1, ip1, delta, gain, shift + delta)
+
+
+def parabola_refit(dchi2, idx, im1, ip1):
+    """Parabolic apex of Δχ² through the winner and its two neighbours:
+    (delta ∈ [−1, 1], interpolated Δχ² maximum)."""
+    ym1 = -_take_last(dchi2, im1)
+    y0 = -_take_last(dchi2, idx)
+    yp1 = -_take_last(dchi2, ip1)
+    denom = ym1 - 2.0 * y0 + yp1
+    safe = torch.where(denom.abs() > 0, denom, torch.ones_like(denom))
+    delta = torch.where(denom.abs() > 0, 0.5 * (ym1 - yp1) / safe,
+                        torch.zeros_like(denom))
+    delta = torch.clamp(delta, -1.0, 1.0)
+    return delta, -(y0 - 0.25 * (ym1 - yp1) * delta)
+
+
+def interp_amp(q: torch.Tensor, norm, pick: DelayPick) -> torch.Tensor:
+    """Quadratic refit of a(d) = q(d)/norm at the winner's sub-sample
+    offset (exactly a(idx) when delta == 0)."""
+    amp = _take_last(q, pick.idx) / norm
+    am1 = _take_last(q, pick.im1) / norm
+    ap1 = _take_last(q, pick.ip1) / norm
+    a_denom = am1 - 2.0 * amp + ap1
+    return (amp + 0.5 * (ap1 - am1) * pick.delta
+            + 0.5 * a_denom * pick.delta * pick.delta)
+
+
+def lowfreq_mask_half(n: int, fs: float, fcutoff: float) -> np.ndarray:
+    """Static boolean mask on the half axis: f < fcutoff, DC excluded."""
+    f = np.fft.rfftfreq(n, d=1.0 / fs)
+    mask = f < fcutoff
+    mask[0] = False
+    return mask
+
+
+def chi2_base_half(vr, denom_inv_h, bin_w):
+    p2 = vr.real ** 2 + vr.imag ** 2
+    return torch.sum(p2 * denom_inv_h * bin_w, dim=-1)
+
+
+def _residual_chi2_half(vr, amp, shift, s_fft_h, denom_inv_h, bin_w, mask_h,
+                        n):
+    """χ² of (ṽ − amp·s̃·e^{−2πik·shift/N}) over the masked half bins."""
+    nh = vr.shape[-1]
+    k = torch.arange(nh, dtype=amp.dtype, device=vr.device)
+    angle = -2.0 * math.pi * k * shift[..., None] / n
+    phase = torch.polar(torch.ones_like(angle), angle)
+    resid = vr - amp[..., None] * s_fft_h * phase
+    p2 = resid.real ** 2 + resid.imag ** 2
+    mask = torch.as_tensor(mask_h, device=vr.device)
+    return torch.sum(p2 * denom_inv_h * bin_w * mask, dim=-1)
+
+
+def of1x1_nodelay_half(vr, phi_h, norm, denom_inv_h, s_fft_h, bin_w,
+                       low_mask_h=None, n=None) -> OF1x1Result:
+    """No-delay OF fit (amplitude at the nominal trigger position)."""
+    n = n if n is not None else 2 * (vr.shape[-1] - 1)
+    q = torch.sum((phi_h * vr).real * bin_w, dim=-1)
+    amp = q / norm
+    c0 = chi2_base_half(vr, denom_inv_h, bin_w)
+    chi2 = c0 - q * q / norm
+    if low_mask_h is None:
+        lowchi2 = torch.full_like(chi2, -999999.0)
+    else:
+        lowchi2 = _residual_chi2_half(vr, amp, torch.zeros_like(amp),
+                                      s_fft_h, denom_inv_h, bin_w,
+                                      low_mask_h, n)
+    return OF1x1Result(amp, torch.zeros_like(amp), chi2, lowchi2, c0)
+
+
+def of1x1_withdelay_half(vr, phi_h, norm, denom_inv_h, s_fft_h, bin_w,
+                         pretrigger: int, fs: float,
+                         window_mask=None, low_mask_h=None,
+                         interpolate_t0: bool = False,
+                         n: Optional[int] = None) -> OF1x1Result:
+    """Delay-scan OF fit, optionally constrained to ``window_mask``
+    (boolean [N] over absolute trace indices). ``interpolate_t0`` refines
+    t0/amp with a parabola around the discrete χ² minimum. ``n`` is the
+    trace length (required for odd n)."""
+    nh = vr.shape[-1]
+    n = n if n is not None else 2 * (nh - 1)
+    qt = fft.irfft(phi_h * vr, n) * n                      # [..., S, N]
+    q_abs = torch.roll(qt, pretrigger, dims=-1)
+    c0 = chi2_base_half(vr, denom_inv_h, bin_w)
+    dchi2 = q_abs * q_abs / norm[..., None]
+
+    pick = pick_delay(dchi2, n, pretrigger, window_mask=window_mask,
+                      interpolate_t0=interpolate_t0)
+    if interpolate_t0:
+        chi2 = c0 - pick.gain
+        amp = interp_amp(q_abs, norm, pick)
+    else:
+        q_best = _take_last(q_abs, pick.idx)
+        amp = q_best / norm
+        chi2 = c0 - q_best * q_best / norm
+    shift = pick.shift
+    t0 = shift / fs
+    if low_mask_h is None:
+        lowchi2 = torch.full_like(chi2, -999999.0)
+    else:
+        lowchi2 = _residual_chi2_half(vr, amp, shift, s_fft_h, denom_inv_h,
+                                      bin_w, low_mask_h, n)
+    return OF1x1Result(amp, t0, chi2, lowchi2, c0)

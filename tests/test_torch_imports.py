@@ -1,0 +1,82 @@
+"""detprocess_tpu_torch runs where JAX, h5py, pandas and yaml are missing.
+
+The machine with the GPU has none of them, so the port and
+``chip_smoke.py`` must import and run the feature step without them. A
+subprocess blocks each (``sys.modules[name] = None`` makes any import of
+it raise) and then imports every module of the port and runs the
+CPU feature step; a second one runs ``chip_smoke.py``, which must fail
+without a GPU and print no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "detprocess_tpu", "h5py", "pandas", "yaml")
+
+PRELUDE = "import sys\n" + "".join(
+    f"sys.modules[{name!r}] = None\n" for name in BLOCKED)
+
+RUN_STEP = textwrap.dedent("""
+    import importlib, json, pkgutil
+    import torch
+    torch.set_num_threads(1)
+    import detprocess_tpu_torch
+    names = []
+    for info in pkgutil.walk_packages(detprocess_tpu_torch.__path__,
+                                      "detprocess_tpu_torch."):
+        importlib.import_module(info.name)
+        names.append(info.name)
+    from detprocess_tpu_torch.entry import entry
+    step, (x,) = entry("cpu", torch.float64)
+    out = step(x)
+    print(json.dumps({
+        "modules": sorted(names),
+        "columns": sorted(out),
+        "finite": all(bool(torch.isfinite(v).all()) for v in out.values()),
+        "shapes": sorted({tuple(v.shape) for v in out.values()}),
+        "leaked": sorted(m for m in sys.modules
+                         if m.split(".")[0] in {"jax", "h5py", "pandas",
+                                                "yaml", "triton"}
+                         and sys.modules[m] is not None),
+    }))
+""")
+
+
+def _run(code, cwd=REPO, timeout=120):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_and_runs_without_jax_h5py_pandas_yaml():
+    proc = _run(PRELUDE + RUN_STEP)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "detprocess_tpu_torch.pipelines.feature_step" in res["modules"]
+    assert "detprocess_tpu_torch.ops.cuda_of" in res["modules"]
+    assert res["leaked"] == []
+    assert res["finite"] and res["shapes"] == [[16]]
+    assert res["columns"] == sorted(
+        [f"{f}_of1x1_nodelay_chan1" for f in ("amp", "chi2", "lowchi2")]
+        + [f"{f}_of1x1_unconstrained_chan1"
+           for f in ("amp", "t0", "chi2", "lowchi2")]
+        + ["baseline_chan1", "integral_chan1"])
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    # runs the script as the GPU machine would, with the same imports
+    # blocked; this CPU build of torch has no CUDA device, so the device
+    # phase must end the run before any result line
+    code = PRELUDE + textwrap.dedent("""
+        import runpy
+        runpy.run_path("chip_smoke.py", run_name="__main__")
+    """)
+    proc = _run(code)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
