@@ -9,10 +9,11 @@ a. device: the card's name and power limit (nvidia-smi), require_cuda();
 b. build: nvcc compiles the kernels under detprocess_tpu_torch/csrc/
    (set-up time; the compiler's register/spill report is printed);
 c. kernels: each hand-written kernel against its plain PyTorch twin on
-   the card, B = 64 and N in {1024, 16384, 32768}:
+   the card, B = 64 and every N in cuda_fft.SUPPORTED_N (256 … 32768):
    rFFT max|Δ|/max|ref| <= 1e-5; fused no-delay amp rtol 1e-5, χ² rtol
    5e-3 (the χ² sits at the float32 cancellation floor of
-   χ²₀ − q²/norm);
+   χ²₀ − q²/norm); the fused kernel must refuse a bank of more slots
+   than it holds (its plain twin takes any number);
 d. slice: entry() once, then FeatureStep at the benchmark's size
    (N = 32768, pretrigger N/2, 1/f PSD, 8 batches of 8192 events of
    PSD-matched noise plus pulses made on the card from a seeded
@@ -23,7 +24,8 @@ d. slice: entry() once, then FeatureStep at the benchmark's size
    0.05, t0 within one sample for > 99% of events). It compares each
    kernel with its twin again on the slice's own batch, and prints
    events/s (CUDA events), a per-layer time breakdown, and each kernel's
-   time beside its plain twin's at the slice shapes.
+   time beside its plain twin's at the slice shapes; the rFFT kernel also
+   at N = 16384, the entry() length, and with its share of the HBM peak.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary. Needs one CUDA device; imports no JAX.
@@ -58,12 +60,12 @@ NBATCH = 8
 SEED = 0
 CHAN = "chan1"
 
-CHECK_NS = (1024, 16384, 32768)
 CHECK_B = 64
 RFFT_TOL = 1e-5          # max|Δ| / max|ref|
 AMP_RTOL = 1e-5
 CHI2_RTOL = 5e-3
 TIMING_REPS = 10
+HBM_PEAK = 3.35e12       # bytes/s, H100 SXM data sheet
 
 # the slice's first events against the float64 CPU run of the same step:
 # float32 on the card vs float64; χ² and lowchi2 carry the f32
@@ -165,7 +167,7 @@ def compare_kernels(x, fused, errs, phase):
                            f"B={batch}")
 
 
-def phase_c(device, ns=CHECK_NS, batch=CHECK_B):
+def phase_c(device, ns=cuda_fft.SUPPORTED_N, batch=CHECK_B):
     gen = torch.Generator(device=device).manual_seed(SEED)
     errs = {"rfft": [0.0, 0.0], "fused_nodelay_of": [0.0, 0.0]}
     for n in ns:
@@ -173,6 +175,19 @@ def phase_c(device, ns=CHECK_NS, batch=CHECK_B):
         fused = FusedNodelayOF.from_bank(
             filterbank.bank_to_torch(bank, device, torch.float32))
         compare_kernels(x, fused, errs, "c")
+    # a known gap against the JAX package: the kernel holds at most
+    # max_slots slots and must refuse more, not compute them wrongly
+    max_slots = _kernels.lib().dp_fused_nodelay_of_max_slots()
+    too_many = FusedNodelayOF.from_bank(
+        filterbank.bank_to_torch(bank, device, torch.float32),
+        slots=[0] * (max_slots + 1))
+    try:
+        too_many.kernel(x)
+    except ValueError as e:
+        log(f"[c] fused_nodelay_of with {max_slots + 1} slots refused: {e}")
+    else:
+        raise RuntimeError(f"fused_nodelay_of took {max_slots + 1} slots, "
+                           f"more than its {max_slots}")
     return errs
 
 
@@ -289,6 +304,16 @@ def time_pair(fn_kernel, fn_plain, reps=TIMING_REPS):
     return (float(np.mean(times["kernel"])), float(np.mean(times["plain"])))
 
 
+def log_rfft_time(n, k_ms, p_ms, card):
+    """The rFFT kernel's and cuFFT's time at B = BATCH, with their share
+    of the HBM peak (4·N bytes in, 8·(N/2 + 1) out per trace)."""
+    share = {name: BATCH * (4 * n + 8 * (n // 2 + 1)) / (ms * 1e-3)
+             / HBM_PEAK for name, ms in (("kernel", k_ms), ("cuFFT", p_ms))}
+    log(f"[d] rfft at B={BATCH}, N={n}: kernel {k_ms:.4f} ms "
+        f"({100 * share['kernel']:.1f}% of HBM peak), cuFFT {p_ms:.4f} ms "
+        f"({100 * share['cuFFT']:.1f}%) (on {card})")
+
+
 def phase_d(device, card, errs):
     # the package's entry point on the card (N = 16384, 16 events)
     small, (x,) = entry(device)
@@ -387,6 +412,10 @@ def phase_d(device, card, errs):
     for name, (k_ms, p_ms) in timings.items():
         log(f"[d] {name} at B={BATCH}, N={N}: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms (on {card})")
+    log_rfft_time(N, *timings["rfft"], card)
+    x = torch.randn((BATCH, N // 2), generator=gen, device=device)
+    log_rfft_time(N // 2, *time_pair(lambda: cuda_fft.rfft_kernel(x),
+                                     lambda: cuda_fft.rfft_plain(x)), card)
     return launches, timings
 
 

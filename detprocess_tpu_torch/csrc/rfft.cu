@@ -9,12 +9,17 @@
 // untangle) runs in shared memory, and the N/2 + 1 natural-order bins are
 // written once.
 //
-// What bounds it on an H100: HBM bytes. Per trace it moves 4·N bytes in
-// and 8·(N/2 + 1) bytes out against ~2.5·N·log2(N) flops, far below the
-// card's flop-to-byte balance; the design keeps every intermediate stage
-// of the transform in shared memory (128 KB at N = 32768, above the 48 KB
-// default, so the launcher raises the block's dynamic shared-memory
-// limit).
+// What bounds it on an H100: the Stockham stages in shared memory, not
+// HBM. Per trace it moves only 4·N bytes in and 8·(N/2 + 1) bytes out, but
+// at N = 32768 clock stamps put 78 % of a block's time in the seven
+// barrier-separated radix-4 stages (8 % in the load, 14 % in the untangle
+// and store). The block holds the whole packed trace, 128 KB (above the
+// 48 KB default, so the launcher raises the block's dynamic shared-memory
+// limit), so one block runs per SM. Spreading the trace over a 2-CTA
+// cluster (64 KB per CTA, two CTAs per SM, the halves meeting once through
+// distributed shared memory) was measured slower: the exchange costs what
+// the overlap of loads and stages saves, and the stages cost the same.
+// Fewer passes over shared memory are the way forward.
 //
 // C interface (loaded with ctypes): dp_rfft_f32 returns a cudaError_t code;
 // 0 means the launch was accepted.

@@ -6,7 +6,8 @@ On a CPU tensor ``ops.fft.rfft`` is the kernel's plain twin
 float64 and to the TPU kernel it replaces, ``fft_pallas``, run in
 interpret mode as tests/test_pallas_kernels.py runs it. The CUDA kernel
 itself runs only on the GPU (``python3 chip_smoke.py`` compares it with
-the same twin there).
+the same twin there); its index math is held here by a numpy model of
+the kernel's steps.
 """
 
 import numpy as np
@@ -52,6 +53,66 @@ def test_rfft_matches_pallas_fft_interpret(n1, n2):
     got = fft.rfft(torch.as_tensor(x)).numpy().astype(np.complex128)
     rel = np.max(np.abs(got - half)) / np.max(np.abs(half))
     assert rel <= 1e-5
+
+
+def stockham_model(z, tw):
+    """The in-place radix-4 Stockham stages of csrc/rfft_smem.cuh
+    (fft_smem, one radix-2 stage first when log2(M) is odd) on z [..., M],
+    reading the table tw = W_{2M}^k, k < M."""
+    mp = z.shape[-1]
+    log2m = mp.bit_length() - 1
+    stages = ([(2, 0)] if log2m & 1 else []) + [
+        (4, lns) for lns in range(log2m & 1, log2m, 2)]
+    for radix, lns in stages:
+        nb, ns = mp // radix, 1 << lns
+        lr = 2 if radix == 4 else 1
+        j = np.arange(nb)
+        k = j & (ns - 1)
+        w = tw[2 * (k << (log2m - lns - lr))]
+        v = [z[..., j + r * nb] * w ** r for r in range(radix)]
+        y = [sum(v[r] * np.exp(-2j * np.pi * r * q / radix)
+                 for r in range(radix)) for q in range(radix)]
+        z = np.empty_like(z)
+        base = (j - k) * radix + k
+        for q in range(radix):
+            z[..., base + q * ns] = y[q]
+    return z
+
+
+def kernel_rfft_model(x, tw):
+    """csrc/rfft.cu step by step: the trace packed as M = N/2 complex
+    values, the Stockham stages, the untangle and the Nyquist bin, with
+    ``tw`` = W_N^k (k < M), the kernel's table."""
+    m = x.shape[-1] // 2
+    zz = stockham_model(x[..., 0::2] + 1j * x[..., 1::2], tw)
+    k = np.arange(m)
+    zk, zr = zz, np.conj(zz[..., (m - k) & (m - 1)])
+    out = np.empty(x.shape[:-1] + (m + 1,), dtype=np.complex128)
+    out[..., :m] = 0.5 * (zk + zr) - 0.5j * tw[k] * (zk - zr)
+    out[..., m] = zz[..., 0].real - zz[..., 0].imag
+    return out
+
+
+@pytest.mark.parametrize("n", cuda_fft.SUPPORTED_N)
+def test_kernel_model_matches_numpy_rfft(n):
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((3, n))
+    tw = np.exp(-2j * np.pi * np.arange(n // 2) / n)   # float64 table
+    got = kernel_rfft_model(x, tw)
+    ref = np.fft.rfft(x)
+    assert np.max(np.abs(got - ref)) <= 1e-12 * np.max(np.abs(ref))
+
+
+def test_kernel_model_matches_pallas_fft_interpret():
+    n1, n2 = 64, 32
+    n = n1 * n2
+    x = np.random.default_rng(7).standard_normal((16, n)).astype(np.float32)
+    re, im = fft_pallas(jnp.asarray(x), n1, n2, tile=8, interpret=True)
+    full = np.asarray(re, np.float64) + 1j * np.asarray(im, np.float64)
+    half = full[:, : n // 2 + 1]          # natural order (see above)
+    tw = cuda_fft.twiddles(n, torch.device("cpu")).numpy()
+    got = kernel_rfft_model(x.astype(np.float64), tw.astype(np.complex128))
+    assert np.max(np.abs(got - half)) / np.max(np.abs(half)) <= 1e-5
 
 
 @pytest.mark.parametrize("n", [2048, 2047])

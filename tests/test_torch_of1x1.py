@@ -226,6 +226,20 @@ def test_fused_nodelay_from_bank_slots(setup):
                                               "bin_w", "norm"}
 
 
+def test_fused_nodelay_kernel_slot_limit(setup):
+    """A known gap against the JAX package: on a CUDA tensor the kernel
+    takes at most kMaxSlots = 8 bank slots, where the plain twin (and
+    detprocess_tpu's FusedNodelayOF) take any number."""
+    src = (_kernels.CSRC_DIR / "fused_nodelay_of.cu").read_text()
+    assert "constexpr int kMaxSlots = 8;" in src
+    bank, traces, bh, tb, vr_j, vr_t = setup
+    nine = FusedNodelayOF.from_bank(tb, slots=[0, 1] * 4 + [0])
+    amp, chi2 = nine(torch.as_tensor(traces))
+    assert amp.shape == chi2.shape == (NB, 9)
+    np.testing.assert_allclose(amp[:, 8].numpy(), amp[:, 0].numpy(),
+                               rtol=1e-14)
+
+
 def test_fused_nodelay_validates_bank_and_input(setup):
     bank, traces, bh, tb, vr_j, vr_t = setup
     with pytest.raises(ValueError, match=r"\[S, N/2\+1\]"):
