@@ -7,13 +7,14 @@ Phases (each failure ends the run with a non-zero exit):
 
 a. device: the card's name and power limit (nvidia-smi), require_cuda();
 b. build: nvcc compiles the kernels under detprocess_tpu_torch/csrc/
-   (set-up time; the compiler's register/spill report is printed);
+   (set-up time; the compiler's register/spill report is printed, and
+   the fused kernel's registers and spills at each N);
 c. kernels: each hand-written kernel against its plain PyTorch twin on
    the card, B = 64 and every N in cuda_fft.SUPPORTED_N (256 … 32768):
    rFFT max|Δ|/max|ref| <= 1e-5; fused no-delay amp rtol 1e-5, χ² rtol
    5e-3 (the χ² sits at the float32 cancellation floor of
-   χ²₀ − q²/norm); the fused kernel must refuse a bank of more slots
-   than it holds (its plain twin takes any number);
+   χ²₀ − q²/norm), at S = 1 and, at N = 32768, at S = 9, 11 and 17;
+   at S = 1 also the χ² of kernel and twin against the float64 twin;
 d. slice: entry() once, then FeatureStep at the benchmark's size
    (N = 32768, pretrigger N/2, 1/f PSD, 8 batches of 8192 events of
    PSD-matched noise plus pulses made on the card from a seeded
@@ -25,14 +26,20 @@ d. slice: entry() once, then FeatureStep at the benchmark's size
    kernel with its twin again on the slice's own batch, and prints
    events/s (CUDA events), a per-layer time breakdown, and each kernel's
    time beside its plain twin's at the slice shapes; the rFFT kernel also
-   at N = 16384, the entry() length, and with its share of the HBM peak.
+   at N = 16384, the entry() length, and with its share of the HBM peak;
+   the fused kernel's time and HBM share at B = 8192, N = 16384 and
+   32768, and the SM clocks of its phases in one stamped launch.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
-{"kernels": [...]} summary. Needs one CUDA device; imports no JAX.
+{"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
+peak or float32 operations over the non-tensor peak, the larger) and the
+one PyTorch call that computes the same function, where there is one.
+Needs one CUDA device; imports no JAX.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +73,10 @@ AMP_RTOL = 1e-5
 CHI2_RTOL = 5e-3
 TIMING_REPS = 10
 HBM_PEAK = 3.35e12       # bytes/s, H100 SXM data sheet
+F32_PEAK = 67e12         # float32 FLOP/s outside the tensor cores, same
+# fused kernel slot counts checked at N = 32768: 9 = 4+4+1, 11 = 4+4+2+1
+# and 17 = 4·4+1, so each slot-group size the kernel has is launched
+SLOT_CHECKS = (9, 11, 17)
 
 # the slice's first events against the float64 CPU run of the same step:
 # float32 on the card vs float64; χ² and lowchi2 carry the f32
@@ -130,6 +141,37 @@ def phase_b():
         if any(k in line for k in ("Compiling entry", "registers", "spill",
                                    "error", "warning")):
             log(f"    {line.strip()}")
+    regs = fused_registers(_kernels.build_log())
+    for (log2m, stamp), (nreg, spill_st, spill_ld) in sorted(regs.items()):
+        log(f"[b] fused_nodelay_of N={2 << log2m}{' (stamped)' if stamp else ''}"
+            f": {nreg} registers, {spill_st} bytes spill stores, {spill_ld} "
+            "bytes spill loads")
+    return regs
+
+
+def fused_registers(build_log):
+    """{(log2 M, stamped): (registers, spill store bytes, spill load
+    bytes)} of the fused kernel's instances, from the -Xptxas -v report."""
+    pattern = r"fused_nodelay_kernelILi(\d+)ELb([01])E"
+
+    def instance(line):
+        m = re.search(pattern, line)
+        return (int(m.group(1)), m.group(2) == "1") if m else None
+
+    out = {}
+    entry = props = None
+    for line in build_log.splitlines():
+        if "Compiling entry" in line:
+            entry = instance(line)
+        elif "Function properties for" in line:
+            props = instance(line)
+        elif props is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[props] = [None, int(st), int(ld)]
+        elif entry is not None and "Used" in line and entry in out:
+            out[entry][0] = int(re.search(r"Used (\d+) registers",
+                                          line).group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def compare_kernels(x, fused, errs, phase):
@@ -150,7 +192,12 @@ def compare_kernels(x, fused, errs, phase):
         raise RuntimeError(f"rfft kernel disagrees at N={n}, B={batch}: "
                            f"{rel:.3e}")
     del got, ref
+    compare_fused(x, fused, errs, phase)
 
+
+def compare_fused(x, fused, errs, phase):
+    """The fused kernel against its plain twin on ``x``, every slot."""
+    n, batch = x.shape[-1], x.shape[0]
     amp_k, chi2_k = fused.kernel(x)
     amp_p, chi2_p = fused.plain(x)
     torch.cuda.synchronize(x.device)
@@ -159,12 +206,25 @@ def compare_kernels(x, fused, errs, phase):
     amp_abs = float((amp_k.double() - amp_p.double()).abs().max())
     errs["fused_nodelay_of"][0] = max(errs["fused_nodelay_of"][0], amp_abs)
     errs["fused_nodelay_of"][1] = max(errs["fused_nodelay_of"][1], amp_rel)
-    log(f"[{phase}] fused_nodelay_of N={n} B={batch}: amp max|Δ| "
-        f"{amp_abs:.3e}, rel {amp_rel:.3e} (tol {AMP_RTOL:g}); χ² rel "
-        f"{chi2_rel:.3e} (tol {CHI2_RTOL:g})")
+    log(f"[{phase}] fused_nodelay_of N={n} B={batch} S={fused.nslots}: amp "
+        f"max|Δ| {amp_abs:.3e}, rel {amp_rel:.3e} (tol {AMP_RTOL:g}); χ² "
+        f"rel {chi2_rel:.3e} (tol {CHI2_RTOL:g})")
     if not (amp_rel <= AMP_RTOL and chi2_rel <= CHI2_RTOL):
         raise RuntimeError(f"fused no-delay kernel disagrees at N={n}, "
-                           f"B={batch}")
+                           f"B={batch}, S={fused.nslots}")
+
+
+def log_chi2_floor(x, fused, fused64):
+    """The χ² of the kernel and of its float32 plain twin, each against
+    the float64 plain twin on the same traces: the float32 cancellation
+    floor of χ²₀ − q²/norm that CHI2_RTOL allows for."""
+    _, chi2_k = fused.kernel(x)
+    _, chi2_p = fused.plain(x)
+    _, chi2_d = fused64.plain(x.double())
+    torch.cuda.synchronize(x.device)
+    log(f"[c] fused_nodelay_of N={x.shape[-1]}: χ² rel against float64: "
+        f"kernel {rel_err(chi2_k, chi2_d):.3e}, plain "
+        f"{rel_err(chi2_p, chi2_d):.3e}")
 
 
 def phase_c(device, ns=cuda_fft.SUPPORTED_N, batch=CHECK_B):
@@ -175,19 +235,19 @@ def phase_c(device, ns=cuda_fft.SUPPORTED_N, batch=CHECK_B):
         fused = FusedNodelayOF.from_bank(
             filterbank.bank_to_torch(bank, device, torch.float32))
         compare_kernels(x, fused, errs, "c")
-    # a known gap against the JAX package: the kernel holds at most
-    # max_slots slots and must refuse more, not compute them wrongly
-    max_slots = _kernels.lib().dp_fused_nodelay_of_max_slots()
-    too_many = FusedNodelayOF.from_bank(
-        filterbank.bank_to_torch(bank, device, torch.float32),
-        slots=[0] * (max_slots + 1))
-    try:
-        too_many.kernel(x)
-    except ValueError as e:
-        log(f"[c] fused_nodelay_of with {max_slots + 1} slots refused: {e}")
-    else:
-        raise RuntimeError(f"fused_nodelay_of took {max_slots + 1} slots, "
-                           f"more than its {max_slots}")
+        log_chi2_floor(x, fused, FusedNodelayOF.from_bank(
+            filterbank.bank_to_torch(bank, device, torch.float64)))
+    # more slots than one group: the same bank row in every slot
+    # but with slot-dependent scales, so that a slot mixed up shows
+    tb = filterbank.bank_to_torch(bank, device, torch.float32)
+    for nslots in SLOT_CHECKS:
+        scale = torch.arange(1, nslots + 1, device=device,
+                             dtype=torch.float32)
+        many = FusedNodelayOF(tb["phi_h"][[0] * nslots] * scale[:, None],
+                              tb["denom_inv_h"][[0] * nslots]
+                              * scale[:, None], tb["bin_w"],
+                              tb["norm"][[0] * nslots] * scale ** 2)
+        compare_fused(x, many, errs, "c")
     return errs
 
 
@@ -314,7 +374,53 @@ def log_rfft_time(n, k_ms, p_ms, card):
         f"({100 * share['cuFFT']:.1f}%) (on {card})")
 
 
-def phase_d(device, card, errs):
+def bound(name, n, batch, nslots=1):
+    """(ms, "bytes" or "operations"): the least time of one call on
+    ``batch`` traces of length ``n``, the larger of its bytes (each input
+    read once, each output written once) over the HBM peak and its float32
+    operations over the non-tensor peak. Operations: 5·M·log2 M for the
+    packed M = N/2-point complex FFT, 10 a bin for the untangle; the fused
+    kernel adds |X|² (3) and 6 a bin and slot for its two sums."""
+    m = n // 2
+    ops = batch * (5 * m * np.log2(m) + 10 * m)
+    if name == "rfft":
+        nbytes = batch * (4 * n + 8 * (m + 1))
+    else:
+        nbytes = batch * (4 * n + 16 * nslots) + 12 * nslots * (m + 1)
+        ops += batch * (m + 1) * (3 + 6 * nslots)
+    t_bytes, t_ops = nbytes / HBM_PEAK, ops / F32_PEAK
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def log_fused_time(n, k_ms, p_ms, card):
+    """The fused kernel's and its plain twin's time at B = BATCH, with the
+    kernel's share of the HBM peak (4·N bytes read per trace)."""
+    share = BATCH * 4 * n / (k_ms * 1e-3) / HBM_PEAK
+    b_ms, _ = bound("fused_nodelay_of", n, BATCH)
+    log(f"[d] fused_nodelay_of at B={BATCH}, N={n}: kernel {k_ms:.4f} ms "
+        f"({100 * share:.1f}% of HBM peak; bound {b_ms:.4f} ms), plain "
+        f"{p_ms:.4f} ms (on {card})")
+
+
+def log_phase_clocks(fused, x, card):
+    """Mean SM clocks per trace of the fused kernel's phases, from one
+    launch of its stamped instance on ``x``."""
+    stamps = fused.phase_clocks(x).double().mean(dim=0).tolist()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    names = ("load", "FFT passes", "untangle and sums", "reduction")
+    total = sum(stamps)
+    log(f"[d] fused_nodelay_of phase clocks, N={x.shape[-1]}, B="
+        f"{x.shape[0]}, mean SM clocks per trace: "
+        + "; ".join(f"{k} {v:.0f} ({100 * v / total:.1f}%)"
+                    for k, v in zip(names, stamps))
+        + f"; total {total:.0f} (SM clock after the run: {smi}; on {card})")
+    return dict(zip(names, stamps))
+
+
+def phase_d(device, card, errs, regs):
     # the package's entry point on the card (N = 16384, 16 events)
     small, (x,) = entry(device)
     cols = small(x)
@@ -413,26 +519,44 @@ def phase_d(device, card, errs):
         log(f"[d] {name} at B={BATCH}, N={N}: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms (on {card})")
     log_rfft_time(N, *timings["rfft"], card)
+    log_fused_time(N, *timings["fused_nodelay_of"], card)
     x = torch.randn((BATCH, N // 2), generator=gen, device=device)
     log_rfft_time(N // 2, *time_pair(lambda: cuda_fft.rfft_kernel(x),
                                      lambda: cuda_fft.rfft_plain(x)), card)
+    half = FusedNodelayOF.from_bank(filterbank.bank_to_torch(
+        build_bank(N // 2, N // 4, FS)[0], device, torch.float32))
+    log_fused_time(N // 2, *time_pair(lambda: half.kernel(x),
+                                      lambda: half.plain(x)), card)
+    for log2m in (13, 14):
+        nreg, st, ld = regs[(log2m, False)]
+        log(f"[d] fused_nodelay_of N={2 << log2m}: {nreg} registers, {st} "
+            f"bytes spill stores, {ld} bytes spill loads (ptxas)")
+    log_phase_clocks(half, x, card)
+    log_phase_clocks(fused, tr, card)
     return launches, timings
 
 
 def main():
     device, card = phase_a()
-    phase_b()
+    regs = phase_b()
     errs = phase_c(device)
-    launches, timings = phase_d(device, card, errs)
-    kernels = [{"name": name, "route": "cuda",
-                "source": KERNEL_INFO[name]["source"],
-                "replaces": KERNEL_INFO[name]["replaces"],
-                "launches": launches[name],
-                "max_abs_err": errs[name][0],
-                "max_rel_err": errs[name][1],
-                "ms": timings[name][0],
-                "plain_ms": timings[name][1]}
-               for name in _kernels.KERNELS]
+    launches, timings = phase_d(device, card, errs, regs)
+    kernels = []
+    for name in _kernels.KERNELS:
+        b_ms, b_by = bound(name, N, BATCH)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": KERNEL_INFO[name]["source"],
+            "replaces": KERNEL_INFO[name]["replaces"],
+            "launches": launches[name],
+            "max_abs_err": errs[name][0],
+            "max_rel_err": errs[name][1],
+            "ms": timings[name][0],
+            "plain_ms": timings[name][1],
+            "bound_ms": b_ms, "bound_by": b_by,
+            # the rFFT's plain twin is the one PyTorch call torch.fft.rfft
+            # (cuFFT); no single call computes the fused sums
+            "library_ms": timings[name][1] if name == "rfft" else None})
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

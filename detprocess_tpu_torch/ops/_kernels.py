@@ -125,11 +125,12 @@ def lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         handle.dp_rfft_f32.argtypes = [p, p, p, ll, i, i, p]
         handle.dp_rfft_f32.restype = i
-        handle.dp_fused_nodelay_of_f32.argtypes = [p, p, p, p, p, i, ll, i,
-                                                   p, p, i, p]
+        handle.dp_fused_nodelay_of_f32.argtypes = [p, p, p, p, i, ll, i, p,
+                                                   p, i, p]
         handle.dp_fused_nodelay_of_f32.restype = i
-        handle.dp_fused_nodelay_of_max_slots.argtypes = []
-        handle.dp_fused_nodelay_of_max_slots.restype = i
+        handle.dp_fused_nodelay_of_stamped_f32.argtypes = [p, p, p, p, i, ll,
+                                                           i, p, p, p, i, p]
+        handle.dp_fused_nodelay_of_stamped_f32.restype = i
         handle.dp_error_string.argtypes = [i]
         handle.dp_error_string.restype = ctypes.c_char_p
         _lib = handle

@@ -8,16 +8,19 @@ float32 tolerances of tests/test_pallas_kernels.py (amp rtol 1e-5, χ²
 rtol 5e-3: χ² sits at the float32 cancellation floor of χ²₀ − q²/norm).
 """
 
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+import fused_model
 from detprocess_tpu.models import pulse as jpulse
 from detprocess_tpu.ops import filterbank as jfb
 from detprocess_tpu.ops import of1x1 as jof
 from detprocess_tpu.ops.pallas_of import FusedNodelayOF as PallasFused
-from detprocess_tpu_torch.ops import _kernels
+from detprocess_tpu_torch.ops import _kernels, cuda_fft
 from detprocess_tpu_torch.ops import filterbank as tfb
 from detprocess_tpu_torch.ops import fft as tfft
 from detprocess_tpu_torch.ops import of1x1 as tof
@@ -223,21 +226,71 @@ def test_fused_nodelay_from_bank_slots(setup):
     np.testing.assert_allclose(one(x)[0][:, 0].numpy(),
                                both(x)[0][:, 1].numpy(), rtol=1e-14)
     assert set(dict(one.named_buffers())) == {"phi_h", "denom_inv_h",
-                                              "bin_w", "norm"}
+                                              "bin_w", "norm", "phi_w",
+                                              "dinv_w"}
+    # the folded rows are rebuilt from the others, not saved
+    assert set(one.state_dict()) == {"phi_h", "denom_inv_h", "bin_w",
+                                     "norm"}
 
 
 def test_fused_nodelay_kernel_slot_limit(setup):
-    """A known gap against the JAX package: on a CUDA tensor the kernel
-    takes at most kMaxSlots = 8 bank slots, where the plain twin (and
-    detprocess_tpu's FusedNodelayOF) take any number."""
+    """The kernel holds no slot cap: its source has none, its wrapper
+    raises for none, and the numpy model of the kernel (slot groups of
+    4, 2, 1 over one spectrum) takes 9 and 17 slots, each equal to the
+    single-slot sums of the same bank row."""
     src = (_kernels.CSRC_DIR / "fused_nodelay_of.cu").read_text()
-    assert "constexpr int kMaxSlots = 8;" in src
+    assert "kMaxSlots" not in src and "max_slots" not in src
+    wrapper = (_kernels.CSRC_DIR.parent / "ops" / "cuda_of.py").read_text()
+    assert "max_slots" not in wrapper
     bank, traces, bh, tb, vr_j, vr_t = setup
-    nine = FusedNodelayOF.from_bank(tb, slots=[0, 1] * 4 + [0])
-    amp, chi2 = nine(torch.as_tensor(traces))
-    assert amp.shape == chi2.shape == (NB, 9)
-    np.testing.assert_allclose(amp[:, 8].numpy(), amp[:, 0].numpy(),
-                               rtol=1e-14)
+    tw = np.exp(-2j * np.pi * np.arange(N // 2) / N)
+    one = FusedNodelayOF.from_bank(tb)
+    q1, c1 = fused_model.fused_sums(traces, tw, one.phi_w.numpy(),
+                                    one.dinv_w.numpy())
+    for nslots in (9, 17):
+        slots = [i % 2 for i in range(nslots)]
+        many = FusedNodelayOF.from_bank(tb, slots=slots)
+        q, c0 = fused_model.fused_sums(traces, tw, many.phi_w.numpy(),
+                                       many.dinv_w.numpy())
+        assert q.shape == c0.shape == (NB, nslots)
+        np.testing.assert_allclose(q, q1[:, slots], rtol=1e-12)
+        np.testing.assert_allclose(c0, c1[:, slots], rtol=1e-12)
+        amp, chi2 = many(torch.as_tensor(traces))
+        assert amp.shape == chi2.shape == (NB, nslots)
+        np.testing.assert_allclose(amp[:, 8].numpy(), amp[:, 0].numpy(),
+                                   rtol=1e-14)
+
+
+@pytest.mark.parametrize("method,batch,counted", [
+    ("kernel", 3, 1), ("kernel", 0, 0), ("phase_clocks", 3, 0)])
+def test_fused_nodelay_counts_only_main_path_launches(setup, monkeypatch,
+                                                      method, batch,
+                                                      counted):
+    """The wrapper adds one to the launch count where it launches the
+    main-path kernel, and nowhere else: not for an empty batch (nothing
+    is launched) and not for the stamped instance. The C library, the
+    device check and the stream are stood in for on the CPU."""
+    bank, traces, bh, tb, vr_j, vr_t = setup
+    fused = FusedNodelayOF.from_bank(tfb.bank_from_jax(
+        bank.to_device(np.float64), "cpu", torch.float32))
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    lib = types.SimpleNamespace(dp_fused_nodelay_of_f32=entry,
+                                dp_fused_nodelay_of_stamped_f32=entry)
+    monkeypatch.setattr(_kernels, "lib", lambda: lib)
+    monkeypatch.setattr(cuda_fft, "check_kernel_input",
+                        lambda x, name: x.shape[-1])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    _kernels.reset_launch_counts()
+    getattr(fused, method)(torch.zeros(batch, N, dtype=torch.float32))
+    assert len(calls) == (1 if batch else 0)
+    assert _kernels.launch_counts() == {"rfft": 0,
+                                        "fused_nodelay_of": counted}
 
 
 def test_fused_nodelay_validates_bank_and_input(setup):
