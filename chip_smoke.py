@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of detprocess_tpu_torch: the of1x1 feature step on one card.
+"""GPU smoke run of detprocess_tpu_torch: the of1x1 feature step and the
+continuous-data trigger step on one card.
 
     python3 chip_smoke.py
 
@@ -29,11 +30,42 @@ d. slice: entry() once, then FeatureStep at the benchmark's size
    at N = 16384, the entry() length, and with its share of the HBM peak;
    the fused kernel's time and HBM share at B = 8192, N = 16384 and
    32768, and the SM clocks of its phases in one stamped launch.
+e. trigger: trigger_entry() once on its noise batch, then TriggerStep at
+   the trigger_entry() configuration (8 events of
+   1,250,000 samples at 1.25 MHz, Nt = 4096, flat PSD 4e-18 A²/Hz,
+   window 125, 5σ, capacity 4096, saturation veto on) in base and in
+   residual mode, 8 batches each, with 10 pulses of 10 resolution σ per
+   event and one that saturates the low-passed trace, injected on the
+   card at known indices (seeded torch.Generator). It fails unless every
+   pulse is triggered within ±256 samples and 5σ in amplitude (the
+   saturating one in the residual pass too, since the veto keeps it from
+   the subtraction), the 10σ pulses' median |offset| and mean offset stay
+   within the float64 reference's range, the worst pulse's event gives
+   the same triggers and offset in the float64 CPU run, event 0 of the
+   first batch agrees with the float64 CPU run of the same step (the same
+   indices but for triggers whose Δχ² is within 1e-3 of the threshold;
+   Δχ² and amplitudes within rtol 1e-4; the same saturation mask; the
+   first-pass and residual Δχ² series within 1e-4 of √(|Δχ²|·its
+   largest value within one FIR segment) + threshold at every sample),
+   and the rFFT kernel ran once a batch for the FIR and
+   once more in residual mode for the subtraction's convolution. It
+   checks the rFFT kernel against its twin on the path's segments
+   (F = 16384 and 32768), and prints Msamples/s (CUDA events; also the
+   host clock), the device busy share of one batch (torch.profiler) and
+   its largest kernels, per-layer ms (CUDA events around each layer of
+   TriggerStep.forward, through its run_layer hook, so host gaps count),
+   and the launches of each kernel and of the cuFFT route.
+f. lengths outside the kernels' domain: FeatureStep at N = 25000 and
+   65536 on 64 events: neither kernel launches, the cuFFT route runs, and
+   the first events agree with the float64 CPU step within phase (d)'s
+   tolerances.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
-peak or float32 operations over the non-tensor peak, the larger) and the
-one PyTorch call that computes the same function, where there is one.
+peak or float32 operations over the non-tensor peak, the larger), the
+one PyTorch call that computes the same function, where there is one, and
+its launches on each path (feature: phase d; trigger: phase e's residual
+run), whose sum is ``launches``.
 Needs one CUDA device; imports no JAX.
 """
 
@@ -43,6 +75,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,13 +84,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from detprocess_tpu_torch import device as dev  # noqa: E402
+from detprocess_tpu_torch import entry as tentry  # noqa: E402
 from detprocess_tpu_torch.entry import build_bank, entry  # noqa: E402
 from detprocess_tpu_torch.ops import _kernels, cuda_fft  # noqa: E402
 from detprocess_tpu_torch.ops import fft, filterbank, of1x1  # noqa: E402
+from detprocess_tpu_torch.ops import trigger  # noqa: E402
 from detprocess_tpu_torch.ops import tracestats  # noqa: E402
 from detprocess_tpu_torch.ops.cuda_of import FusedNodelayOF  # noqa: E402
 from detprocess_tpu_torch.pipelines.feature_step import (  # noqa: E402
     FeatureStep)
+from detprocess_tpu_torch.pipelines.trigger_step import (  # noqa: E402
+    TriggerStep)
 
 FS = 1.25e6
 N = 32768
@@ -85,6 +122,33 @@ REF_EVENTS = 16
 LOW_FCUT = 10000.0       # FeatureStep's default lowchi2_fcutoff
 REF_RTOL = {"amp": 1e-4, "chi2": 5e-3, "lowchi2": 2e-2, "baseline": 1e-4,
             "integral": 1e-4}
+
+# phase (e): the trigger step
+TRIG_BATCHES = 8
+TRIG_PULSES = 10         # per event, at TRIG_PULSE_SIGMA resolutions
+TRIG_PULSE_SIGMA = 10.0
+# index limits from the float64 CPU reference's distribution of 48,000
+# 10σ pulses (scripts/trigger_offsets.py --device cpu --dtype float64
+# --batches 40, seeds 1 and 2): |offset| median 6, 99 % 32, largest 87
+# samples, 11 beyond 64; signed offset mean 0.01, rms 10.1. The slow
+# template's Δχ² peak is broad and flat when noise pulls a pulse low (a
+# 7.5σ draw peaked 103 samples off, in the reference too), so the tail is
+# long. A pulse counts as found within 256 samples, inside the span of its
+# own above-threshold group; the worst pulse is checked against the
+# float64 run, and the median and mean over all pulses catch a shift of
+# the alignment far below that limit.
+TRIG_INDEX_TOL = 256
+TRIG_MEDIAN_TOL = 9.0
+TRIG_MEAN_TOL = 2.0      # 5× the rms over √640
+TRIG_AMP_TOL = 5.0       # resolutions
+# one pulse an event that the saturation veto flags (1.5× its level; the
+# low-pass keeps the template's peak)
+TRIG_SAT_PULSE = 1.5 * tentry.TRIGGER_SAT_RESOLUTIONS
+TRIG_NEAR_THRESHOLD = 1e-3   # relative: such triggers may differ
+TRIG_RTOL = 1e-4         # Δχ² and amplitudes against the float64 CPU run
+# phase (f): lengths outside the kernels' domain
+OFF_KERNEL_N = (25000, 65536)
+OFF_KERNEL_B = 64
 
 KERNEL_INFO = {
     "rfft": {"source": "detprocess_tpu_torch/csrc/rfft.cu",
@@ -296,11 +360,11 @@ def layer_times(step, raw):
     return ms
 
 
-def cpu_step_reference(raw, bank):
+def cpu_step_reference(raw, bank, n=N):
     """The first events through the same step in float64 on the CPU."""
     ref_step = FeatureStep(
         filterbank.bank_to_torch(bank, "cpu", torch.float64), [CHAN], FS,
-        PRETRIG, N)
+        n // 2, n)
     return ref_step(raw[:REF_EVENTS].double().cpu())
 
 
@@ -323,7 +387,7 @@ def loop_reference(raw, template, psd):
     return {k: torch.tensor(v, dtype=torch.float64) for k, v in cols.items()}
 
 
-def check_reference(out, raw, ref, what):
+def check_reference(out, raw, ref, what, phase="d"):
     """The slice's first events against the float64 reference columns
     ``ref``, within float32 tolerances (t0 within one sample)."""
     scale = float(raw[:REF_EVENTS].abs().mean())
@@ -345,7 +409,7 @@ def check_reference(out, raw, ref, what):
         if not ok:
             raise RuntimeError(f"{key} disagrees with {what}: "
                                f"{worst[key]}")
-    log(f"[d] first {REF_EVENTS} events vs {what}: "
+    log(f"[{phase}] first {REF_EVENTS} events vs {what}: "
         + "; ".join(f"{k} {v}" for k, v in worst.items()))
 
 
@@ -536,19 +600,472 @@ def phase_d(device, card, errs, regs):
     return launches, timings
 
 
+class TriggerBatch(NamedTuple):
+    x: torch.Tensor            # [E, 1, L]
+    idx: torch.Tensor          # [E, TRIG_PULSES] injected pulse indices
+    amp: float                 # their amplitude
+    sat_idx: torch.Tensor      # [E, 1] the saturating pulse's index
+    sat_amp: float             # its amplitude
+
+
+def trigger_batch(gen, kernel, tmpl, device):
+    """One trigger batch made on the card: white noise of the
+    configuration's PSD, TRIG_PULSES pulses per event of TRIG_PULSE_SIGMA
+    resolutions, one in each L/TRIG_PULSES slot at a random index at least
+    F + 2·Nt from the slot's edges, and one pulse of TRIG_SAT_PULSE
+    resolutions, which saturates the low-passed trace, on a random inner
+    slot boundary. So every pulse is clear of the trace edges and of the
+    others' responses, and no 10σ pulse shares an FIR segment (F samples)
+    with the saturating one, whose float32 rounding would swamp it."""
+    e, l, nt = tentry.TRIGGER_EVENTS, tentry.TRIGGER_L, kernel.nt
+    x = torch.randn((e, l), generator=gen, device=device) * np.sqrt(
+        tentry.TRIGGER_PSD * FS)
+    slot = l // TRIG_PULSES
+    edge = kernel.fft_size + 2 * nt
+    offs = torch.randint(edge, slot - edge, (e, TRIG_PULSES), generator=gen,
+                         device=device)
+    idx = torch.arange(TRIG_PULSES, device=device) * slot + offs
+    sat_idx = torch.randint(1, TRIG_PULSES, (e, 1), generator=gen,
+                            device=device) * slot
+    res = float(kernel.resolution[0])
+    amp, sat_amp = TRIG_PULSE_SIGMA * res, TRIG_SAT_PULSE * res
+    every = torch.cat([idx, sat_idx], dim=-1)
+    scale = torch.full(every.shape, amp, device=device)
+    scale[:, -1] = sat_amp
+    cols = ((every - kernel.pretrigger)[..., None]
+            + torch.arange(nt, device=device)).reshape(e, -1)
+    x.scatter_add_(-1, cols, (scale[..., None] * tmpl).reshape(e, -1))
+    return TriggerBatch(x[:, None, :], idx, amp, sat_idx, sat_amp)
+
+
+def pulse_errors(ts, idx, amp, sigma):
+    """(|index offset| [E, P], signed offset, amplitude error in
+    resolutions) of the trigger nearest each pulse at ``idx`` [E, P] of
+    amplitude ``amp``; the offset is int64's max where an event has no
+    trigger."""
+    got_i = ts.indices[:, None, :]                       # [E, 1, K]
+    near = (got_i - idx[..., None]).abs()                # [E, P, K]
+    near = torch.where(got_i >= 0, near, torch.iinfo(near.dtype).max)
+    dist, slot = near.min(dim=-1)
+    signed = ts.indices.gather(-1, slot) - idx
+    got_a = ts.amplitudes[:, 0, :].gather(-1, slot)
+    return dist, signed, ((got_a - amp).abs() / sigma).double()
+
+
+def check_pulses(dist, a_err, what):
+    worst_i, worst_a = int(dist.max()), float(a_err.max())
+    if worst_i > TRIG_INDEX_TOL or worst_a > TRIG_AMP_TOL:
+        raise RuntimeError(f"{what}: injected pulse not recovered (worst "
+                           f"index offset {worst_i}, amplitude error "
+                           f"{worst_a:.3f} σ)")
+
+
+def check_offsets(dist, signed, what):
+    """The 10σ pulses' offsets as a whole: the median |offset| and the
+    mean signed offset within their limits (a shift of the time alignment
+    moves them long before the worst pulse passes TRIG_INDEX_TOL)."""
+    med = float(dist.double().median())
+    mean = float(signed.double().mean())
+    q = torch.quantile(dist.double(), torch.tensor(
+        [0.9, 0.99], dtype=torch.float64, device=dist.device))
+    log(f"[e] {what}: |index offset| of {dist.numel()} {TRIG_PULSE_SIGMA:g}σ"
+        f" pulses: median {med:g}, 90% {float(q[0]):g}, 99% {float(q[1]):g},"
+        f" max {int(dist.max())} samples; mean signed offset {mean:.4f}")
+    if med > TRIG_MEDIAN_TOL or abs(mean) > TRIG_MEAN_TOL:
+        raise RuntimeError(f"{what}: offsets shifted (median {med:g} > "
+                           f"{TRIG_MEDIAN_TOL} or |mean| {abs(mean):.4f} > "
+                           f"{TRIG_MEAN_TOL})")
+
+
+def compare_trigger_sets(got, ref, threshold, what):
+    """One event's trigger set from the card against the float64 CPU run:
+    the same indices except for triggers whose Δχ² is within
+    TRIG_NEAR_THRESHOLD of the threshold; Δχ² and amplitudes of the common
+    triggers within TRIG_RTOL. Returns (common, max rel Δχ², max rel
+    amplitude, indices in only one of the two)."""
+    gi = got.indices[:int(got.count)]
+    ri = ref.indices[:int(ref.count)]
+    for mine, other, d, side in ((gi, ri, got.dchi2, "card"),
+                                 (ri, gi, ref.dchi2, "CPU")):
+        for k in np.flatnonzero(~np.isin(mine, other)):
+            if abs(float(d[k]) - threshold) > TRIG_NEAR_THRESHOLD * threshold:
+                raise RuntimeError(
+                    f"{what}: trigger at {int(mine[k])} (Δχ² {float(d[k]):.6g})"
+                    f" only in the {side} run")
+    common, gk, rk = np.intersect1d(gi, ri, return_indices=True)
+    d_rel = a_rel = 0.0
+    if len(common):
+        gd, rd = got.dchi2[gk].astype(np.float64), ref.dchi2[rk]
+        ga = got.amplitudes[:, gk].astype(np.float64)
+        ra = ref.amplitudes[:, rk]
+        d_rel = float(np.max(np.abs(gd - rd) / np.abs(rd)))
+        a_rel = float(np.max(np.abs(ga - ra) / np.abs(ra)))
+    if not (d_rel <= TRIG_RTOL and a_rel <= TRIG_RTOL):
+        raise RuntimeError(f"{what}: Δχ² rel {d_rel:.3e} or amplitude rel "
+                           f"{a_rel:.3e} above {TRIG_RTOL:g}")
+    return len(common), d_rel, a_rel, np.setxor1d(gi, ri)
+
+
+def compare_series(got, ref, first, fft_size, threshold, skip, what):
+    """A Δχ² series of one event [L] from the card against the float64 CPU
+    run: |got − ref| ≤ TRIG_RTOL·(√(|Δχ²|·D) + threshold) at every sample
+    outside ``skip``, Δχ² the first-pass series ``first`` of the CPU run
+    and D its largest |value| within one FIR segment (± ``fft_size``).
+    That is how float32 rounding grows: Δχ² = q², and the error of q from
+    the segment's transforms follows the largest |q| the segment holds.
+    Returns the largest ratio of the error to that bound."""
+    mag = first.abs()
+    bound = torch.sqrt(mag * trigger._dilate(mag, fft_size)) + threshold
+    err = (got.double() - ref).abs() / bound
+    worst = float(err[~skip].max())
+    if not worst <= TRIG_RTOL:
+        k = int(torch.where(skip, 0.0, err).argmax())
+        raise RuntimeError(f"{what}: sample {k} off by {worst:.3e} of its "
+                           f"bound (tol {TRIG_RTOL:g}): card "
+                           f"{float(got[k]):.6g}, CPU {float(ref[k]):.6g}")
+    return worst
+def keep_layers(store):
+    """A ``run_layer`` hook for TriggerStep that keeps each layer's result
+    under its name."""
+    def run(name, fn, *args):
+        store[name] = fn(*args)
+        return store[name]
+    return run
+
+
+def trigger_layer_times(step, x):
+    """Each layer of one TriggerStep batch, through the step's own
+    ``run_layer`` hook: {layer: (CUDA-event ms, device ms)}. The CUDA
+    events bracket each layer with the card synchronised between layers,
+    so they include the host's enqueue time; the device ms are the layer's
+    kernels, copies and fills in a second, profiled run (torch.profiler,
+    summed under the layer's record_function range)."""
+    def timed(times):
+        def run(name, fn, *args):
+            with torch.profiler.record_function(name), dev.CudaTimer() as t:
+                out = fn(*args)
+            times[name] = t.ms
+            return out
+        return run
+
+    event_ms = {}
+    step(x, run_layer=timed(event_ms))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(x, run_layer=timed({}))
+        torch.cuda.synchronize(x.device)
+    device_ms = dict.fromkeys(event_ms, 0.0)
+    for e in prof.events():
+        if (e.name in device_ms
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            device_ms[e.name] += e.device_time_total / 1e3
+    return {k: (event_ms[k], device_ms[k]) for k in event_ms}
+
+
+def device_busy(step, x, device):
+    """One batch of ``step`` under torch.profiler: (device busy ms, the
+    sum of the device time of every kernel, copy and fill; the kernels
+    with the most device time, [(name, ms)])."""
+    step(x)
+    torch.cuda.synchronize(device)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(x)
+        torch.cuda.synchronize(device)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev_events) / 1e3
+    by_name = {}
+    for e in dev_events:
+        by_name[e.name[:70]] = (by_name.get(e.name[:70], 0.0)
+                                + e.device_time_total / 1e3)
+    return busy, sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+
+def run_trigger(step, batches, device):
+    """The main path: ``step`` over every batch with the counts set to 0
+    just before; returns (outputs, device ms, host ms, launches, library
+    calls)."""
+    step(batches[0].x)                                # warm-up
+    torch.cuda.synchronize(device)
+    _kernels.reset_launch_counts()
+    t_host = time.perf_counter()
+    with dev.CudaTimer() as t:
+        outs = [step(b.x) for b in batches]
+    ms = t.ms
+    host_ms = 1e3 * (time.perf_counter() - t_host)
+    return (outs, ms, host_ms, _kernels.launch_counts(),
+            _kernels.library_counts())
+
+
+def check_recovery(mode, outs, batches, sigma):
+    """Every injected pulse of every batch found (the saturating one in
+    both passes: the veto keeps it from the subtraction); returns the 10σ
+    pulses' (|offset|, signed offset) [batches, E, P]."""
+    dists, signs, a_errs, sat_errs = [], [], [], []
+    for (ts, ts2), b in zip(outs, batches):
+        d, s, a = pulse_errors(ts, b.idx, b.amp, sigma)
+        check_pulses(d, a, f"trigger {mode}")
+        dists.append(d)
+        signs.append(s)
+        a_errs.append(a)
+        for p, t in ((1, ts), (2, ts2)):
+            if t is not None:
+                d, _, a = pulse_errors(t, b.sat_idx, b.sat_amp, sigma)
+                check_pulses(d, a, f"trigger {mode} pass {p}, the "
+                             "saturating pulse")
+                sat_errs.append((int(d.max()), float(a.max())))
+    log(f"[e] {mode}: all {len(batches) * b.idx.numel()} injected "
+        f"{TRIG_PULSE_SIGMA:g}σ pulses triggered within ±{TRIG_INDEX_TOL} "
+        f"samples (worst amplitude error "
+        f"{max(float(a.max()) for a in a_errs):.3f} σ); "
+        f"the {TRIG_SAT_PULSE:g}σ saturating pulse of each event found in "
+        f"{'both passes' if mode == 'residual' else 'the first pass'} (worst "
+        f"offset {max(e[0] for e in sat_errs)}, amplitude error "
+        f"{max(e[1] for e in sat_errs):.3f} σ); first-pass triggers per "
+        f"batch {[int(ts.count.sum()) for ts, _ in outs]}")
+    return torch.stack(dists), torch.stack(signs)
+
+
+def check_worst_pulse(dists, step, batches, args, sat, sigma):
+    """The 10σ pulse with the largest offset, its event run again on the
+    CPU in float64: the same triggers, and the same offset."""
+    bi, ei, pi = np.unravel_index(int(dists.argmax()), tuple(dists.shape))
+    b = batches[bi]
+    k64, _, _ = tentry.build_trigger(real_dtype=np.float64)
+    ref_step = TriggerStep(k64, None, *args, sat_amps=sat, device="cpu",
+                           dtype=torch.float64)
+    ref, _ = ref_step(b.x[ei:ei + 1].double().cpu())
+    got, _ = step(b.x)
+    what = f"the worst pulse (batch {bi}, event {ei}, pulse {pi})"
+    n, _, _, _ = compare_trigger_sets(trigger.event_set(got, ei),
+                                      trigger.event_set(ref, 0),
+                                      step.threshold, what)
+    idx = b.idx[ei:ei + 1].cpu()
+    _, s_ref, _ = pulse_errors(ref, idx, b.amp, sigma)
+    _, s_got, _ = pulse_errors(got, b.idx, b.amp, sigma)
+    card_off, ref_off = int(s_got[ei, pi]), int(s_ref[0, pi])
+    log(f"[e] {what}, injected at {int(idx[0, pi])}: card offset {card_off},"
+        f" float64 CPU offset {ref_off} samples; event {ei}: {n} common "
+        "triggers with the CPU run")
+    if card_off != ref_off:
+        raise RuntimeError(f"{what}: card offset {card_off}, float64 CPU "
+                           f"offset {ref_off}")
+
+
+def check_event0(steps, results, batches, args, sat):
+    """Event 0 of the first batch against the float64 CPU run of the
+    residual step: trigger sets of both passes (both modes), the
+    saturation mask, and the first-pass and residual Δχ² series."""
+    k64, b64, _ = tentry.build_trigger(real_dtype=np.float64)
+    ref_step = TriggerStep(k64, b64, *args, run_residual=True, sat_amps=sat,
+                           device="cpu", dtype=torch.float64)
+    ref_layers, card_layers = {}, {}
+    refs = ref_step(batches[0].x[:1].double().cpu(),
+                    run_layer=keep_layers(ref_layers))
+    steps["residual"](batches[0].x, run_layer=keep_layers(card_layers))
+    thr = steps["residual"].threshold
+    only_one = []
+    for mode, step in steps.items():
+        for p, (got, ref) in enumerate(zip(results[mode][0][0], refs)):
+            if got is None:
+                continue
+            n, d_rel, a_rel, diff = compare_trigger_sets(
+                trigger.event_set(got, 0), trigger.event_set(ref, 0), thr,
+                f"trigger {mode} pass {p + 1}")
+            only_one.extend(diff.tolist())
+            log(f"[e] {mode} pass {p + 1}, event 0 vs the float64 CPU run: "
+                f"{n} common triggers, Δχ² rel {d_rel:.3e}, amplitude rel "
+                f"{a_rel:.3e} (tol {TRIG_RTOL:g})")
+
+    l = tentry.TRIGGER_L
+    mask_got = card_layers["LPF + saturation"][0].cpu()
+    mask_ref = ref_layers["LPF + saturation"][0]
+    flips = int((mask_got != mask_ref).sum())
+    sat0 = int(batches[0].sat_idx[0, 0])
+    log(f"[e] saturation mask, event 0: {int(mask_ref.sum())} samples "
+        f"flagged by the float64 CPU run, {flips} differ on the card; the "
+        f"saturating pulse at {sat0} flagged: {bool(mask_got[sat0])}")
+    if flips or not bool(mask_got[sat0]):
+        raise RuntimeError("saturation mask of event 0 differs from the "
+                           "float64 CPU run or misses the saturating pulse")
+
+    skip = torch.zeros(l, dtype=torch.bool)
+    seg = 2 * tentry.TRIGGER_NT
+    for i in only_one:
+        skip[max(i - seg, 0): i + seg] = True
+    first = ref_layers["Δχ²"][0].flatten()[:l]
+    for name, what in (("Δχ²", "first-pass Δχ²"),
+                       ("residual convolution", "residual Δχ²")):
+        got = card_layers[name][0].flatten()[:l].cpu()
+        ref = ref_layers[name][0].flatten()[:l]
+        worst = compare_series(got, ref, first, k64.fft_size, thr, skip,
+                               what)
+        log(f"[e] {what} series, event 0 vs the float64 CPU run: largest "
+            f"error {worst:.3e} of √(|Δχ²|·segment max) + threshold (tol "
+            f"{TRIG_RTOL:g}; {int(skip.sum())} samples near triggers of one "
+            "run only skipped)")
+
+
+def phase_e(device, card, errs):
+    # the package's trigger entry point on the card (residual mode, noise)
+    entry_step, (x,) = tentry.trigger_entry(device)
+    ts, ts2 = entry_step(x)
+    for name, t in (("first", ts), ("residual", ts2)):
+        if not bool(torch.isfinite(t.dchi2).all() & torch.isfinite(
+                t.amplitudes).all()):
+            raise RuntimeError(f"trigger_entry(): {name} pass not finite")
+    log(f"[e] trigger_entry(): {tuple(x.shape)} noise, "
+        f"{int(ts.count.sum())} + {int(ts2.count.sum())} triggers, "
+        f"capacity {ts.indices.shape[-1]}")
+    del entry_step, x, ts, ts2
+
+    kernel, basis, template = tentry.build_trigger()
+    sat = [tentry.TRIGGER_SAT_RESOLUTIONS * float(kernel.resolution[0])]
+    args = (tentry.TRIGGER_SIGMA, tentry.TRIGGER_WINDOW)
+    steps = {mode: TriggerStep(kernel, basis, *args,
+                               run_residual=(mode == "residual"),
+                               sat_amps=sat, device=device)
+             for mode in ("base", "residual")}
+    sigma = float(kernel.resolution[0])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tmpl = torch.as_tensor(template, dtype=torch.float32, device=device)
+    batches = [trigger_batch(gen, kernel, tmpl, device)
+               for _ in range(TRIG_BATCHES)]
+    nsamples = TRIG_BATCHES * tentry.TRIGGER_EVENTS * tentry.TRIGGER_L
+    expect = {"base": {"rfft": 1, "cufft_rfft": 0},
+              "residual": {"rfft": 2, "cufft_rfft": 1}}
+    results = {}
+    torch.cuda.reset_peak_memory_stats(device)
+    for mode, step in steps.items():
+        outs, ms, host_ms, launches, library = run_trigger(step, batches,
+                                                           device)
+        log(f"[e] trigger {mode}: {nsamples / (ms * 1e3):.1f} Msamples/s "
+            f"on {card} ({TRIG_BATCHES} batches of {tentry.TRIGGER_EVENTS} "
+            f"x {tentry.TRIGGER_L} samples, {ms:.3f} ms device time, CUDA "
+            f"events; host clock {host_ms:.3f} ms, "
+            f"{nsamples / (host_ms * 1e3):.1f} Msamples/s)")
+        log(f"[e] {mode} launches on the path: {launches}; library route: "
+            f"{library}")
+        want = {"rfft": expect[mode]["rfft"] * TRIG_BATCHES,
+                "fused_nodelay_of": 0,
+                "cufft_rfft": expect[mode]["cufft_rfft"] * TRIG_BATCHES}
+        if {**launches, **library} != want:
+            raise RuntimeError(f"trigger {mode}: launches {launches}, "
+                               f"library {library}, expected {want}")
+        dists, signs = check_recovery(mode, outs, batches, sigma)
+        check_offsets(dists, signs, mode)
+        if mode == "residual":
+            log(f"[e] residual-pass triggers per batch "
+                f"{[int(ts2.count.sum()) for _, ts2 in outs]}")
+        else:
+            check_worst_pulse(dists, step, batches, args, sat, sigma)
+        busy, top = device_busy(step, batches[0].x, device)
+        log(f"[e] {mode}: device busy {busy:.3f} ms of {ms / TRIG_BATCHES:.3f}"
+            f" ms a batch ({100 * (1 - busy * TRIG_BATCHES / ms):.1f}% idle; "
+            "torch.profiler, one batch); most device time: "
+            + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+        results[mode] = (outs, ms, launches, library)
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    log(f"[e] peak memory {peak:.2f} GiB")
+
+    check_event0(steps, results, batches, args, sat)
+
+    layers = trigger_layer_times(steps["residual"], batches[0].x)
+    total = max(sum(v[1] for v in layers.values()), 1e-9)
+    log(f"[e] layers of one residual batch ({tentry.TRIGGER_EVENTS} x "
+        f"{tentry.TRIGGER_L}, on {card}), CUDA-event ms / device ms "
+        "(share of device ms): "
+        + "; ".join(f"{k} {ev:.3f} / {dv:.3f} ms ({100 * dv / total:.1f}%)"
+                    for k, (ev, dv) in layers.items()))
+
+    # the rFFT kernel against its twin on the path's own segments
+    kernel_d, basis_d = steps["residual"].device_kernels()
+    segs = {"FIR": trigger.fir_segments(batches[0].x, kernel_d)
+            .reshape(-1, kernel_d.fft_size)}
+    ts0 = results["residual"][0][0][0]
+    spikes_len = segs["FIR"].shape[0] // tentry.TRIGGER_EVENTS
+    # unit spikes at the first-pass triggers, on the subtraction's axis
+    seg_len = 2 * kernel.nt - 1
+    spikes = torch.zeros((tentry.TRIGGER_EVENTS, 1,
+                          spikes_len * kernel_d.block + seg_len),
+                         device=device)
+    spikes[:, 0].scatter_(-1, ts0.indices.clamp(min=0) + seg_len, 1.0)
+    segs["basis"] = trigger.fir_segments(spikes, basis_d.fir).reshape(
+        -1, basis_d.fir.fft_size)
+    timings = {}
+    for what, seg in segs.items():
+        got = cuda_fft.rfft_kernel(seg)
+        ref = cuda_fft.rfft_plain(seg)
+        torch.cuda.synchronize(device)
+        dmax = float((got - ref).abs().max())
+        rel = dmax / float(ref.abs().max())
+        log(f"[e] rfft on the {what} segments [{seg.shape[0]}, "
+            f"{seg.shape[1]}]: max|Δ| {dmax:.3e}, max|Δ|/max|ref| {rel:.3e} "
+            f"(tol {RFFT_TOL:g})")
+        if not rel <= RFFT_TOL:
+            raise RuntimeError(f"rfft kernel disagrees on the trigger {what}"
+                               f" segments: {rel:.3e}")
+        errs["rfft"][0] = max(errs["rfft"][0], dmax)
+        errs["rfft"][1] = max(errs["rfft"][1], rel)
+        k_ms, p_ms = time_pair(lambda: cuda_fft.rfft_kernel(seg),
+                               lambda: cuda_fft.rfft_plain(seg))
+        b_ms, b_by = bound("rfft", seg.shape[1], seg.shape[0])
+        log(f"[e] rfft on the {what} segments: kernel {k_ms:.4f} ms, cuFFT "
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) (on {card})")
+        timings[what] = {"rows": seg.shape[0], "n": seg.shape[1],
+                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
+    return results["residual"][2], timings
+
+
+def phase_f(device, card):
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for n in OFF_KERNEL_N:
+        bank, template, _ = build_bank(n, n // 2, FS)
+        step = FeatureStep(filterbank.bank_to_torch(bank, device,
+                                                    torch.float32),
+                           [CHAN], FS, n // 2, n)
+        tmpl = torch.as_tensor(template, dtype=torch.float32, device=device)
+        psd_half = torch.as_tensor(bank.psd[0][:n // 2 + 1],
+                                   dtype=torch.float32, device=device)
+        raw = synth_batch(gen, torch.sqrt(psd_half * FS * n / 2.0), tmpl,
+                          OFF_KERNEL_B, n)[0][:, None, :]
+        _kernels.reset_launch_counts()
+        out = step(raw)
+        torch.cuda.synchronize(device)
+        launches, library = _kernels.launch_counts(), _kernels.library_counts()
+        log(f"[f] FeatureStep N={n} B={OFF_KERNEL_B}: launches {launches}, "
+            f"library route {library} (on {card})")
+        if any(launches.values()) or library["cufft_rfft"] != 1:
+            raise RuntimeError(f"N={n}: expected no kernel launch and one "
+                               f"cuFFT call, got {launches}, {library}")
+        for key, v in out.items():
+            if v.shape != (OFF_KERNEL_B,) or not bool(torch.isfinite(v).all()):
+                raise RuntimeError(f"N={n}: column {key} not finite or of "
+                                   f"shape {tuple(v.shape)}")
+        check_reference(out, raw, cpu_step_reference(raw, bank, n),
+                        f"the float64 CPU run of the same step (N={n})", "f")
+
+
 def main():
     device, card = phase_a()
     regs = phase_b()
     errs = phase_c(device)
     launches, timings = phase_d(device, card, errs, regs)
+    trig_launches, trig_timings = phase_e(device, card, errs)
+    phase_f(device, card)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
+        per_path = {"feature": launches[name], "trigger": trig_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": KERNEL_INFO[name]["source"],
             "replaces": KERNEL_INFO[name]["replaces"],
-            "launches": launches[name],
+            "launches": sum(per_path.values()),
+            "launches_per_path": per_path,
             "max_abs_err": errs[name][0],
             "max_rel_err": errs[name][1],
             "ms": timings[name][0],
@@ -556,7 +1073,8 @@ def main():
             "bound_ms": b_ms, "bound_by": b_by,
             # the rFFT's plain twin is the one PyTorch call torch.fft.rfft
             # (cuFFT); no single call computes the fused sums
-            "library_ms": timings[name][1] if name == "rfft" else None})
+            "library_ms": timings[name][1] if name == "rfft" else None,
+            **({"trigger_path": trig_timings} if name == "rfft" else {})})
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,3 @@
 """Device operations of the port: FFTs, filter banks, OF fits, trace
-statistics, and the hand-written CUDA kernels behind them."""
+statistics, the continuous-data trigger, and the hand-written CUDA
+kernels behind them."""

@@ -10,7 +10,10 @@ GPU or a CUDA toolkit; a missing toolkit raises at the first launch.
 Each C entry returns the ``cudaError_t`` of its launch
 (``cudaGetLastError()`` right after it); :func:`check` raises on any
 non-zero code. Each kernel has a plain-integer launch count, bumped by
-its wrapper right after an accepted launch and nowhere else.
+its wrapper right after an accepted launch and nowhere else. Beside them,
+each library route (a PyTorch call that serves a CUDA tensor the kernels
+do not take, such as cuFFT for a trace length outside the rFFT kernel's
+domain) has a count of its own, bumped where the route is taken.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("rfft", "fused_nodelay_of")
+LIBRARY_ROUTES = ("cufft_rfft",)
 
 _launches = {name: 0 for name in KERNELS}
+_library_calls = {name: 0 for name in LIBRARY_ROUTES}
 _lib = None
 
 
@@ -40,13 +45,26 @@ def count_launch(name: str) -> None:
     _launches[name] += 1
 
 
+def count_library_call(name: str) -> None:
+    """Add one to library route ``name``'s count (called where the route
+    is taken only)."""
+    _library_calls[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    """Set every kernel's launch count and every library route's count
+    to 0."""
+    for counts in (_launches, _library_calls):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> dict:
     return dict(_launches)
+
+
+def library_counts() -> dict:
+    return dict(_library_calls)
 
 
 def sources() -> list[Path]:

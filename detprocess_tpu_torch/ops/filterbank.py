@@ -3,8 +3,9 @@ onto a torch device.
 
 The numpy part is a copy of ``detprocess_tpu/ops/filterbank.py``
 (``half_bin_weights``, ``notch_bin_mask``, ``OF1x1Bank``,
-``make_of1x1_bank``); it is a copy because importing the JAX package needs
-JAX. Conventions, with two-sided noise PSD J(f_k) [A²/Hz] and unnormalized
+``make_of1x1_bank``, and for the trigger ``OFNxMBank``,
+``make_ofnxm_bank`` and its shape rules); it is a copy because importing
+the JAX package needs JAX. Conventions, with two-sided noise PSD J(f_k) [A²/Hz] and unnormalized
 FFTs (ṽ = FFT(v), s̃ = FFT(s)):
 
 - ``denom_inv_k = 1 / (N·fs·J_k)``   (zeroed at DC and at notched bins)
@@ -14,6 +15,7 @@ FFTs (ṽ = FFT(v), s̃ = FFT(s)):
 The device side is complex tensors on the natural half spectrum:
 :func:`bank_to_torch` builds them from a bank, :func:`bank_from_jax` from
 the JAX package's ``OF1x1Bank.to_device()`` dict (split re/im arrays).
+:func:`bank_nxm_from_jax` carries a JAX ``OFNxMBank`` over as the port's.
 """
 
 from __future__ import annotations
@@ -202,3 +204,133 @@ def bank_from_jax(dev: dict, device, dtype=torch.float32) -> dict:
         "bin_w": real(dev["bin_w"]),
         "norm": real(dev["norm"]),
     }
+
+
+def bank_nxm_from_jax(bank) -> "OFNxMBank":
+    """The port's :class:`OFNxMBank` from the JAX package's ``OFNxMBank``
+    (a named tuple of host numpy fields with the same names)."""
+    fields = {name: np.asarray(getattr(bank, name))
+              for name in OFNxMBank._fields}
+    fields["fs"] = float(bank.fs)
+    fields["pretrigger"] = int(bank.pretrigger)
+    return OFNxMBank(**fields)
+
+
+class OFNxMBank(NamedTuple):
+    """Multi-channel (C channels), multi-template (M amplitudes) OF
+    precompute; host numpy float64/complex128. N = samples."""
+
+    s_fft: np.ndarray      # [C, M, N] complex
+    icsd: np.ndarray       # [N, C, C] complex — inverse CSD per frequency
+                           # (zeroed at dropped bins)
+    phi: np.ndarray        # [C, M, N] complex — conj(J⁻¹ s̃)/(N·fs)
+    w_matrix: np.ndarray   # [M, M] real — weight matrix W
+    iw_matrix: np.ndarray  # [M, M] real — W⁻¹
+    templates: np.ndarray  # [C, M, N] real
+    csd: np.ndarray        # [C, C, N] complex two-sided CSD
+    fs: float
+    pretrigger: int
+
+    @property
+    def nbins(self) -> int:
+        return self.s_fft.shape[-1]
+
+    @property
+    def nchans(self) -> int:
+        return self.s_fft.shape[0]
+
+    @property
+    def ntmps(self) -> int:
+        return self.s_fft.shape[1]
+
+    @property
+    def resolution(self) -> np.ndarray:
+        """Expected amplitude resolutions sqrt(diag(W⁻¹))."""
+        return np.sqrt(np.diag(self.iw_matrix))
+
+
+def _reshape_template_3d(template: np.ndarray) -> np.ndarray:
+    """Accept [N], [1,N], [N,1], or [C,M,N] and return [C,M,N]."""
+    template = np.asarray(template, dtype=np.float64)
+    if template.ndim == 1:
+        return template[None, None, :]
+    if template.ndim == 2:
+        if template.shape[0] == 1:
+            return template.reshape(1, 1, -1)
+        if template.shape[1] == 1:
+            return template.T.reshape(1, 1, -1)
+        raise ValueError(
+            f"ambiguous 2D template shape {template.shape}; expected "
+            "(C, M, samples), (samples,), (1, samples) or (samples, 1)"
+        )
+    if template.ndim == 3:
+        return template
+    raise ValueError(f"bad template ndim: {template.ndim}")
+
+
+def _reshape_csd_3d(csd: np.ndarray) -> np.ndarray:
+    """Accept [N], [1,N], [N,1], or [C,C,N] and return [C,C,N]."""
+    csd = np.asarray(csd)
+    if csd.ndim == 1:
+        return csd[None, None, :].astype(np.complex128)
+    if csd.ndim == 2:
+        if csd.shape[0] == 1:
+            return csd.reshape(1, 1, -1).astype(np.complex128)
+        if csd.shape[1] == 1:
+            return csd.T.reshape(1, 1, -1).astype(np.complex128)
+        raise ValueError(f"ambiguous 2D csd shape {csd.shape}")
+    if csd.ndim == 3:
+        return csd.astype(np.complex128)
+    raise ValueError(f"bad csd ndim: {csd.ndim}")
+
+
+def make_ofnxm_bank(
+    template: np.ndarray,
+    csd: np.ndarray,
+    fs: float,
+    pretrigger: int,
+    ignored_frequency_peaks: Optional[Sequence[float]] = None,
+    ignore_harmonics: bool = False,
+    coupling: str = "AC",
+) -> OFNxMBank:
+    """Build an NxM optimal-filter bank from templates [C,M,N] and CSD
+    [C,C,N] (the precompute of the continuous-data trigger)."""
+    tmpl = _reshape_template_3d(template)
+    csd3 = _reshape_csd_3d(csd)
+    c, m, n = tmpl.shape
+    if csd3.shape != (c, c, n):
+        raise ValueError(f"csd shape {csd3.shape} != ({c},{c},{n})")
+
+    s_fft = np.fft.fft(tmpl, axis=-1)  # [C, M, N]
+
+    keep = notch_bin_mask(n, fs, ignored_frequency_peaks, ignore_harmonics,
+                          coupling=coupling)
+
+    # invert the CSD per kept frequency; dropped bins get a zero inverse
+    csd_f = np.moveaxis(csd3, -1, 0)  # [N, C, C]
+    icsd = np.zeros_like(csd_f)
+    kept_idx = np.where(keep)[0]
+    icsd[kept_idx] = np.linalg.inv(csd_f[kept_idx])
+
+    # phi = conj(J⁻¹ s̃)/(N·fs), so that q_i = Σ_{c,k} phi[c,i,k]·ṽ[c,k]
+    # equals s̃_i† J⁻¹ ṽ (the conjugate matters when cross-channel terms
+    # carry a frequency-dependent phase)
+    s_fft_f = np.moveaxis(s_fft, -1, 0)  # [N, C, M]
+    js = np.einsum("kab,kbm->kam", icsd, s_fft_f)
+    phi = np.moveaxis(np.conj(js) / (n * fs), 0, -1)  # [C, M, N]
+
+    # W[i, j] = Re Σ_k s̃[:, i, k]† J_k⁻¹ s̃[:, j, k] / (N·fs)
+    w = np.real(np.einsum("kci,kcj->ij", np.conj(s_fft_f), js)) / (n * fs)
+    iw = np.linalg.inv(w)
+
+    return OFNxMBank(
+        s_fft=s_fft,
+        icsd=icsd,
+        phi=phi,
+        w_matrix=w,
+        iw_matrix=iw,
+        templates=tmpl,
+        csd=csd3,
+        fs=float(fs),
+        pretrigger=int(pretrigger),
+    )

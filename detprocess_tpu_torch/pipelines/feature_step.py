@@ -7,9 +7,14 @@ builds (its body ``fn``) for a processing config whose channels run
 Per batch and feature channel:
 
 1. the compound-channel mix ``[C_c, C_r] × [B, C_r, N]`` (TF32 off);
-2. the half spectrum by the rFFT kernel (``ops/fft.rfft``);
-3. ``of1x1_nodelay``: amp and χ² from the fused rFFT + no-delay kernel
-   (``ops/cuda_of.FusedNodelayOF``), lowchi2 on the step-2 spectrum;
+2. the half spectrum by ``ops/fft.rfft`` (the rFFT kernel, or cuFFT for
+   a length outside its domain);
+3. ``of1x1_nodelay``: where the fused kernel takes the trace length
+   (``cuda_fft.SUPPORTED_N``), amp and χ² from the fused rFFT + no-delay
+   kernel (``ops/cuda_of.FusedNodelayOF``) and lowchi2 on the step-2
+   spectrum; at any other length ``ops/of1x1.of1x1_nodelay_half`` on the
+   step-2 spectrum, the JAX feature step's own route
+   (pipelines/features.py:842). The route is chosen once, from ``n``;
 4. ``of1x1_unconstrained``: the delay scan of ``ops/of1x1`` on the step-2
    spectrum;
 5. ``baseline`` and ``integral``.
@@ -17,8 +22,9 @@ Per batch and feature channel:
 Columns carry the JAX pipeline's names: ``amp_of1x1_nodelay_<chan>``,
 ``chi2_…``, ``lowchi2_…``, ``t0_of1x1_unconstrained_<chan>``,
 ``baseline_<chan>``, ``integral_<chan>``. On CUDA tensors steps 2 and 3
-launch the hand-written kernels; on CPU tensors they run their plain
-twins. Each trace is read once by each kernel.
+launch the hand-written kernels where they take the length; on CPU
+tensors they run their plain twins. Each trace is read once by each
+kernel.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 from torch import nn
 
 from detprocess_tpu_torch import device as dev
-from detprocess_tpu_torch.ops import fft, of1x1, tracestats
+from detprocess_tpu_torch.ops import cuda_fft, fft, of1x1, tracestats
 from detprocess_tpu_torch.ops.cuda_of import FusedNodelayOF
 
 NODELAY = "of1x1_nodelay"
@@ -85,8 +91,11 @@ class FeatureStep(nn.Module):
         lmask = of1x1.lowfreq_mask_half(self.n, self.fs, lowchi2_fcutoff)
         self.register_buffer("low_mask_h",
                              torch.as_tensor(lmask, device=device))
-        self.nodelay = nn.ModuleList(
+        # the no-delay route, from the length alone: the fused kernel
+        # where it takes n, else the half-spectrum fit (nodelay is None)
+        self.nodelay = (nn.ModuleList(
             FusedNodelayOF.from_bank(bank, slots=[s]) for s in self.slots)
+            if self.n in cuda_fft.SUPPORTED_N else None)
 
     def forward(self, raw_traces: torch.Tensor) -> dict:
         """``raw_traces`` [B, C_r, N] → dict of [B] feature columns."""
@@ -101,10 +110,16 @@ class FeatureStep(nn.Module):
             tr = traces[:, ci, :].contiguous()
             vr = fft.rfft(tr)[:, None, :]                      # [B, 1, nh]
 
-            amp, chi2 = self.nodelay[ci](tr)                   # [B, 1]
-            low = of1x1._residual_chi2_half(
-                vr, amp, torch.zeros_like(amp), s_fft, dinv, self.bin_w,
-                self.low_mask_h, self.n)
+            if self.nodelay is None:
+                r = of1x1.of1x1_nodelay_half(vr, phi, norm, dinv, s_fft,
+                                             self.bin_w, self.low_mask_h,
+                                             self.n)
+                amp, chi2, low = r.amp, r.chi2, r.lowchi2
+            else:
+                amp, chi2 = self.nodelay[ci](tr)               # [B, 1]
+                low = of1x1._residual_chi2_half(
+                    vr, amp, torch.zeros_like(amp), s_fft, dinv, self.bin_w,
+                    self.low_mask_h, self.n)
             out[f"amp_{NODELAY}_{chan}"] = amp[:, 0]
             out[f"chi2_{NODELAY}_{chan}"] = chi2[:, 0]
             out[f"lowchi2_{NODELAY}_{chan}"] = low[:, 0]

@@ -209,6 +209,27 @@ def test_entry_matches_jax_entry_packed_chain():
     np.testing.assert_allclose(step.norm.numpy(), bank.norm, rtol=1e-12)
 
 
+def test_feature_step_off_kernel_length_matches_jax():
+    """At N = 25000, outside the kernels' lengths, the step takes the
+    half-spectrum no-delay fit on the spectrum it already has (the JAX
+    feature step's route, pipelines/features.py:842), chosen from n."""
+    n, pretrig = 25000, 12500
+    rng = np.random.default_rng(23)
+    t1 = jpulse.make_template(FS, n, pretrig, A=1.0, tau_r=20e-6,
+                              tau_f1=200e-6)
+    bank = jfb.make_of1x1_bank(t1, _psd(n), FS, pretrig)
+    raw = rng.standard_normal((B, 1, n)) * 1e-8
+    raw += rng.uniform(1e-6, 3e-6, (B, 1, 1)) * np.roll(t1, 40)
+    host = bank.to_device(np.float64)
+    dev = {k: jnp.asarray(v) for k, v in host.items()}
+    ref = jax_feature_step(raw, np.eye(1), dev, ["chan1"], [0], n, pretrig,
+                           FS)
+    step = FeatureStep(tfb.bank_from_jax(host, "cpu", torch.float64),
+                       ["chan1"], FS, pretrig, n)
+    assert step.nodelay is None
+    _cmp(step(torch.as_tensor(raw)), ref)
+
+
 def test_feature_step_validates_its_config():
     t1, _ = _templates()
     tb = tfb.bank_to_torch(tfb.make_of1x1_bank(t1, _psd(N), FS, PRETRIG),

@@ -10,6 +10,8 @@ the same twin there); its index math is held here by a numpy model of
 the kernel's steps.
 """
 
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -129,6 +131,61 @@ def test_rfft_on_cpu_launches_no_kernel():
     _kernels.reset_launch_counts()
     fft.rfft(torch.ones(4, 256, dtype=torch.float32))
     assert _kernels.launch_counts() == {name: 0 for name in _kernels.KERNELS}
+    assert _kernels.library_counts() == {"cufft_rfft": 0}
+
+
+@pytest.mark.parametrize("n,dtype,contiguous,route", [
+    (32768, torch.float32, True, "kernel"),
+    (256, torch.float32, True, "kernel"),
+    (300, torch.float32, True, "cufft"),
+    (25000, torch.float32, True, "cufft"),
+    (65536, torch.float32, True, "cufft"),
+    (32768, torch.float64, True, "raises"),
+    (32768, torch.float32, False, "kernel"),
+])
+def test_rfft_cuda_route_by_shape(monkeypatch, n, dtype, contiguous, route):
+    """On a CUDA tensor ``ops/fft.rfft`` routes by length alone: the
+    kernel's lengths go to the kernel (a view made contiguous, another
+    type than float32 refused), any other to torch.fft.rfft, each route
+    counted: the kernel's launches and the library route's calls. The C
+    library, the device check and the stream are stood in for on the
+    CPU."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_kernels, "lib",
+                        lambda: types.SimpleNamespace(dp_rfft_f32=entry))
+    def check_contiguous(x, name):
+        assert x.is_contiguous() and x.dtype == torch.float32
+        return x.shape[-1]
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    x = torch.randn(3, 2 * n, dtype=dtype)[:, ::2] if not contiguous \
+        else torch.randn(3, n, dtype=dtype)
+    _kernels.reset_launch_counts()
+    if route == "raises":
+        # the real check refuses the type before it looks at the device
+        with pytest.raises(TypeError, match="float32"):
+            fft.rfft_cuda(x)
+        assert calls == []
+        assert _kernels.library_counts() == {"cufft_rfft": 0}
+        return
+    monkeypatch.setattr(cuda_fft, "check_kernel_input", check_contiguous)
+    out = fft.rfft_cuda(x)
+    assert out.shape == (3, n // 2 + 1)
+    assert len(calls) == (route == "kernel")
+    assert _kernels.launch_counts() == {"rfft": int(route == "kernel"),
+                                        "fused_nodelay_of": 0}
+    assert _kernels.library_counts() == {"cufft_rfft": int(route == "cufft")}
+    if route == "cufft":
+        np.testing.assert_array_equal(out.numpy(),
+                                      torch.fft.rfft(x).numpy())
+    _kernels.reset_launch_counts()
+    assert _kernels.library_counts() == {"cufft_rfft": 0}
 
 
 @pytest.mark.parametrize("x,err,match", [

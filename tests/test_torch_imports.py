@@ -1,11 +1,12 @@
 """detprocess_tpu_torch runs where JAX, h5py, pandas and yaml are missing.
 
 The machine with the GPU has none of them, so the port and
-``chip_smoke.py`` must import and run the feature step without them. A
-subprocess blocks each (``sys.modules[name] = None`` makes any import of
-it raise) and then imports every module of the port and runs the
-CPU feature step; a second one runs ``chip_smoke.py``, which must fail
-without a GPU and print no result.
+``chip_smoke.py`` must import and run the feature and trigger steps
+without them. A subprocess blocks each (``sys.modules[name] = None`` makes
+any import of it raise) and then imports every module of the port and
+runs the CPU feature step and the CPU trigger step (on the first 200000
+samples of one event of ``trigger_entry``'s batch); a second one runs
+``chip_smoke.py``, which must fail without a GPU and print no result.
 """
 
 import json
@@ -30,10 +31,15 @@ RUN_STEP = textwrap.dedent("""
                                       "detprocess_tpu_torch."):
         importlib.import_module(info.name)
         names.append(info.name)
-    from detprocess_tpu_torch.entry import entry
+    from detprocess_tpu_torch.entry import entry, trigger_entry
     step, (x,) = entry("cpu", torch.float64)
     out = step(x)
+    tstep, (tx,) = trigger_entry("cpu", torch.float64)
+    ts, ts2 = tstep(tx[:1, :, :200000])
     print(json.dumps({
+        "trigger": [list(ts.indices.shape), list(ts2.indices.shape),
+                    str(tx.device), list(tx.shape),
+                    bool(torch.isfinite(ts.dchi2).all())],
         "modules": sorted(names),
         "columns": sorted(out),
         "finite": all(bool(torch.isfinite(v).all()) for v in out.values()),
@@ -59,6 +65,11 @@ def test_port_imports_and_runs_without_jax_h5py_pandas_yaml():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "detprocess_tpu_torch.pipelines.feature_step" in res["modules"]
     assert "detprocess_tpu_torch.ops.cuda_of" in res["modules"]
+    for name in ("ops.trigger", "ops.spectral", "pipelines.trigger_step"):
+        assert f"detprocess_tpu_torch.{name}" in res["modules"]
+    # 17 segments of 12288 samples in tiles of 64: 3264 slots (< 4096)
+    assert res["trigger"] == [[1, 3264], [1, 3264], "cpu",
+                              [8, 1, 1250000], True]
     assert res["leaked"] == []
     assert res["finite"] and res["shapes"] == [[16]]
     assert res["columns"] == sorted(
