@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of detprocess_tpu_torch: the of1x1 feature step and the
-continuous-data trigger step on one card.
+"""GPU smoke run of detprocess_tpu_torch: the of1x1 feature step, the
+continuous-data trigger step and the FeatureProcessing shell on one card.
 
     python3 chip_smoke.py
 
@@ -59,21 +59,48 @@ f. lengths outside the kernels' domain: FeatureStep at N = 25000 and
    65536 on 64 events: neither kernel launches, the cuFFT route runs, and
    the first events agree with the float64 CPU step within phase (d)'s
    tolerances.
+g. the FeatureProcessing shell (entry.py's 4-channel configuration,
+   BASELINE.json config 4): 8192 events of PSD-matched noise plus 1–5 µA
+   pulses at known offsets are written as int16 codes into 4 flat dumps
+   in a temporary directory (2 GiB, deleted at the end), indexed, and
+   processed with process(batch_size=2048, float32, nreaders=4). It fails
+   unless rfft and fused_nodelay_of each launch 5 times a batch with the
+   cuFFT route at 0, the upload is 2 bytes a sample, every channel meets
+   the physics invariants (|amp bias| < 5e-3, |χ²/dof − 1| < 0.05,
+   unconstrained t0 within one sample of the injected offset for > 99% of
+   events, constrained t0 inside its ±100 µs window), events 0–15 of every
+   batch agree with the float64 CPU run of the shell (phase (d)'s
+   tolerances; constrained columns as unconstrained, ampres and timeres
+   1e-5) and chan1's first events with RefOF1x1. It prints end-to-end
+   events/s (host clock, process() call to returned columns; a first call
+   that pins its buffers, a second, and a third under torch.profiler for
+   the device's busy share), the StageTimer's read/dispatch/drain seconds,
+   and the group steps' events/s on one batch already on the card. Then
+   trigger-table mode: one flat dump of 8 continuous 4-channel events of
+   1,250,000 samples with 160 pulses an event, a table of their indices
+   plus 16 rows out of bounds, windows of 4096/1024 with their own filter
+   data, batch 512: the same launch and upload checks, exactly the 16 rows
+   dropped, the first 16 rows against the float64 CPU run, chan1's
+   amplitudes and t0. Both kernels are held against their twins at the
+   shell's shapes.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
 peak or float32 operations over the non-tensor peak, the larger), the
 one PyTorch call that computes the same function, where there is one, and
 its launches on each path (feature: phase d; trigger: phase e's residual
-run), whose sum is ``launches``.
+run; shell: phase g's two process() calls with the counts at 0), whose
+sum is ``launches``.
 Needs one CUDA device; imports no JAX.
 """
 
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -95,6 +122,12 @@ from detprocess_tpu_torch.pipelines.feature_step import (  # noqa: E402
     FeatureStep)
 from detprocess_tpu_torch.pipelines.trigger_step import (  # noqa: E402
     TriggerStep)
+from detprocess_tpu_torch.io.rawdata import (  # noqa: E402
+    RawIndex, RawReader, series_to_number, write_flat_dump)
+from detprocess_tpu_torch.ops.adc import adc_convert  # noqa: E402
+from detprocess_tpu_torch.pipelines.features import (  # noqa: E402
+    FeatureProcessing)
+from detprocess_tpu_torch.utils.logging import StageTimer  # noqa: E402
 
 FS = 1.25e6
 N = 32768
@@ -149,6 +182,18 @@ TRIG_RTOL = 1e-4         # Δχ² and amplitudes against the float64 CPU run
 # phase (f): lengths outside the kernels' domain
 OFF_KERNEL_N = (25000, 65536)
 OFF_KERNEL_B = 64
+# phase (g): the FeatureProcessing shell from files
+SHELL_EVENTS = 8192
+SHELL_FILES = 4
+SHELL_BATCH = 2048
+SHELL_READERS = 4
+SHELL_SPECTRAL = 5       # spectral compound channels: 4 + their sum
+SHELL_TRIG_N, SHELL_TRIG_PRE = 4096, 1024
+SHELL_TRIG_PULSES = 160  # a continuous event: > 0.5·L/N windows, read whole
+SHELL_TRIG_BATCH = 512
+# χ²₀ has no cancellation; the resolutions are functions of the bank
+SHELL_RTOL = {**REF_RTOL, "chi2nopulse": 5e-3, "maximum": 1e-4,
+              "minimum": 1e-4, "ampres": 1e-5, "timeres": 1e-5}
 
 KERNEL_INFO = {
     "rfft": {"source": "detprocess_tpu_torch/csrc/rfft.cu",
@@ -1049,6 +1094,347 @@ def phase_f(device, card):
                         f"the float64 CPU run of the same step (N={n})", "f")
 
 
+def compare_shell(got, ref, rows, what):
+    """Rows ``rows`` of the card's table ``got`` against the float64 CPU
+    table ``ref`` (one row each), within SHELL_RTOL (t0 within one
+    sample; sums over a window also within 1e-6 of the column's largest
+    |value|)."""
+    worst = {}
+    for key, r in ref.items():
+        kind = key.split("_")[0]
+        if kind not in SHELL_RTOL and kind != "t0":
+            continue
+        g = np.asarray(got[key], np.float64)[rows]
+        r = np.asarray(r, np.float64)
+        if kind == "t0":
+            err = float(np.abs(g - r).max()) * FS
+            ok = err <= 1.0 + 1e-6
+            worst[kind] = max(worst.get(kind, 0.0), err)
+        else:
+            atol = (1e-6 * float(np.abs(r).max()) if kind in (
+                "baseline", "integral", "maximum", "minimum") else 0.0)
+            err = float((np.abs(g - r) / (np.abs(r) + atol / SHELL_RTOL[kind]
+                                          + 1e-300)).max())
+            ok = err <= SHELL_RTOL[kind]
+            worst[kind] = max(worst.get(kind, 0.0), err)
+        if not ok:
+            raise RuntimeError(f"{what}: {key} off by {err:.3e} (tol "
+                               f"{SHELL_RTOL.get(kind, 1.0):g})")
+    log(f"[g] {what}: worst by kind " + "; ".join(
+        f"{k} {v:.3e}" for k, v in sorted(worst.items())))
+
+
+def device_intervals(prof):
+    """(union of device busy intervals, kernel sum, copy sum), each in ms,
+    of a torch.profiler run: kernels and copies on different streams
+    overlap, so the union is the device's busy time."""
+    spans, kern, copy = [], 0.0, 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if e.name.startswith("Memcpy"):
+            copy += e.device_time_total / 1e3
+        else:
+            kern += e.device_time_total / 1e3
+    busy, end = 0.0, -np.inf
+    for a, b in sorted(spans):              # µs
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, kern, copy
+
+
+def run_shell(shell, what, card, **kw):
+    """One process() call with a StageTimer: (table, seconds, timer
+    report)."""
+    timer = StageTimer()
+    t = time.perf_counter()
+    table = shell.process(dtype=np.float32, timer=timer, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    stages = {k: round(v["seconds"], 4)
+              for k, v in timer.report(log=False).items()}
+    n = shell.stats["events"]
+    log(f"[g] {what}: {n} events in {sec:.4f} s, {n / sec:.1f} events/s "
+        f"end to end (host clock, process() call to returned columns); "
+        f"host stages {stages} s; on {card}")
+    return table, sec, stages
+
+
+def shell_physics(table, amps, shifts):
+    """Per channel: amplitude bias, χ²/dof, unconstrained t0 within one
+    sample of the injected offset, constrained t0 inside its window."""
+    ev = ((table["dump_number"] - 1) * (SHELL_EVENTS // SHELL_FILES)
+          + table["event_number"] - 1)
+    half = int(tentry.SHELL_WINDOW_USEC * 1e-6 * FS)
+    out = {}
+    for c, chan in enumerate(tentry.SHELL_CHANNELS):
+        truth = amps[ev, c]
+        amp = table[f"amp_of1x1_unconstrained_{chan}"]
+        chi2 = table[f"chi2_of1x1_unconstrained_{chan}"]
+        t0 = np.rint(table[f"t0_of1x1_unconstrained_{chan}"] * FS)
+        t0c = np.rint(table[f"t0_of1x1_constrained_{chan}"] * FS)
+        out[chan] = {
+            "amp_bias": float(np.mean((amp - truth) / truth)),
+            "chi2_dof": float(np.mean(chi2) / (tentry.SHELL_N - 2)),
+            "t0_within_1": float(np.mean(np.abs(t0 - shifts[ev]) <= 1)),
+            "t0c_in_window": bool(np.all(np.abs(t0c) <= half))}
+        p = out[chan]
+        p["pass"] = bool(abs(p["amp_bias"]) < 5e-3
+                         and abs(p["chi2_dof"] - 1.0) < 0.05
+                         and p["t0_within_1"] > 0.99 and p["t0c_in_window"])
+    log(f"[g] physics: {json.dumps(out)}")
+    if not all(p["pass"] for p in out.values()):
+        raise RuntimeError("shell physics invariants failed")
+
+
+def check_shell_launches(launches, library, nbatch, what):
+    want = {"rfft": SHELL_SPECTRAL * nbatch,
+            "fused_nodelay_of": SHELL_SPECTRAL * nbatch, "cufft_rfft": 0}
+    log(f"[g] {what} launches: {launches}, library route {library} "
+        f"({nbatch} batches)")
+    if {**launches, **library} != want:
+        raise RuntimeError(f"{what}: launches {launches}, library "
+                           f"{library}, expected {want}")
+
+
+def trigger_stream(gen, device, directory):
+    """One flat dump of 8 continuous 4-channel events of 1,250,000 int16
+    samples: noise of each channel's PSD and SHELL_TRIG_PULSES pulses of
+    1–5 µA an event at known indices (pretrigger 1024 of the 4096-sample
+    templates). Returns (path, trigger table dict, injected amps)."""
+    e, l = tentry.TRIGGER_EVENTS, tentry.TRIGGER_L
+    c = len(tentry.SHELL_CHANNELS)
+    nh = l // 2 + 1
+    scale = torch.as_tensor(np.sqrt(tentry.shell_psds(l, FS)[:, :nh] * FS
+                                    * l / 2.0), dtype=torch.float32,
+                            device=device)
+    tmpl = torch.as_tensor(tentry.shell_templates(SHELL_TRIG_N,
+                                                  SHELL_TRIG_PRE, FS),
+                           dtype=torch.float32, device=device)
+    conv = torch.as_tensor(tentry.shell_conv(), dtype=torch.float32,
+                           device=device)
+    slot = l // SHELL_TRIG_PULSES
+    path = os.path.join(directory, "trigger_stream.bin")
+    idx_all, amp_all = [], []
+    for ev in range(e):
+        z = torch.randn((c, 2, nh), generator=gen, device=device)
+        nf = torch.complex(z[:, 0], z[:, 1]) * scale
+        nf[:, 0] = 0.0
+        x = torch.fft.irfft(nf, n=l)
+        offs = torch.randint(SHELL_TRIG_PRE + 100,
+                             slot - (SHELL_TRIG_N - SHELL_TRIG_PRE) - 100,
+                             (SHELL_TRIG_PULSES,), generator=gen,
+                             device=device)
+        idx = torch.arange(SHELL_TRIG_PULSES, device=device) * slot + offs
+        amp = torch.empty((SHELL_TRIG_PULSES, c), device=device).uniform_(
+            1e-6, 5e-6, generator=gen)
+        cols = ((idx - SHELL_TRIG_PRE)[:, None]
+                + torch.arange(SHELL_TRIG_N, device=device)).reshape(-1)
+        for ch in range(c):
+            x[ch].index_add_(0, cols, (amp[:, ch, None] * tmpl[ch]).reshape(
+                -1))
+        codes = torch.round(x / conv[:, None]).to(torch.int16)
+        write_flat_dump(path, codes[None].cpu().numpy(), append=ev > 0)
+        idx_all.append(idx.cpu().numpy())
+        amp_all.append(amp.cpu().numpy())
+    # the table: each event's pulses in time order, with one window
+    # before the trace start and one past its end, which are dropped
+    rows = {"event_number": [], "trigger_index": [], "trigger_amplitude": []}
+    for ev in range(e):
+        for ti, a in ([(SHELL_TRIG_PRE - 1, 0.0)]
+                      + list(zip(idx_all[ev], amp_all[ev][:, 0]))
+                      + [(l - 10, 0.0)]):
+            rows["event_number"].append(ev + 1)
+            rows["trigger_index"].append(int(ti))
+            rows["trigger_amplitude"].append(float(a))
+    nrow = len(rows["event_number"])
+    table = {"series_number": np.full(nrow, series_to_number(
+                 tentry.SHELL_SERIES), np.int64),
+             "dump_number": np.ones(nrow, np.int64),
+             "event_number": np.asarray(rows["event_number"], np.int64),
+             "trigger_index": np.asarray(rows["trigger_index"], np.int64),
+             "trigger_time": np.asarray(rows["trigger_index"]) / FS,
+             "trigger_amplitude": np.asarray(rows["trigger_amplitude"]),
+             "trigger_type": np.full(nrow, 4, np.int64),
+             "trigger_channel": np.array(["chan1"] * nrow)}
+    return path, table, np.concatenate(amp_all)
+
+
+def phase_g(device, card, errs):
+    """The FeatureProcessing shell from flat int16 files, full-trace and
+    trigger-table mode; returns the kernels' launches on its path."""
+    tmp = tempfile.mkdtemp(prefix="detprocess_smoke_")
+    try:
+        return _phase_g(device, card, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_g(device, card, errs, tmp):
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t = time.perf_counter()
+    paths, amps, shifts = tentry.write_shell_dumps(
+        tmp, gen, SHELL_EVENTS, SHELL_FILES, device)
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    log(f"[g] wrote {SHELL_EVENTS} events, {nbytes / 2**30:.3f} GiB of int16"
+        f" codes, in {SHELL_FILES} flat dumps in "
+        f"{time.perf_counter() - t:.1f} s (set-up, not timed)")
+    index = tentry.shell_index(paths)
+    shell = FeatureProcessing(index, tentry.shell_config(),
+                              tentry.shell_filter_data(), verbose=False,
+                              device=device)
+    kw = dict(batch_size=SHELL_BATCH, nreaders=SHELL_READERS)
+    nbatch = -(-SHELL_EVENTS // SHELL_BATCH)
+
+    _kernels.reset_launch_counts()
+    table, _, _ = run_shell(shell, "full-trace mode, first call", card, **kw)
+    launches = _kernels.launch_counts()
+    check_shell_launches(launches, _kernels.library_counts(), nbatch,
+                         "full-trace mode")
+    st = shell.stats
+    log(f"[g] upload: {st['upload_bytes']} bytes for "
+        f"{st['upload_samples']} samples "
+        f"({st['upload_bytes'] / st['upload_samples']:g} bytes a sample)")
+    want_samples = SHELL_EVENTS * len(tentry.SHELL_CHANNELS) * tentry.SHELL_N
+    if (st["upload_samples"] != want_samples
+            or st["upload_bytes"] != 2 * want_samples):
+        raise RuntimeError(f"upload not int16: {st}")
+    for key, v in table.items():
+        if len(v) != SHELL_EVENTS:
+            raise RuntimeError(f"column {key}: {len(v)} rows, not "
+                               f"{SHELL_EVENTS}")
+        if key.split("_")[0] in SHELL_RTOL and not np.isfinite(v).all():
+            raise RuntimeError(f"column {key} is not finite")
+    shell_physics(table, amps, shifts)
+
+    # events 0–15 of every batch against the float64 CPU run
+    pos = np.concatenate([np.arange(b * SHELL_BATCH,
+                                    b * SHELL_BATCH + REF_EVENTS)
+                          for b in range(nbatch)])
+    rows = index.order[pos]
+    ref_shell = FeatureProcessing(index.subset(rows), tentry.shell_config(),
+                                  tentry.shell_filter_data(), verbose=False,
+                                  device="cpu")
+    ref = ref_shell.process(batch_size=len(rows), dtype=np.float64)
+    for key in ("event_number", "dump_number"):
+        if not np.array_equal(ref[key], table[key][pos]):
+            raise RuntimeError(f"CPU and card rows differ in {key}")
+    compare_shell(table, ref, pos, f"full-trace mode, events 0-"
+                  f"{REF_EVENTS - 1} of each of {nbatch} batches vs the "
+                  "float64 CPU run of the shell")
+    # chan1 of the first events against the per-event numpy reference
+    reader = RawReader(index)
+    raw = torch.as_tensor(np.stack([reader.read_row(int(r), ["chan1"])[0]
+                                    for r in index.order[:REF_EVENTS]]))
+    reader.close()
+    template = tentry.shell_templates()[0]
+    psd = tentry.shell_psds()[0]
+    out = {k: torch.as_tensor(v) for k, v in table.items()
+           if k.endswith("_chan1")}
+    check_reference(out, raw, loop_reference(raw, template, psd),
+                    "the float64 per-event reference (RefOF1x1)", "g")
+
+    _, warm_s, _ = run_shell(shell, "full-trace mode, second call", card,
+                             **kw)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, prof_s, _ = run_shell(shell, "full-trace mode, under "
+                                 "torch.profiler", card, **kw)
+    busy, kern, copy = device_intervals(prof)
+    share = busy / (1e3 * prof_s)
+    log(f"[g] device busy {busy:.3f} ms of the profiled {1e3 * prof_s:.3f} "
+        f"ms call ({100 * share:.1f}% busy, {100 * (1 - share):.1f}% idle; "
+        f"union of device intervals); kernels {kern:.3f} ms, copies "
+        f"{copy:.3f} ms; on {card}")
+
+    # the group steps alone on one batch already on the card
+    block = SHELL_BATCH * len(tentry.SHELL_CHANNELS) * tentry.SHELL_N
+    codes = torch.as_tensor(np.fromfile(paths[0], np.int16, block).reshape(
+        SHELL_BATCH, len(tentry.SHELL_CHANNELS), tentry.SHELL_N)).to(device)
+    conv = torch.as_tensor(tentry.shell_conv(), dtype=torch.float32,
+                           device=device).expand(SHELL_BATCH, -1)
+    x = adc_convert(codes, conv)
+    steps = shell.group_steps()
+    for step in steps:
+        step(x)
+    with dev.CudaTimer() as tm:
+        for _ in range(3):
+            for step in steps:
+                step(x)
+    step_ms = tm.ms / 3
+    log(f"[g] group steps alone: {step_ms:.3f} ms a batch of {SHELL_BATCH}, "
+        f"{SHELL_BATCH / (step_ms / 1e3):.1f} events/s (CUDA events) against"
+        f" {SHELL_EVENTS / warm_s:.1f} events/s of the shell; on {card}")
+    # the kernels against their twins at the shell's shapes
+    full_step = steps[0]
+    slot = next(s.slot for s in full_step.specs if s.base == "of1x1_nodelay")
+    compare_kernels(x[:, 0].contiguous(), full_step.nodelay[str(slot)], errs,
+                    "g")
+    del codes, x
+
+    # trigger-table mode
+    path, ttable, _ = trigger_stream(gen, device, tmp)
+    tindex = RawIndex.from_flat(
+        [path], tentry.SHELL_CHANNELS, tentry.TRIGGER_L, FS,
+        tentry.SHELL_SERIES, dtype=np.int16,
+        adc_conversion_factor=tentry.SHELL_CAL,
+        detector_config={c: {"close_loop_norm": cln} for c, cln in zip(
+            tentry.SHELL_CHANNELS, tentry.SHELL_CLN)})
+    cfg = tentry.shell_config(SHELL_TRIG_N, SHELL_TRIG_PRE)
+    fd = tentry.shell_filter_data(SHELL_TRIG_N, SHELL_TRIG_PRE)
+    tshell = FeatureProcessing(tindex, cfg, fd, trigger_table=ttable,
+                               verbose=False, device=device)
+    _kernels.reset_launch_counts()
+    tkw = dict(batch_size=SHELL_TRIG_BATCH, nreaders=SHELL_READERS)
+    ttab, _, _ = run_shell(tshell, "trigger-table mode", card, **tkw)
+    tlaunch = _kernels.launch_counts()
+    nkept = len(ttab["event_number"])
+    check_shell_launches(tlaunch, _kernels.library_counts(),
+                         -(-nkept // SHELL_TRIG_BATCH), "trigger-table mode")
+    ndrop = 2 * tentry.TRIGGER_EVENTS
+    log(f"[g] trigger-table mode: {nkept} rows kept, "
+        f"{tshell.stats['dropped']} dropped (out of bounds: {ndrop})")
+    if tshell.stats["dropped"] != ndrop or nkept != len(
+            ttable["event_number"]) - ndrop:
+        raise RuntimeError("trigger-table mode dropped the wrong rows")
+    if tshell.stats["upload_bytes"] != 2 * tshell.stats["upload_samples"]:
+        raise RuntimeError("trigger-table mode: upload not int16")
+    kept = np.flatnonzero((ttable["trigger_index"] >= SHELL_TRIG_PRE) & (
+        ttable["trigger_index"] - SHELL_TRIG_PRE + SHELL_TRIG_N
+        <= tentry.TRIGGER_L))
+    tref = FeatureProcessing(tindex, cfg, fd, trigger_table=ttable,
+                             verbose=False, device="cpu").process(
+        nevents=int(kept[REF_EVENTS - 1]) + 1, batch_size=REF_EVENTS,
+        dtype=np.float64)
+    compare_shell(ttab, tref, np.arange(REF_EVENTS), f"trigger-table mode, "
+                  f"the first {REF_EVENTS} rows vs the float64 CPU run")
+    bias = np.mean((ttab["amp_of1x1_unconstrained_chan1"]
+                    - ttab["trigger_amplitude"]) / ttab["trigger_amplitude"])
+    t0_ok = np.mean(np.abs(np.rint(ttab["t0_of1x1_unconstrained_chan1"]
+                                   * FS)) <= 1)
+    log(f"[g] trigger-table mode, chan1: amplitude bias {bias:.3e}, t0 "
+        f"within one sample {t0_ok:.4f}")
+    if not (abs(bias) < 5e-3 and t0_ok > 0.99):
+        raise RuntimeError("trigger-table mode: amplitudes or t0 off")
+    # the kernels against their twins at the trigger windows' shape
+    tstep = tshell.group_steps()[0]
+    tslot = next(s.slot for s in tstep.specs if s.base == "of1x1_nodelay")
+    treader = RawReader(tindex)
+    win = torch.as_tensor(np.stack([
+        treader.read_single_event(int(e), trace_window=(
+            int(i) - SHELL_TRIG_PRE, SHELL_TRIG_N), channels=["chan1"],
+            dtype=np.float32)[0][0]
+        for e, i in zip(ttable["event_number"][kept[:SHELL_TRIG_BATCH]],
+                        ttable["trigger_index"][kept[:SHELL_TRIG_BATCH]])]),
+        device=device)
+    treader.close()
+    compare_kernels(win, tstep.nodelay[str(tslot)], errs, "g")
+    return {k: launches[k] + tlaunch[k] for k in launches}
+
+
 def main():
     device, card = phase_a()
     regs = phase_b()
@@ -1056,10 +1442,12 @@ def main():
     launches, timings = phase_d(device, card, errs, regs)
     trig_launches, trig_timings = phase_e(device, card, errs)
     phase_f(device, card)
+    shell_launches = phase_g(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
-        per_path = {"feature": launches[name], "trigger": trig_launches[name]}
+        per_path = {"feature": launches[name], "trigger": trig_launches[name],
+                    "shell": shell_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": KERNEL_INFO[name]["source"],

@@ -176,3 +176,24 @@ def of1x1_withdelay_half(vr, phi_h, norm, denom_inv_h, s_fft_h, bin_w,
         lowchi2 = _residual_chi2_half(vr, amp, shift, s_fft_h, denom_inv_h,
                                       bin_w, low_mask_h, n)
     return OF1x1Result(amp, t0, chi2, lowchi2, c0)
+
+
+def energy_resolution(norm: torch.Tensor) -> torch.Tensor:
+    """σ_amp = 1/sqrt(norm), the OF amplitude resolution."""
+    return 1.0 / torch.sqrt(norm)
+
+
+def time_resolution_half(amp: torch.Tensor, s_fft_h: torch.Tensor,
+                         denom_inv_h: torch.Tensor, bin_w: torch.Tensor,
+                         n: int, fs: float) -> torch.Tensor:
+    """σ_t0 = 1/sqrt(amp² · Σ_k w_k ω_k² |s̃_k|² d_k) over the half
+    spectrum: the curvature of χ²(t0) at its minimum (the weights w
+    stand in for the mirrored bins, whose ω² and |s̃|² are equal)."""
+    # made on the device: a host copy would wait for the stream's work
+    k = torch.arange(s_fft_h.shape[-1], dtype=torch.float64,
+                     device=denom_inv_h.device)
+    f = torch.where(k <= n // 2, k, k - n) / n * fs
+    omega2 = ((2.0 * math.pi * f) ** 2).to(denom_inv_h.dtype)
+    curv = torch.sum(omega2 * (s_fft_h.real ** 2 + s_fft_h.imag ** 2)
+                     * denom_inv_h * bin_w, dim=-1)
+    return 1.0 / torch.sqrt(amp * amp * curv)

@@ -4,9 +4,11 @@ The machine with the GPU has none of them, so the port and
 ``chip_smoke.py`` must import and run the feature and trigger steps
 without them. A subprocess blocks each (``sys.modules[name] = None`` makes
 any import of it raise) and then imports every module of the port and
-runs the CPU feature step and the CPU trigger step (on the first 200000
-samples of one event of ``trigger_entry``'s batch); a second one runs
-``chip_smoke.py``, which must fail without a GPU and print no result.
+runs the CPU feature step, the CPU trigger step (on the first 200000
+samples of one event of ``trigger_entry``'s batch) and the feature shell
+of ``feature_processing_entry`` on flat int16 dumps it writes into the
+test's directory; a second one runs ``chip_smoke.py``, which must fail
+without a GPU and print no result.
 """
 
 import json
@@ -22,7 +24,8 @@ PRELUDE = "import sys\n" + "".join(
     f"sys.modules[{name!r}] = None\n" for name in BLOCKED)
 
 RUN_STEP = textwrap.dedent("""
-    import importlib, json, pkgutil
+    import importlib, json, os, pkgutil
+    import numpy as np
     import torch
     torch.set_num_threads(1)
     import detprocess_tpu_torch
@@ -36,7 +39,17 @@ RUN_STEP = textwrap.dedent("""
     out = step(x)
     tstep, (tx,) = trigger_entry("cpu", torch.float64)
     ts, ts2 = tstep(tx[:1, :, :200000])
+    from detprocess_tpu_torch.entry import feature_processing_entry
+    shell, index = feature_processing_entry("cpu", SHELL_DIR, nevents=6)
+    table = shell.process(batch_size=4, dtype=np.float32, nreaders=2)
     print(json.dumps({
+        "shell": [len(index), sorted(os.listdir(SHELL_DIR)),
+                  {k: len(v) for k, v in table.items()
+                   if k.startswith(("event_number", "amp_of1x1_nodelay"))},
+                  bool(all(np.isfinite(v).all() for k, v in table.items()
+                           if k.startswith(("amp_", "chi2_", "t0_")))),
+                  shell.stats["upload_bytes"]
+                  == 2 * shell.stats["upload_samples"]],
         "trigger": [list(ts.indices.shape), list(ts2.indices.shape),
                     str(tx.device), list(tx.shape),
                     bool(torch.isfinite(ts.dchi2).all())],
@@ -59,10 +72,23 @@ def _run(code, cwd=REPO, timeout=120):
                           capture_output=True, text=True, timeout=timeout)
 
 
-def test_port_imports_and_runs_without_jax_h5py_pandas_yaml():
-    proc = _run(PRELUDE + RUN_STEP)
+def test_port_imports_and_runs_without_jax_h5py_pandas_yaml(tmp_path):
+    proc = _run(PRELUDE + f"SHELL_DIR = {str(tmp_path)!r}\n" + RUN_STEP)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("utils.windows", "utils.channels", "utils.misc",
+                 "utils.logging", "config.yamlconfig", "io.filterdata",
+                 "io.fastio", "io.rawdata", "io.prefetch", "io.tables",
+                 "ops.adc", "pipelines.feature_plan",
+                 "pipelines.feature_group", "pipelines.features"):
+        assert f"detprocess_tpu_torch.{name}" in res["modules"], name
+    compound = "chan1+chan2+chan3+chan4"
+    assert res["shell"] == [
+        6, ["flat_I1_D20260101_T000000_F0001.bin",
+            "flat_I1_D20260101_T000000_F0002.bin"],
+        {"event_number": 6, **{f"amp_of1x1_nodelay_{c}": 6 for c in (
+            "chan1", "chan2", "chan3", "chan4", compound)}},
+        True, True]
     assert "detprocess_tpu_torch.pipelines.feature_step" in res["modules"]
     assert "detprocess_tpu_torch.ops.cuda_of" in res["modules"]
     for name in ("ops.trigger", "ops.spectral", "pipelines.trigger_step"):
