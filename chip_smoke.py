@@ -2,14 +2,15 @@
 """GPU smoke run of detprocess_tpu_torch: the of1x1 feature step, the
 continuous-data trigger step and the FeatureProcessing shell on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases (each failure ends the run with a non-zero exit):
 
 a. device: the card's name and power limit (nvidia-smi), require_cuda();
 b. build: nvcc compiles the kernels under detprocess_tpu_torch/csrc/
    (set-up time; the compiler's register/spill report is printed, and
-   the fused kernel's registers and spills at each N);
+   each kernel's registers and spills at each N); it fails on a spill in
+   an instance that the main path launches (the stamped ones may spill);
 c. kernels: each hand-written kernel against its plain PyTorch twin on
    the card, B = 64 and every N in cuda_fft.SUPPORTED_N (256 … 32768):
    rFFT max|Δ|/max|ref| <= 1e-5; fused no-delay amp rtol 1e-5, χ² rtol
@@ -29,7 +30,11 @@ d. slice: entry() once, then FeatureStep at the benchmark's size
    time beside its plain twin's at the slice shapes; the rFFT kernel also
    at N = 16384, the entry() length, and with its share of the HBM peak;
    the fused kernel's time and HBM share at B = 8192, N = 16384 and
-   32768, and the SM clocks of its phases in one stamped launch.
+   32768, and the SM clocks of each kernel's phases at both lengths in
+   one launch of its stamped instance. With ``--parent DIR`` (an earlier
+   checkout unpacked by ``git archive``) it also times that tree's rFFT
+   kernel in turns with this one on the slice's batch: the rFFT entry's
+   ``earlier_ms`` in the summary, null without it.
 e. trigger: trigger_entry() once on its noise batch, then TriggerStep at
    the trigger_entry() configuration (8 events of
    1,250,000 samples at 1.25 MHz, Nt = 4096, flat PSD 4e-18 A²/Hz,
@@ -90,10 +95,11 @@ peak or float32 operations over the non-tensor peak, the larger), the
 one PyTorch call that computes the same function, where there is one, and
 its launches on each path (feature: phase d; trigger: phase e's residual
 run; shell: phase g's two process() calls with the counts at 0), whose
-sum is ``launches``.
+sum is ``launches``, and the SM clocks of its phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
 
+import argparse
 import json
 import os
 import re
@@ -142,6 +148,7 @@ RFFT_TOL = 1e-5          # max|Δ| / max|ref|
 AMP_RTOL = 1e-5
 CHI2_RTOL = 5e-3
 TIMING_REPS = 10
+RUN_BYTES = 4e9          # a timed run of the small trigger shapes moves this
 HBM_PEAK = 3.35e12       # bytes/s, H100 SXM data sheet
 F32_PEAK = 67e12         # float32 FLOP/s outside the tensor cores, same
 # fused kernel slot counts checked at N = 32768: 9 = 4+4+1, 11 = 4+4+2+1
@@ -240,6 +247,12 @@ def phase_a():
     return device, card
 
 
+# each kernel's CUDA function template, as its instances are named in the
+# -Xptxas -v report
+KERNEL_FUNCTIONS = {"rfft": "rfft_kernel",
+                    "fused_nodelay_of": "fused_nodelay_kernel"}
+
+
 def phase_b():
     t = time.perf_counter()
     path = _kernels.build()
@@ -250,18 +263,29 @@ def phase_b():
         if any(k in line for k in ("Compiling entry", "registers", "spill",
                                    "error", "warning")):
             log(f"    {line.strip()}")
-    regs = fused_registers(_kernels.build_log())
-    for (log2m, stamp), (nreg, spill_st, spill_ld) in sorted(regs.items()):
-        log(f"[b] fused_nodelay_of N={2 << log2m}{' (stamped)' if stamp else ''}"
-            f": {nreg} registers, {spill_st} bytes spill stores, {spill_ld} "
-            "bytes spill loads")
+    regs = {}
+    for name, function in KERNEL_FUNCTIONS.items():
+        regs[name] = kernel_registers(_kernels.build_log(), function)
+        for (log2m, stamp), (nreg, st, ld) in sorted(regs[name].items()):
+            log(f"[b] {name} N={2 << log2m}{' (stamped)' if stamp else ''}: "
+                f"{nreg} registers, {st} bytes spill stores, {ld} bytes "
+                "spill loads")
+        main_path = {k: v for k, v in regs[name].items() if not k[1]}
+        if len(main_path) != len(cuda_fft.SUPPORTED_N):
+            raise RuntimeError(f"{name}: the ptxas report lists "
+                               f"{len(main_path)} main-path instances")
+        spills = {2 << k[0]: v[1:] for k, v in main_path.items() if any(v[1:])}
+        if spills:
+            raise RuntimeError(f"{name} spills in its main-path instances "
+                               f"(N: store and load bytes): {spills}")
     return regs
 
 
-def fused_registers(build_log):
+def kernel_registers(build_log, function):
     """{(log2 M, stamped): (registers, spill store bytes, spill load
-    bytes)} of the fused kernel's instances, from the -Xptxas -v report."""
-    pattern = r"fused_nodelay_kernelILi(\d+)ELb([01])E"
+    bytes)} of the instances of the kernel template ``function``, from the
+    -Xptxas -v report."""
+    pattern = function + r"ILi(\d+)ELb([01])E"
 
     def instance(line):
         m = re.search(pattern, line)
@@ -512,24 +536,26 @@ def log_fused_time(n, k_ms, p_ms, card):
         f"{p_ms:.4f} ms (on {card})")
 
 
-def log_phase_clocks(fused, x, card):
-    """Mean SM clocks per trace of the fused kernel's phases, from one
-    launch of its stamped instance on ``x``."""
-    stamps = fused.phase_clocks(x).double().mean(dim=0).tolist()
+FUSED_PHASES = ("load", "FFT passes", "untangle and sums", "reduction")
+
+
+def log_phase_clocks(name, phases, stamps, n, card):
+    """Mean SM clocks per trace of a kernel's phases ``phases``, from the
+    stamps [B, len(phases)] of one launch of its stamped instance."""
+    mean = stamps.double().mean(dim=0).tolist()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    names = ("load", "FFT passes", "untangle and sums", "reduction")
-    total = sum(stamps)
-    log(f"[d] fused_nodelay_of phase clocks, N={x.shape[-1]}, B="
-        f"{x.shape[0]}, mean SM clocks per trace: "
+    total = sum(mean)
+    log(f"[d] {name} phase clocks, N={n}, B={stamps.shape[0]}, mean SM "
+        "clocks per trace: "
         + "; ".join(f"{k} {v:.0f} ({100 * v / total:.1f}%)"
-                    for k, v in zip(names, stamps))
+                    for k, v in zip(phases, mean))
         + f"; total {total:.0f} (SM clock after the run: {smi}; on {card})")
-    return dict(zip(names, stamps))
+    return dict(zip(phases, mean))
 
 
-def phase_d(device, card, errs, regs):
+def phase_d(device, card, errs, regs, parent_fft=None):
     # the package's entry point on the card (N = 16384, 16 events)
     small, (x,) = entry(device)
     cols = small(x)
@@ -636,13 +662,26 @@ def phase_d(device, card, errs, regs):
         build_bank(N // 2, N // 4, FS)[0], device, torch.float32))
     log_fused_time(N // 2, *time_pair(lambda: half.kernel(x),
                                       lambda: half.plain(x)), card)
-    for log2m in (13, 14):
-        nreg, st, ld = regs[(log2m, False)]
-        log(f"[d] fused_nodelay_of N={2 << log2m}: {nreg} registers, {st} "
-            f"bytes spill stores, {ld} bytes spill loads (ptxas)")
-    log_phase_clocks(half, x, card)
-    log_phase_clocks(fused, tr, card)
-    return launches, timings
+    for name in _kernels.KERNELS:
+        for log2m in (13, 14):
+            nreg, st, ld = regs[name][(log2m, False)]
+            log(f"[d] {name} N={2 << log2m}: {nreg} registers, {st} bytes "
+                f"spill stores, {ld} bytes spill loads (ptxas)")
+    clocks = {"rfft": {}, "fused_nodelay_of": {}}
+    for n, xx, fz in ((N // 2, x, half), (N, tr, fused)):
+        clocks["rfft"][n] = log_phase_clocks(
+            "rfft", cuda_fft.PHASES, cuda_fft.rfft_phase_clocks(xx), n, card)
+        clocks["fused_nodelay_of"][n] = log_phase_clocks(
+            "fused_nodelay_of", FUSED_PHASES, fz.phase_clocks(xx), n, card)
+    if parent_fft is not None:
+        # the earlier form beside this one, in turns, on the slice's batch
+        earlier, now = time_pair(lambda: parent_fft.rfft_kernel(tr),
+                                 lambda: cuda_fft.rfft_kernel(tr))
+        log(f"[d] rfft at B={BATCH}, N={N}: earlier form "
+            f"({parent_fft.__file__}) {earlier:.4f} ms, this form {now:.4f} "
+            f"ms, in turns (on {card})")
+        timings["rfft_earlier"] = earlier
+    return launches, timings, clocks
 
 
 class TriggerBatch(NamedTuple):
@@ -1055,8 +1094,11 @@ def phase_e(device, card, errs):
                                f" segments: {rel:.3e}")
         errs["rfft"][0] = max(errs["rfft"][0], dmax)
         errs["rfft"][1] = max(errs["rfft"][1], rel)
+        row_bytes = 4 * seg.shape[1] + 8 * (seg.shape[1] // 2 + 1)
         k_ms, p_ms = time_pair(lambda: cuda_fft.rfft_kernel(seg),
-                               lambda: cuda_fft.rfft_plain(seg))
+                               lambda: cuda_fft.rfft_plain(seg),
+                               max(TIMING_REPS, round(
+                                   RUN_BYTES / (seg.shape[0] * row_bytes))))
         b_ms, b_by = bound("rfft", seg.shape[1], seg.shape[0])
         log(f"[e] rfft on the {what} segments: kernel {k_ms:.4f} ms, cuFFT "
             f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) (on {card})")
@@ -1435,11 +1477,22 @@ def _phase_g(device, card, errs, tmp):
     return {k: launches[k] + tlaunch[k] for k in launches}
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=os.path.abspath, default=None,
+                    help="an earlier checkout (git archive) whose rFFT "
+                    "kernel phase (d) times beside this one (earlier_ms)")
+    args = ap.parse_args(argv)
     device, card = phase_a()
+    parent_fft = None
+    if args.parent is not None:
+        sys.path.insert(0, os.path.join(ROOT, "scripts"))
+        from torch_fused_ab import import_tree
+        parent_fft = import_tree(args.parent, "ops.cuda_fft")
+        parent_fft._kernels.build()
     regs = phase_b()
     errs = phase_c(device)
-    launches, timings = phase_d(device, card, errs, regs)
+    launches, timings, clocks = phase_d(device, card, errs, regs, parent_fft)
     trig_launches, trig_timings = phase_e(device, card, errs)
     phase_f(device, card)
     shell_launches = phase_g(device, card, errs)
@@ -1448,6 +1501,7 @@ def main():
         b_ms, b_by = bound(name, N, BATCH)
         per_path = {"feature": launches[name], "trigger": trig_launches[name],
                     "shell": shell_launches[name]}
+        rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",
             "source": KERNEL_INFO[name]["source"],
@@ -1461,8 +1515,11 @@ def main():
             "bound_ms": b_ms, "bound_by": b_by,
             # the rFFT's plain twin is the one PyTorch call torch.fft.rfft
             # (cuFFT); no single call computes the fused sums
-            "library_ms": timings[name][1] if name == "rfft" else None,
-            **({"trigger_path": trig_timings} if name == "rfft" else {})})
+            "library_ms": timings[name][1] if rfft else None,
+            "phase_clocks": clocks[name],
+            # the earlier form's time in the same call (--parent), else null
+            **({"earlier_ms": timings.get("rfft_earlier"),
+                "trigger_path": trig_timings} if rfft else {})})
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

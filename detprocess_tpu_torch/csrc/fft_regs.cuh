@@ -1,5 +1,5 @@
 // Register-resident FFT of one packed trace per thread block (Hopper,
-// sm_90a), used by fused_nodelay_of.cu.
+// sm_90a), used by rfft.cu and fused_nodelay_of.cu.
 //
 // A real trace x[0..N) is read as M = N/2 complex values
 // z[m] = x[2m] + i·x[2m+1] and transformed by a Stockham FFT of size M
@@ -17,7 +17,7 @@
 // issued before any arithmetic; later passes exchange through shared
 // memory, one read and one write per value and two barriers per pass. At
 // N = 32768 that is 4 passes (16·16·16·4) against the 7 radix-4 stages
-// of rfft_smem.cuh.
+// of the shared-memory form that both kernels had first.
 //
 // DFT_R in registers: R = 4·Q with r = Q·a + b and q = c + 4·d,
 // DFT_4 over a, the twiddle W_R^{b·c}, DFT_Q over b; the result q lands in

@@ -19,8 +19,8 @@
 // What bounds it on an H100: HBM bytes. At B = 8192, N = 32768 it must
 // read 1.074 GB of traces, 0.320 ms at 3.35 TB/s; its FFT and sums are
 // about 11 GFLOP of float32, 0.16 ms at 67 TFLOP/s. What held the first
-// form (shared-memory radix-4 stages, as in rfft_smem.cuh) far from that,
-// and what this one does about it:
+// form (shared-memory radix-4 stages, as in the first rFFT kernel) far
+// from that, and what this one does about it:
 // - 7 stages, each a full read, barrier, write and barrier over shared
 //   memory, with 4-way bank conflicts early, and a trace staged through
 //   shared memory before the first: now 4 radix-16 passes in registers, the

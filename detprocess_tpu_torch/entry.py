@@ -32,6 +32,7 @@ import tempfile
 import numpy as np
 import torch
 
+from detprocess_tpu_torch import device as dev
 from detprocess_tpu_torch.io.filterdata import FilterData
 from detprocess_tpu_torch.io.rawdata import RawIndex, write_flat_dump
 from detprocess_tpu_torch.models import pulse
@@ -69,9 +70,16 @@ def build_bank(n: int, pretrig: int, fs: float = FS):
     return bank, template, psd
 
 
-def entry(device, dtype=torch.float32):
+def _device(device) -> torch.device:
+    """``device``, or the GPU (``device.require_cuda``, which raises
+    without one) for None."""
+    return dev.require_cuda() if device is None else torch.device(device)
+
+
+def entry(device=None, dtype=torch.float32):
     """Return ``(step, (traces,))``: a :class:`FeatureStep` for one channel
-    and an example batch [16, 1, 16384] on ``device``."""
+    and an example batch [16, 1, 16384] on ``device`` (None: the GPU)."""
+    device = _device(device)
     n = 16384
     pretrig = n // 2
     batch = 16
@@ -98,10 +106,11 @@ def build_trigger(fs: float = FS, real_dtype=np.float32):
     return kernel, trigger.make_residual_basis(kernel), template
 
 
-def trigger_entry(device, dtype=torch.float32):
+def trigger_entry(device=None, dtype=torch.float32):
     """Return ``(step, (traces,))``: a residual-mode :class:`TriggerStep`
     with the saturation veto on, and a batch of white noise [8, 1,
-    1250000] of the configuration's PSD on ``device``."""
+    1250000] of the configuration's PSD on ``device`` (None: the GPU)."""
+    device = _device(device)
     kernel, basis, _ = build_trigger(
         real_dtype=np.float64 if dtype == torch.float64 else np.float32)
     sat = TRIGGER_SAT_RESOLUTIONS * float(kernel.resolution[0])
@@ -256,6 +265,7 @@ def feature_processing_entry(device=None, directory: str | None = None,
     the 4-channel configuration over ``nevents`` synthetic events that it
     writes as two flat int16 dumps into ``directory`` (a new temporary
     directory by default). ``device=None`` means the GPU."""
+    device = _device(device)
     if directory is None:
         directory = tempfile.mkdtemp(prefix="detprocess_shell_")
     gen = torch.Generator().manual_seed(seed)

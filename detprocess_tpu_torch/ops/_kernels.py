@@ -143,6 +143,8 @@ def lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         handle.dp_rfft_f32.argtypes = [p, p, p, ll, i, i, p]
         handle.dp_rfft_f32.restype = i
+        handle.dp_rfft_stamped_f32.argtypes = [p, p, p, p, ll, i, i, p]
+        handle.dp_rfft_stamped_f32.restype = i
         handle.dp_fused_nodelay_of_f32.argtypes = [p, p, p, p, i, ll, i, p,
                                                    p, i, p]
         handle.dp_fused_nodelay_of_f32.restype = i

@@ -3,12 +3,15 @@ plain PyTorch twin.
 
 Port of the TPU kernel ``detprocess_tpu/ops/pallas_fft.py::fft_pallas``
 (a four-step DFT-by-matmul that emitted the full spectrum in
-digit-reversed order). The kernel (``csrc/rfft.cu``) keeps one trace per
-thread block in shared memory and writes the natural-order half spectrum
+digit-reversed order). The kernel (``csrc/rfft.cu``, on the
+register-resident FFT core ``csrc/fft_regs.cuh``) transforms one trace
+per thread block and writes the natural-order half spectrum
 ``[B, N/2 + 1]`` straight into a complex64 tensor.
 
 :func:`rfft_kernel` takes CUDA tensors only and raises on anything the
 kernel does not take; it never falls back to :func:`rfft_plain`.
+:func:`rfft_phase_clocks` launches the kernel's stamped instance, which
+also writes the SM clocks of each trace's phases.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ def twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 
 def check_kernel_input(x: torch.Tensor, name: str) -> int:
-    """Validate a trace batch for the shared-memory FFT kernels; return N."""
+    """Validate a trace batch for the FFT kernels; return N."""
     n = x.shape[-1]
     if n not in SUPPORTED_N:
         raise ValueError(f"{name}: trace length {n} is not a power of two "
@@ -57,20 +60,46 @@ def check_kernel_input(x: torch.Tensor, name: str) -> int:
     return n
 
 
+PHASES = ("load", "FFT passes", "untangle and store")
+
+
 def rfft_kernel(x: torch.Tensor) -> torch.Tensor:
     """Half spectrum ``[..., N/2 + 1]`` complex64 of float32 traces
     ``[..., N]`` on the GPU, by the hand-written kernel."""
+    return _launch(x)
+
+
+def rfft_phase_clocks(x: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel's stamped instance on ``x``: per trace,
+    the SM clocks of its phases (:data:`PHASES`), int64 [B, 3]. A
+    measurement, not the main path: it is not counted as a launch."""
+    n = check_kernel_input(x, "rfft")
+    stamps = torch.zeros(x.numel() // n, len(PHASES), dtype=torch.int64,
+                         device=x.device)
+    _launch(x, stamps)
+    return stamps
+
+
+def _launch(x, stamps=None):
+    """Validate ``x`` and launch the kernel (its stamped instance when
+    ``stamps`` is given); return the half spectrum. Counts the launch
+    unless it is the stamped instance."""
     n = check_kernel_input(x, "rfft")
     batch = x.numel() // n
     out = torch.empty(*x.shape[:-1], n // 2 + 1, dtype=torch.complex64,
                       device=x.device)
     if batch == 0:
         return out
-    tw = twiddles(n, x.device)
+    lib = _kernels.lib()
+    args = [x.data_ptr(), out.data_ptr(), twiddles(n, x.device).data_ptr()]
+    if stamps is None:
+        entry = lib.dp_rfft_f32
+    else:
+        entry = lib.dp_rfft_stamped_f32
+        args.append(stamps.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _kernels.lib().dp_rfft_f32(x.data_ptr(), out.data_ptr(),
-                                      tw.data_ptr(), batch, n,
-                                      x.device.index, stream)
+    code = entry(*args, batch, n, x.device.index, stream)
     _kernels.check(code, "rfft")
-    _kernels.count_launch("rfft")
+    if stamps is None:
+        _kernels.count_launch("rfft")
     return out

@@ -81,16 +81,16 @@ def log(msg):
     print(msg, flush=True)
 
 
-def import_tree(root):
-    """The ``ops.cuda_of`` module of the checkout ``root``, imported under
-    module objects of its own; ``sys.modules`` is left as it was."""
+def import_tree(root, module="ops.cuda_of"):
+    """The module ``module`` of the checkout ``root``'s package, imported
+    under module objects of its own; ``sys.modules`` is left as it was."""
     def ours():
         return [k for k in sys.modules if k == PKG or k.startswith(PKG + ".")]
 
     saved = {k: sys.modules.pop(k) for k in ours()}
     sys.path.insert(0, str(root))
     try:
-        return importlib.import_module(PKG + ".ops.cuda_of")
+        return importlib.import_module(f"{PKG}.{module}")
     finally:
         sys.path.remove(str(root))
         for k in ours():

@@ -1,12 +1,12 @@
-"""A numpy model of ``detprocess_tpu_torch/csrc/fused_nodelay_of.cu`` and
-its FFT core ``csrc/fft_regs.cuh``, step by step.
+"""A numpy model of ``detprocess_tpu_torch/csrc/fused_nodelay_of.cu``,
+``csrc/rfft.cu`` and their FFT core ``csrc/fft_regs.cuh``, step by step.
 
-The CUDA kernel runs only on the GPU; this model follows its index maps
-and its arithmetic so that the CPU tests can hold them to ``np.fft.rfft``,
-to the JAX package's of1x1 functions and to the Pallas kernel it
-replaces. ``dtype=np.complex128`` gives the exact algorithm (errors at
-1e-13); ``np.complex64`` repeats the kernel's float32 roundings, the
-twiddle products included (not its fused multiply-adds).
+The CUDA kernels run only on the GPU; this model follows their index maps
+and their arithmetic so that the CPU tests can hold them to
+``np.fft.rfft``, to the JAX package's of1x1 functions and to the Pallas
+kernels they replace. ``dtype=np.complex128`` gives the exact algorithm
+(errors at 1e-13); ``np.complex64`` repeats the kernels' float32
+roundings, the twiddle products included (not their fused multiply-adds).
 """
 
 import numpy as np
@@ -158,6 +158,39 @@ def half_spectrum(x, tw, dtype=np.complex128):
     out = np.empty(x.shape[:-1] + (m + 1,), dtype)
     out[..., :m] = e - 1j * (w * o)
     out[..., m] = s[..., 0].real - s[..., 0].imag
+    return out
+
+
+def rfft_store_map(m):
+    """The bins that rfft.cu's threads write: [M/16, M/32, 2], thread t's
+    i-th pair (k, M − k) with k = t + i·M/16 < M/2; thread 0 also writes
+    the middle bin M/2, returned second."""
+    threads = m // 16
+    k = np.arange(threads)[:, None] + threads * np.arange(m // 2 // threads)
+    return np.stack([k, m - k], axis=-1), m // 2
+
+
+def rfft_spectrum(x, tw, dtype=np.complex128):
+    """Natural half spectrum X [..., M + 1] of real traces x [..., N] as
+    rfft.cu forms and stores it: the passes, then for each pair of the
+    store map X_k = e − i·W·o and X_{M−k} = conj(e + i·W·o) from one
+    twiddle W = W_N^k of the factor tables, and X_{M/2} = conj Z_{M/2}.
+    Bins no thread writes stay NaN."""
+    tw = tw.astype(dtype)
+    m = x.shape[-1] // 2
+    s = fft_regs(x[..., 0::2] + 1j * x[..., 1::2], tw, dtype)
+    lo, hi = untangle_tables(tw)
+    pairs, mid = rfft_store_map(m)
+    k = pairs[..., 0].ravel()
+    zk = s[..., pad(k)]
+    zr = np.conj(s[..., pad((m - k) & (m - 1))])
+    w = hi[k >> LO_BITS] * lo[k & ((1 << LO_BITS) - 1)]
+    e = 0.5 * (zk + zr)
+    wo = w * (0.5 * (zk - zr))
+    out = np.full(x.shape[:-1] + (m + 1,), np.nan, dtype)
+    out[..., k] = e - 1j * wo
+    out[..., pairs[..., 1].ravel()] = np.conj(e + 1j * wo)
+    out[..., mid] = np.conj(s[..., pad(mid)])
     return out
 
 

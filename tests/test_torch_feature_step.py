@@ -17,6 +17,7 @@ All comparisons are float64 at 1e-9.
 
 import importlib.util
 import os
+import tempfile
 
 import numpy as np
 import jax
@@ -207,6 +208,19 @@ def test_entry_matches_jax_entry_packed_chain():
             np.testing.assert_allclose(g, r, rtol=RTOL, err_msg=jkey)
     # the port's step also matches its own bank builder's bank
     np.testing.assert_allclose(step.norm.numpy(), bank.norm, rtol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["entry", "trigger_entry",
+                                  "feature_processing_entry"])
+def test_entry_device_none_is_the_gpu(monkeypatch, tmp_path, name):
+    """``device=None`` means the GPU: without one an entry point raises
+    before it builds or writes anything, rather than running on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(tentry, name)()
+    assert os.listdir(tmp_path) == []
 
 
 def test_feature_step_off_kernel_length_matches_jax():

@@ -6,22 +6,28 @@ On a CPU tensor ``ops.fft.rfft`` is the kernel's plain twin
 float64 and to the TPU kernel it replaces, ``fft_pallas``, run in
 interpret mode as tests/test_pallas_kernels.py runs it. The CUDA kernel
 itself runs only on the GPU (``python3 chip_smoke.py`` compares it with
-the same twin there); its index math is held here by a numpy model of
-the kernel's steps.
+the same twin there); its index maps and arithmetic are held here by the
+numpy model of its steps in tests/fused_model.py, which it shares with
+the fused kernel (the same FFT core, csrc/fft_regs.cuh).
 """
 
+import re
 import types
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+import fused_model as fm
 from detprocess_tpu.ops import fft as dfft
 from detprocess_tpu.ops.pallas_fft import fft_pallas
 from detprocess_tpu_torch.ops import _kernels, cuda_fft, fft
 
 torch.set_num_threads(1)
+
+CSRC = Path(cuda_fft.__file__).resolve().parent.parent / "csrc"
 
 
 @pytest.mark.parametrize("n", [256, 2048, 2046, 16384])
@@ -57,64 +63,69 @@ def test_rfft_matches_pallas_fft_interpret(n1, n2):
     assert rel <= 1e-5
 
 
-def stockham_model(z, tw):
-    """The in-place radix-4 Stockham stages of csrc/rfft_smem.cuh
-    (fft_smem, one radix-2 stage first when log2(M) is odd) on z [..., M],
-    reading the table tw = W_{2M}^k, k < M."""
-    mp = z.shape[-1]
-    log2m = mp.bit_length() - 1
-    stages = ([(2, 0)] if log2m & 1 else []) + [
-        (4, lns) for lns in range(log2m & 1, log2m, 2)]
-    for radix, lns in stages:
-        nb, ns = mp // radix, 1 << lns
-        lr = 2 if radix == 4 else 1
-        j = np.arange(nb)
-        k = j & (ns - 1)
-        w = tw[2 * (k << (log2m - lns - lr))]
-        v = [z[..., j + r * nb] * w ** r for r in range(radix)]
-        y = [sum(v[r] * np.exp(-2j * np.pi * r * q / radix)
-                 for r in range(radix)) for q in range(radix)]
-        z = np.empty_like(z)
-        base = (j - k) * radix + k
-        for q in range(radix):
-            z[..., base + q * ns] = y[q]
-    return z
-
-
-def kernel_rfft_model(x, tw):
-    """csrc/rfft.cu step by step: the trace packed as M = N/2 complex
-    values, the Stockham stages, the untangle and the Nyquist bin, with
-    ``tw`` = W_N^k (k < M), the kernel's table."""
-    m = x.shape[-1] // 2
-    zz = stockham_model(x[..., 0::2] + 1j * x[..., 1::2], tw)
-    k = np.arange(m)
-    zk, zr = zz, np.conj(zz[..., (m - k) & (m - 1)])
-    out = np.empty(x.shape[:-1] + (m + 1,), dtype=np.complex128)
-    out[..., :m] = 0.5 * (zk + zr) - 0.5j * tw[k] * (zk - zr)
-    out[..., m] = zz[..., 0].real - zz[..., 0].imag
-    return out
+def _table(n):
+    """The kernel's twiddle table W_N^k (k < N/2) in float64."""
+    return np.exp(-2j * np.pi * np.arange(n // 2) / n)
 
 
 @pytest.mark.parametrize("n", cuda_fft.SUPPORTED_N)
 def test_kernel_model_matches_numpy_rfft(n):
-    rng = np.random.default_rng(n)
-    x = rng.standard_normal((3, n))
-    tw = np.exp(-2j * np.pi * np.arange(n // 2) / n)   # float64 table
-    got = kernel_rfft_model(x, tw)
+    """The model of csrc/rfft.cu (fft_regs.cuh's passes, the paired
+    untangle and its store map) is the exact rFFT in float64."""
+    x = np.random.default_rng(n).standard_normal((3, n))
+    got = fm.rfft_spectrum(x, _table(n))
     ref = np.fft.rfft(x)
     assert np.max(np.abs(got - ref)) <= 1e-12 * np.max(np.abs(ref))
+
+
+@pytest.mark.parametrize("n", [16384, 32768])
+def test_kernel_model_float32_matches_numpy_rfft(n):
+    """In complex64 (the kernel's roundings, the float32 table's and the
+    twiddle products' included) the model stays within the card's
+    tolerance, 1e-5 of max|X|, at the trigger segments' lengths."""
+    x = np.random.default_rng(n + 3).standard_normal((2, n)).astype(
+        np.float32)
+    got = fm.rfft_spectrum(x, _table(n).astype(np.complex64), np.complex64)
+    assert got.dtype == np.complex64
+    ref = np.fft.rfft(x.astype(np.float64))
+    assert np.max(np.abs(got - ref)) <= 1e-5 * np.max(np.abs(ref))
 
 
 def test_kernel_model_matches_pallas_fft_interpret():
     n1, n2 = 64, 32
     n = n1 * n2
     x = np.random.default_rng(7).standard_normal((16, n)).astype(np.float32)
-    re, im = fft_pallas(jnp.asarray(x), n1, n2, tile=8, interpret=True)
-    full = np.asarray(re, np.float64) + 1j * np.asarray(im, np.float64)
+    re_, im = fft_pallas(jnp.asarray(x), n1, n2, tile=8, interpret=True)
+    full = np.asarray(re_, np.float64) + 1j * np.asarray(im, np.float64)
     half = full[:, : n // 2 + 1]          # natural order (see above)
     tw = cuda_fft.twiddles(n, torch.device("cpu")).numpy()
-    got = kernel_rfft_model(x.astype(np.float64), tw.astype(np.complex128))
+    got = fm.rfft_spectrum(x.astype(np.float64), tw.astype(np.complex128))
     assert np.max(np.abs(got - half)) / np.max(np.abs(half)) <= 1e-5
+
+
+@pytest.mark.parametrize("n", cuda_fft.SUPPORTED_N)
+def test_kernel_store_map_writes_each_bin_once(n):
+    """rfft.cu's threads write each of the M + 1 bins exactly once, a
+    warp's lanes on consecutive bins (one run ascending, one descending),
+    and the model leaves no bin unwritten."""
+    m = n // 2
+    pairs, mid = fm.rfft_store_map(m)
+    assert pairs.shape == (m // 16, 8, 2)
+    bins = np.concatenate([pairs.ravel(), [mid]])
+    assert np.array_equal(np.sort(bins), np.arange(m + 1))
+    assert np.all(np.diff(pairs[..., 0], axis=0) == 1)
+    assert np.all(np.diff(pairs[..., 1], axis=0) == -1)
+    x = np.random.default_rng(n).standard_normal((1, n))
+    assert not np.isnan(fm.rfft_spectrum(x, _table(n))).any()
+
+
+def test_kernel_source_runs_on_the_register_core():
+    src = (CSRC / "rfft.cu").read_text()
+    assert re.findall(r'#include\s+[<"]([^>"]+)', src) == ["fft_regs.cuh"]
+    for step in ("dpr::load_first", "dpr::first_pass", "dpr::other_passes"):
+        assert step in src
+    assert not (CSRC / "rfft_smem.cuh").exists()
+    assert sorted(p.name for p in CSRC.glob("*.cuh")) == ["fft_regs.cuh"]
 
 
 @pytest.mark.parametrize("n", [2048, 2047])
@@ -186,6 +197,47 @@ def test_rfft_cuda_route_by_shape(monkeypatch, n, dtype, contiguous, route):
                                       torch.fft.rfft(x).numpy())
     _kernels.reset_launch_counts()
     assert _kernels.library_counts() == {"cufft_rfft": 0}
+
+
+@pytest.mark.parametrize("method,batch,entry,counted", [
+    ("rfft_kernel", 3, "dp_rfft_f32", 1),
+    ("rfft_kernel", 0, None, 0),
+    ("rfft_phase_clocks", 3, "dp_rfft_stamped_f32", 0)])
+def test_rfft_counts_only_main_path_launches(monkeypatch, method, batch,
+                                             entry, counted):
+    """The wrapper adds one to the launch count where it launches the
+    main-path kernel, and nowhere else: not for an empty batch (nothing is
+    launched) and not for the stamped instance, whose stamps [B, 3] it
+    hands to the kernel and returns. The C library, the device check and
+    the stream are stood in for on the CPU."""
+    calls = []
+
+    def stand_in(name):
+        def launch(*args):
+            calls.append((name, args))
+            return 0
+        return launch
+
+    lib = types.SimpleNamespace(
+        dp_rfft_f32=stand_in("dp_rfft_f32"),
+        dp_rfft_stamped_f32=stand_in("dp_rfft_stamped_f32"))
+    monkeypatch.setattr(_kernels, "lib", lambda: lib)
+    monkeypatch.setattr(cuda_fft, "check_kernel_input",
+                        lambda x, name: x.shape[-1])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    x = torch.zeros(batch, 1024, dtype=torch.float32)
+    _kernels.reset_launch_counts()
+    out = getattr(cuda_fft, method)(x)
+    assert [name for name, _ in calls] == ([entry] if entry else [])
+    assert _kernels.launch_counts() == {"rfft": counted,
+                                        "fused_nodelay_of": 0}
+    if method == "rfft_phase_clocks":
+        assert out.shape == (batch, len(cuda_fft.PHASES)) == (3, 3)
+        assert out.dtype == torch.int64
+        assert calls[0][1][3] == out.data_ptr()
+    else:
+        assert out.shape == (batch, 513) and out.dtype == torch.complex64
 
 
 @pytest.mark.parametrize("x,err,match", [
