@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of detprocess_tpu_torch: the of1x1 feature step, the
-continuous-data trigger step and the FeatureProcessing shell on one card.
+continuous-data trigger step, the FeatureProcessing shell and the
+TriggerProcessing shell chained into it, on one card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -88,14 +89,41 @@ g. the FeatureProcessing shell (entry.py's 4-channel configuration,
    dropped, the first 16 rows against the float64 CPU run, chan1's
    amplitudes and t0. Both kernels are held against their twins at the
    shell's shapes.
+h. the TriggerProcessing shell (entry.py's trigger configuration, the
+   trigger half of BASELINE.json config 5): 64 continuous events of the 4
+   shell channels × 1,250,000 int16 samples (610 MiB in 4 flat dumps in a
+   temporary directory, deleted at the end), each with 40 coincident 10σ
+   pulses (channel offsets within ±20 samples), 2 single 10σ pulses on
+   chan2–chan4, and on chan1 two pulses of 1–5 µA and one of 8 µA above
+   its saturation level; processed with process(event_batch=8,
+   capacity=4096, nreaders=4) in float32 three times (the third under
+   torch.profiler). It fails unless the rFFT kernel launches 5 times a
+   batch (4 FIR segment transforms and chan1's residual convolution) and
+   the cuFFT route once (chan1's low-pass), the upload is 2 bytes a
+   sample, every pulse is found in its channel's columns within ±256
+   samples and 5σ, each coincident group ends as one row (or, where a
+   channel triggered once more inside the window, as no more rows than
+   such extra triggers allow), chan1's pulses above the saturation level
+   are found by both passes of its step, and event 1 agrees with the
+   shell's float64 CPU run (phase (e)'s tolerances). It prints continuous
+   events/s and Msamples/s (host clock), the StageTimer's read, dispatch,
+   drain and dump seconds and the device's busy share, and holds the rFFT
+   kernel against its twin on the path's FIR and residual segments. Then
+   the chain: the card's table into FeatureProcessing in trigger-table
+   mode (windows of 4096/1024, shell_config(4096, 1024)): 5 launches a
+   batch of each kernel, cuFFT 0, every row kept, chan1's large pulses'
+   amplitude bias below 5e-3 and t0 within one sample for > 99 %; both
+   kernels against their twins on its windows.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
 peak or float32 operations over the non-tensor peak, the larger), the
 one PyTorch call that computes the same function, where there is one, and
 its launches on each path (feature: phase d; trigger: phase e's residual
-run; shell: phase g's two process() calls with the counts at 0), whose
-sum is ``launches``, and the SM clocks of its phases from phase (d).
+run; shell: phase g's two process() calls with the counts at 0;
+trigger_shell: phase h's first process() call; chain: its table through
+FeatureProcessing), whose sum is ``launches``, and the SM clocks of its
+phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
 
@@ -133,6 +161,10 @@ from detprocess_tpu_torch.io.rawdata import (  # noqa: E402
 from detprocess_tpu_torch.ops.adc import adc_convert  # noqa: E402
 from detprocess_tpu_torch.pipelines.features import (  # noqa: E402
     FeatureProcessing)
+from detprocess_tpu_torch.io.upload import BufferRing, Uploader  # noqa: E402
+from detprocess_tpu_torch.pipelines import triggers  # noqa: E402
+from detprocess_tpu_torch.pipelines.triggers import (  # noqa: E402
+    TriggerProcessing)
 from detprocess_tpu_torch.utils.logging import StageTimer  # noqa: E402
 
 FS = 1.25e6
@@ -201,6 +233,14 @@ SHELL_TRIG_BATCH = 512
 # χ²₀ has no cancellation; the resolutions are functions of the bank
 SHELL_RTOL = {**REF_RTOL, "chi2nopulse": 5e-3, "maximum": 1e-4,
               "minimum": 1e-4, "ampres": 1e-5, "timeres": 1e-5}
+
+# phase (h): the TriggerProcessing shell from files, then the chain
+TSHELL_EVENTS = 64
+TSHELL_FILES = 4
+TSHELL_BATCH = 8
+TSHELL_READERS = 4
+TSHELL_CAPACITY = 4096
+CHAIN_BATCH = 512
 
 KERNEL_INFO = {
     "rfft": {"source": "detprocess_tpu_torch/csrc/rfft.cu",
@@ -307,10 +347,13 @@ def kernel_registers(build_log, function):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def compare_kernels(x, fused, errs, phase):
+def compare_kernels(x, fused, errs, phase, amp_scale="event"):
     """Each kernel's wrapper against its plain twin on the traces ``x``
     [B, N] on the card; raise past the tolerances, keep the worst errors
-    in ``errs`` ({name: [max abs, max rel]})."""
+    in ``errs`` ({name: [max abs, max rel]}). ``amp_scale``: the fused
+    amplitudes' error relative to each event's (``"event"``) or to the
+    batch's largest (``"batch"``, for batches of noise windows, whose
+    amplitudes sit near 0)."""
     n, batch = x.shape[-1], x.shape[0]
     got = cuda_fft.rfft_kernel(x)
     ref = cuda_fft.rfft_plain(x)
@@ -325,22 +368,25 @@ def compare_kernels(x, fused, errs, phase):
         raise RuntimeError(f"rfft kernel disagrees at N={n}, B={batch}: "
                            f"{rel:.3e}")
     del got, ref
-    compare_fused(x, fused, errs, phase)
+    compare_fused(x, fused, errs, phase, amp_scale)
 
 
-def compare_fused(x, fused, errs, phase):
+def compare_fused(x, fused, errs, phase, amp_scale="event"):
     """The fused kernel against its plain twin on ``x``, every slot."""
     n, batch = x.shape[-1], x.shape[0]
     amp_k, chi2_k = fused.kernel(x)
     amp_p, chi2_p = fused.plain(x)
     torch.cuda.synchronize(x.device)
-    amp_rel = rel_err(amp_k, amp_p)
+    amp_rel = (rel_err(amp_k, amp_p) if amp_scale == "event" else float(
+        (amp_k.double() - amp_p.double()).abs().max()
+        / amp_p.double().abs().max()))
     chi2_rel = rel_err(chi2_k, chi2_p)
     amp_abs = float((amp_k.double() - amp_p.double()).abs().max())
     errs["fused_nodelay_of"][0] = max(errs["fused_nodelay_of"][0], amp_abs)
     errs["fused_nodelay_of"][1] = max(errs["fused_nodelay_of"][1], amp_rel)
     log(f"[{phase}] fused_nodelay_of N={n} B={batch} S={fused.nslots}: amp "
-        f"max|Δ| {amp_abs:.3e}, rel {amp_rel:.3e} (tol {AMP_RTOL:g}); χ² "
+        f"max|Δ| {amp_abs:.3e}, rel {amp_rel:.3e} ({amp_scale} scale; tol "
+        f"{AMP_RTOL:g}); χ² "
         f"rel {chi2_rel:.3e} (tol {CHI2_RTOL:g})")
     if not (amp_rel <= AMP_RTOL and chi2_rel <= CHI2_RTOL):
         raise RuntimeError(f"fused no-delay kernel disagrees at N={n}, "
@@ -1187,7 +1233,7 @@ def device_intervals(prof):
     return busy / 1e3, kern, copy
 
 
-def run_shell(shell, what, card, **kw):
+def run_shell(shell, what, card, phase="g", **kw):
     """One process() call with a StageTimer: (table, seconds, timer
     report)."""
     timer = StageTimer()
@@ -1198,7 +1244,7 @@ def run_shell(shell, what, card, **kw):
     stages = {k: round(v["seconds"], 4)
               for k, v in timer.report(log=False).items()}
     n = shell.stats["events"]
-    log(f"[g] {what}: {n} events in {sec:.4f} s, {n / sec:.1f} events/s "
+    log(f"[{phase}] {what}: {n} events in {sec:.4f} s, {n / sec:.1f} events/s "
         f"end to end (host clock, process() call to returned columns); "
         f"host stages {stages} s; on {card}")
     return table, sec, stages
@@ -1231,10 +1277,10 @@ def shell_physics(table, amps, shifts):
         raise RuntimeError("shell physics invariants failed")
 
 
-def check_shell_launches(launches, library, nbatch, what):
+def check_shell_launches(launches, library, nbatch, what, phase="g"):
     want = {"rfft": SHELL_SPECTRAL * nbatch,
             "fused_nodelay_of": SHELL_SPECTRAL * nbatch, "cufft_rfft": 0}
-    log(f"[g] {what} launches: {launches}, library route {library} "
+    log(f"[{phase}] {what} launches: {launches}, library route {library} "
         f"({nbatch} batches)")
     if {**launches, **library} != want:
         raise RuntimeError(f"{what}: launches {launches}, library "
@@ -1477,6 +1523,414 @@ def _phase_g(device, card, errs, tmp):
     return {k: launches[k] + tlaunch[k] for k in launches}
 
 
+def event_of(table, per_file):
+    """Each row's event, numbered 0 … in file order (dump, then event)."""
+    return ((np.asarray(table["dump_number"]) - 1) * per_file
+            + np.asarray(table["event_number"]) - 1)
+
+
+def tshell_expected(pulses, res):
+    """{channel: (indices [E, P], amplitudes [E, P])} of every injected
+    pulse, by the channel that carries it."""
+    out = {}
+    for c, chan in enumerate(tentry.SHELL_CHANNELS):
+        at = [pulses["coincident"][:, :, c]]
+        amp = [np.full(at[0].shape, tentry.TSHELL_PULSE_SIGMA * res[c])]
+        if c == 0:
+            at += [pulses["big"], pulses["sat"][:, None]]
+            amp += [pulses["big_amp"], np.full((len(pulses["sat"]), 1),
+                                               tentry.TSHELL_SAT_PULSE)]
+        else:
+            at.append(pulses["single"][:, c - 1])
+            amp.append(np.full(at[-1].shape, tentry.TSHELL_PULSE_SIGMA
+                               * res[c]))
+        out[chan] = (np.concatenate(at, axis=1), np.concatenate(amp, axis=1))
+    return out
+
+
+def check_tshell_pulses(table, pulses, res, per_file):
+    """Every injected pulse in its channel's suffixed columns (merged rows
+    carry the other channels there) within TRIG_INDEX_TOL samples and
+    TRIG_AMP_TOL resolutions; each coincident group's rows: the group's
+    four triggers on one row, or, where a channel triggered once more
+    inside the coincidence window, on no more rows than such extra
+    triggers allow (the reference's greedy split of a window holding a
+    channel twice). Returns the share of groups that ended as one row."""
+    ev = event_of(table, per_file)
+    nev = pulses["coincident"].shape[0]
+    worst_i, worst_a = 0, 0.0
+    for c, (chan, (at, amp)) in enumerate(tshell_expected(pulses,
+                                                          res).items()):
+        idx_col = np.asarray(table[f"trigger_index_{chan}"], np.float64)
+        amp_col = np.asarray(table[f"trigger_amplitude_{chan}"], np.float64)
+        for e in range(nev):
+            rows = np.flatnonzero(ev == e)
+            got_i, got_a = idx_col[rows], amp_col[rows]
+            for t, a in zip(at[e], amp[e]):
+                d = np.abs(got_i - t)
+                if np.all(np.isnan(d)):
+                    raise RuntimeError(f"trigger shell: no {chan} trigger "
+                                       f"in event {e}")
+                k = int(np.nanargmin(d))
+                worst_i = max(worst_i, d[k])
+                worst_a = max(worst_a, abs(got_a[k] - a) / res[c])
+    if worst_i > TRIG_INDEX_TOL or worst_a > TRIG_AMP_TOL:
+        raise RuntimeError(f"trigger shell: injected pulse not recovered "
+                           f"(worst index offset {worst_i:g}, amplitude "
+                           f"error {worst_a:.3f} σ)")
+    base = np.asarray(table["trigger_index"])
+    idx_cols = np.stack([np.asarray(table[f"trigger_index_{c}"], np.float64)
+                         for c in tentry.SHELL_CHANNELS])
+    # rows whose index lies within two coincidence windows of the group
+    window = 2 * int(tentry.TSHELL_COINCIDENT_MSEC * 1e-3 * FS)
+    one_row = 0
+    for e in range(nev):
+        for group in pulses["coincident"][e]:
+            t = float(np.mean(group))
+            rows = np.flatnonzero((ev == e) & (np.abs(base - t) <= window))
+            trig = int(np.isfinite(idx_cols[:, rows]).sum())
+            if trig < len(group) or len(rows) > 1 + trig - len(group):
+                raise RuntimeError(
+                    f"trigger shell: the coincident group at {t:.0f} of "
+                    f"event {e} ended as {len(rows)} rows holding {trig} "
+                    "triggers")
+            one_row += len(rows) == 1
+    share = one_row / pulses["coincident"][:, :, 0].size
+    log(f"[h] every injected pulse found in its channel's columns (worst "
+        f"index offset {worst_i:g} samples, amplitude error {worst_a:.3f} σ);"
+        f" {one_row} of {pulses['coincident'][:, :, 0].size} coincident "
+        f"groups one row ({100 * share:.2f}%), the others split by an extra "
+        "trigger of one channel inside the window")
+    return share
+
+
+def compare_tshell_event(got, ref, threshold, what):
+    """One event's rows of the card's trigger table against the float64
+    CPU run: the same (channel, index) triggers in every channel's columns
+    but for those whose Δχ² is within TRIG_NEAR_THRESHOLD of the
+    threshold; on the rows whose primary trigger both have, the same
+    suffixed indices and Δχ² and amplitudes within TRIG_RTOL."""
+    def triggers(t):
+        out = {}
+        for chan in tentry.SHELL_CHANNELS:
+            i = np.asarray(t[f"trigger_index_{chan}"], np.float64)
+            d = np.asarray(t[f"trigger_delta_chi2_{chan}"], np.float64)
+            for ii, dd in zip(i[np.isfinite(i)], d[np.isfinite(i)]):
+                out[(chan, int(ii))] = dd
+        return out
+    tg, tr = triggers(got), triggers(ref)
+    for mine, other, side in ((tg, tr, "card"), (tr, tg, "CPU")):
+        for key in set(mine) - set(other):
+            if abs(mine[key] - threshold) > TRIG_NEAR_THRESHOLD * threshold:
+                raise RuntimeError(f"{what}: trigger {key} (Δχ² "
+                                   f"{mine[key]:.6g}) only in the {side} run")
+    gk = {(c, int(i)): r for r, (c, i) in enumerate(zip(
+        got["trigger_channel"], got["trigger_index"]))}
+    pairs = [(gk[(c, int(i))], r) for r, (c, i) in enumerate(zip(
+        ref["trigger_channel"], ref["trigger_index"])) if (c, int(i)) in gk]
+    g_rows = np.array([p[0] for p in pairs])
+    r_rows = np.array([p[1] for p in pairs])
+    worst = 0.0
+    for col, r in ref.items():
+        if not col.startswith("trigger_") or col == "trigger_prod_id":
+            continue
+        gv, rv = np.asarray(got[col])[g_rows], np.asarray(r)[r_rows]
+        if "delta_chi2" in col or "amplitude" in col:
+            gv, rv = gv.astype(np.float64), rv.astype(np.float64)
+            if not np.array_equal(np.isnan(gv), np.isnan(rv)):
+                raise RuntimeError(f"{what}: {col} present on other rows")
+            ok = ~np.isnan(rv)
+            rel = float(np.max(np.abs(gv[ok] - rv[ok]) / np.abs(rv[ok]),
+                               initial=0.0))
+            worst = max(worst, rel)
+            if not rel <= TRIG_RTOL:
+                raise RuntimeError(f"{what}: {col} rel {rel:.3e} above "
+                                   f"{TRIG_RTOL:g}")
+        elif col.startswith("trigger_index") or col == "trigger_channel":
+            same = [a == b or (a != a and b != b) for a, b in zip(gv, rv)]
+            if not all(same):
+                raise RuntimeError(f"{what}: {col} differs")
+    log(f"[h] {what}: {len(ref['trigger_index'])} rows in the CPU run, "
+        f"{len(got['trigger_index'])} on the card, {len(pairs)} matched; "
+        f"{len(set(tg) ^ set(tr))} triggers near the threshold in one run "
+        f"only; Δχ² and amplitudes within {worst:.3e} (tol {TRIG_RTOL:g})")
+
+
+def run_tshell(shell, what, card, **kw):
+    """One TriggerProcessing.process() call with a StageTimer: (table,
+    seconds, stages)."""
+    timer = StageTimer()
+    t = time.perf_counter()
+    table = shell.process(timer=timer, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    stages = {k: round(v["seconds"], 4)
+              for k, v in timer.report(log=False).items()}
+    nev = shell.stats["events"]
+    msps = nev * tentry.TRIGGER_L / sec / 1e6
+    nchan = len(tentry.SHELL_CHANNELS)
+    log(f"[h] {what}: {nev} continuous events in {sec:.4f} s, "
+        f"{nev / sec:.3f} events/s, {msps:.3f} Msamples/s a channel, "
+        f"{nchan * msps:.3f} Msamples/s over all {nchan} channels (host "
+        f"clock, process() call to returned table); "
+        f"{len(table['trigger_index'])} rows; host stages {stages} s; on "
+        f"{card}")
+    return table, sec, stages
+
+
+def tshell_batch_parts(shell, index, device, card, merge_window):
+    """Host ms of each part of one batch of the shell's process() loop,
+    done by hand on its first batch with the card synchronised after each
+    part (so a part's device work counts where it was enqueued): the fill
+    of the pinned buffer, upload and conversion, each channel's step, the
+    packing and its copy, the host sets and the drain. Second of two
+    rounds."""
+    reader = RawReader(index)
+    rows = index.order[:TSHELL_BATCH]
+    evs = [reader.read_row(int(r), dtype=None, adctoamp=False)
+           for r in rows]
+    reader.close()
+    conv = np.stack([a["adc_conv"] for _, a in evs]).astype(np.float32)
+    ring = BufferRing(1, (TSHELL_BATCH,) + evs[0][0].shape,
+                      evs[0][0].dtype, pin=torch.device(device).type == "cuda")
+    uploader = Uploader(device)
+    steps = shell.trigger_steps(TSHELL_CAPACITY)
+    host_t, host_a = ring.acquire()
+    gather = [torch.as_tensor(tc.chan_indices, device=device)
+              for tc in shell.channels]
+    admins = [a for _, a in evs]
+    for _ in range(2):
+        ms = {}
+
+        def part(name, fn):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize(device)
+            ms[name] = 1e3 * (time.perf_counter() - t0)
+            return out
+
+        def fill():
+            for i, (tr, _) in enumerate(evs):
+                host_a[i] = tr
+        part("fill pinned buffer", fill)
+        x, _ = part("upload + convert", lambda: uploader.upload(host_t, conv))
+        sets = {}
+        for tc, step, g in zip(shell.channels, steps, gather):
+            sets[tc.name] = part(f"step {tc.name}",
+                                 lambda: step(x.index_select(1, g)))
+        packed = part("pack + copy", lambda: triggers._pack_sets(
+            sets, torch.float32))
+        hsets = part("host sets", lambda: triggers._sets_to_host(packed))
+        part("drain", lambda: triggers.drain_batch(
+            shell.channels, hsets, admins, tentry.TRIGGER_L, FS,
+            triggers.DrainState(), merge_window))
+    ring.close()
+    total = sum(ms.values())
+    log(f"[h] one batch by hand ({TSHELL_BATCH} events; host ms, the card "
+        "synchronised after each part): " + "; ".join(
+            f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in ms.items())
+        + f"; total {total:.3f} ms; on {card}")
+    return ms
+
+
+def phase_h(device, card, errs):
+    """The TriggerProcessing shell from flat int16 continuous files, then
+    its table through FeatureProcessing; returns each path's launches."""
+    tmp = tempfile.mkdtemp(prefix="detprocess_smoke_trigger_")
+    try:
+        return _phase_h(device, card, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_h(device, card, errs, tmp):
+    t = time.perf_counter()
+    paths, pulses = tentry.write_trigger_dumps(
+        tmp, torch.Generator().manual_seed(SEED), TSHELL_EVENTS,
+        TSHELL_FILES, device)
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    log(f"[h] wrote {TSHELL_EVENTS} continuous events of "
+        f"{len(tentry.SHELL_CHANNELS)} x {tentry.TRIGGER_L} int16 samples, "
+        f"{nbytes / 2**20:.1f} MiB, in {TSHELL_FILES} flat dumps in "
+        f"{time.perf_counter() - t:.1f} s (set-up, not timed)")
+    per_file = TSHELL_EVENTS // TSHELL_FILES
+    index = tentry.trigger_shell_index(paths)
+    config = tentry.trigger_shell_config()
+    fd = tentry.shell_filter_data(tentry.TRIGGER_NT, tentry.TRIGGER_PRETRIG)
+    shell = TriggerProcessing(index, config, fd, verbose=False, device=device)
+    kw = dict(event_batch=TSHELL_BATCH, capacity=TSHELL_CAPACITY,
+              nreaders=TSHELL_READERS)
+    nbatch = TSHELL_EVENTS // TSHELL_BATCH
+    res = tentry.trigger_shell_resolutions()
+
+    _kernels.reset_launch_counts()
+    table, _, _ = run_tshell(shell, "first call", card, **kw)
+    launches = _kernels.launch_counts()
+    library = _kernels.library_counts()
+    want = {"rfft": (len(tentry.SHELL_CHANNELS) + 1) * nbatch,
+            "fused_nodelay_of": 0, "cufft_rfft": nbatch}
+    log(f"[h] launches: {launches}, library route {library} ({nbatch} "
+        "batches; 4 FIR segment transforms and chan1's residual convolution"
+        " a batch, chan1's low-pass through cuFFT)")
+    if {**launches, **library} != want:
+        raise RuntimeError(f"trigger shell: launches {launches}, library "
+                           f"{library}, expected {want}")
+    st = shell.stats
+    want_samples = TSHELL_EVENTS * len(tentry.SHELL_CHANNELS) * tentry.TRIGGER_L
+    log(f"[h] upload: {st['upload_bytes']} bytes for {st['upload_samples']} "
+        f"samples ({st['upload_bytes'] / st['upload_samples']:g} bytes a "
+        "sample)")
+    if (st["upload_samples"] != want_samples
+            or st["upload_bytes"] != 2 * want_samples):
+        raise RuntimeError(f"trigger shell upload not int16: {st}")
+    nrow = len(table["trigger_index"])
+    for key, v in table.items():
+        if len(v) != nrow:
+            raise RuntimeError(f"trigger table column {key}: {len(v)} rows")
+    for key in ("trigger_delta_chi2", "trigger_amplitude"):
+        if not np.isfinite(np.asarray(table[key], np.float64)).all():
+            raise RuntimeError(f"trigger table column {key} not finite")
+    check_tshell_pulses(table, pulses, res, per_file)
+
+    # chan1's step on the first batch: its large pulses, vetoed from the
+    # subtraction, found by the residual pass too
+    reader = RawReader(index)
+    rows = index.order[:TSHELL_BATCH]
+    raw = np.stack([reader.read_row(int(r), dtype=None, adctoamp=False)[0]
+                    for r in rows])
+    reader.close()
+    conv = torch.as_tensor(np.stack([f.conv for f in (
+        index.files[int(index.file[r])] for r in rows)]), device=device)
+    x = adc_convert(torch.as_tensor(raw, device=device), conv)
+    step1 = shell.trigger_steps()[0]
+    ts, ts2 = step1(x[:, :1])
+    sat_idx = torch.as_tensor(np.concatenate(
+        [pulses["big"][:TSHELL_BATCH], pulses["sat"][:TSHELL_BATCH, None]],
+        axis=1), device=device)
+    for p, t_ in ((1, ts), (2, ts2)):
+        d, _, _ = pulse_errors(t_, sat_idx, 0.0, 1.0)
+        if int(d.max()) > TRIG_INDEX_TOL:
+            raise RuntimeError(f"trigger shell: a vetoed chan1 pulse missing"
+                               f" from pass {p} (offset {int(d.max())})")
+    log(f"[h] chan1's pulses above its saturation level (two of 1-5 µA and "
+        f"one of {tentry.TSHELL_SAT_PULSE:g} A an event) found in both "
+        f"passes of the first batch; residual-pass triggers "
+        f"{int(ts2.count.sum())} against {int(ts.count.sum())} first-pass")
+
+    # event 1 against the float64 CPU run of the shell
+    ref = TriggerProcessing(index.subset(index.order[:1]), config, fd,
+                            verbose=False, device="cpu").process(
+        event_batch=1, capacity=TSHELL_CAPACITY, dtype=np.float64)
+    mine = np.flatnonzero(event_of(table, per_file) == 0)
+    got = {k: np.asarray(v)[mine] for k, v in table.items()}
+    compare_tshell_event(got, ref, shell.channels[0].chi2_threshold,
+                         "event 1 vs the float64 CPU run of the shell")
+
+    _, warm_s, _ = run_tshell(shell, "second call", card, **kw)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, prof_s, _ = run_tshell(shell, "third call, under torch.profiler",
+                                  card, **kw)
+    busy, kern, copy = device_intervals(prof)
+    share = busy / (1e3 * prof_s)
+    tshell_batch_parts(shell, index, device, card, int(
+        tentry.TSHELL_COINCIDENT_MSEC * FS / 1000))
+    log(f"[h] device busy {busy:.3f} ms of the profiled {1e3 * prof_s:.3f} "
+        f"ms call ({100 * share:.1f}% busy, {100 * (1 - share):.1f}% idle; "
+        f"union of device intervals); kernels {kern:.3f} ms, copies "
+        f"{copy:.3f} ms; on {card}")
+
+    # the rFFT kernel against its twin at this path's shapes
+    kernel_d, basis_d = step1.device_kernels()
+    segs = {"FIR": trigger.fir_segments(x[:, :1], kernel_d).reshape(
+        -1, kernel_d.fft_size)}
+    spikes = torch.zeros((TSHELL_BATCH, 1, tentry.TRIGGER_L
+                          + 2 * tentry.TRIGGER_NT - 1), device=device)
+    spikes[:, 0].scatter_(-1, ts.indices.clamp(min=0)
+                          + 2 * tentry.TRIGGER_NT - 1, 1.0)
+    segs["residual basis"] = trigger.fir_segments(spikes, basis_d.fir).reshape(
+        -1, basis_d.fir.fft_size)
+    for what, seg in segs.items():
+        got_f = cuda_fft.rfft_kernel(seg)
+        ref_f = cuda_fft.rfft_plain(seg)
+        torch.cuda.synchronize(device)
+        dmax = float((got_f - ref_f).abs().max())
+        rel = dmax / float(ref_f.abs().max())
+        log(f"[h] rfft on the {what} segments [{seg.shape[0]}, "
+            f"{seg.shape[1]}]: max|Δ| {dmax:.3e}, max|Δ|/max|ref| {rel:.3e} "
+            f"(tol {RFFT_TOL:g})")
+        if not rel <= RFFT_TOL:
+            raise RuntimeError(f"rfft kernel disagrees on the trigger shell's"
+                               f" {what} segments: {rel:.3e}")
+        errs["rfft"][0] = max(errs["rfft"][0], dmax)
+        errs["rfft"][1] = max(errs["rfft"][1], rel)
+    del x, spikes, segs
+
+    # the chain: the card's trigger table into FeatureProcessing
+    cfg = tentry.shell_config(tentry.TRIGGER_NT, tentry.TRIGGER_PRETRIG)
+    fshell = FeatureProcessing(index, cfg, fd, trigger_table=table,
+                               verbose=False, device=device)
+    _kernels.reset_launch_counts()
+    feats, _, _ = run_shell(fshell, "chain: the trigger table in trigger-"
+                            "table mode", card, "h", batch_size=CHAIN_BATCH,
+                            nreaders=TSHELL_READERS)
+    chain = _kernels.launch_counts()
+    nkept = len(feats["event_number"])
+    check_shell_launches(chain, _kernels.library_counts(),
+                         -(-nkept // CHAIN_BATCH), "chain", "h")
+    if nkept != nrow or fshell.stats["dropped"]:
+        raise RuntimeError(f"chain: {nkept} of {nrow} trigger rows kept")
+    fev = event_of(feats, per_file)
+    amp_col = feats["amp_of1x1_unconstrained_chan1"]
+    t0_col = np.rint(feats["t0_of1x1_unconstrained_chan1"] * FS)
+    rel, t0_ok = [], []
+    for e in range(TSHELL_EVENTS):
+        for t_, a in zip(list(pulses["big"][e]) + [pulses["sat"][e]],
+                         list(pulses["big_amp"][e])
+                         + [tentry.TSHELL_SAT_PULSE]):
+            r = np.flatnonzero((fev == e) & (np.abs(
+                feats["trigger_index"] - t_) <= TRIG_INDEX_TOL))
+            if len(r) != 1:
+                raise RuntimeError(f"chain: {len(r)} rows at chan1's pulse "
+                                   f"{t_} of event {e}")
+            rel.append((amp_col[r[0]] - a) / a)
+            t0_ok.append(abs(t0_col[r[0]] - (t_ - feats["trigger_index"][
+                r[0]])) <= 1)
+    bias, within = float(np.mean(rel)), float(np.mean(t0_ok))
+    at10, _ = tshell_expected(pulses, res)["chan1"]
+    small = []
+    for e in range(TSHELL_EVENTS):
+        for t_ in at10[e, :pulses["coincident"].shape[1]]:
+            r = np.flatnonzero((fev == e) & (np.abs(
+                feats["trigger_index"] - t_) <= TRIG_INDEX_TOL))
+            small.extend(amp_col[r] / res[0] - tentry.TSHELL_PULSE_SIGMA)
+    log(f"[h] chain, chan1's {len(rel)} large pulses: amplitude bias "
+        f"{bias:.3e}, t0 within one sample {within:.4f}; its 10σ coincident "
+        f"pulses: of1x1 amplitude error mean {np.mean(small):.3f} σ, rms "
+        f"{np.std(small):.3f} σ over {len(small)} windows")
+    if not (abs(bias) < 5e-3 and within > 0.99):
+        raise RuntimeError("chain: chan1's amplitudes or t0 off")
+    fstep = fshell.group_steps()[0]
+    slot = next(s.slot for s in fstep.specs if s.base == "of1x1_nodelay")
+    treader = RawReader(index)
+    win = torch.as_tensor(np.stack([
+        treader.read_row(int(index.lookup[(int(d) - 1, int(e))]), ["chan1"],
+                         (int(i) - tentry.TRIGGER_PRETRIG, tentry.TRIGGER_NT),
+                         dtype=np.float32)[0][0]
+        for d, e, i in zip(table["dump_number"][:CHAIN_BATCH],
+                           table["event_number"][:CHAIN_BATCH],
+                           table["trigger_index"][:CHAIN_BATCH])]),
+        device=device)
+    treader.close()
+    # most windows hold a 10σ pulse of another channel, or none: chan1's
+    # amplitudes there sit near 0, so their error is taken against the
+    # batch's largest
+    compare_kernels(win, fstep.nodelay[str(slot)], errs, "h", "batch")
+    return {"trigger_shell": launches, "chain": chain}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=os.path.abspath, default=None,
@@ -1496,11 +1950,14 @@ def main(argv=None):
     trig_launches, trig_timings = phase_e(device, card, errs)
     phase_f(device, card)
     shell_launches = phase_g(device, card, errs)
+    tshell_launches = phase_h(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
         per_path = {"feature": launches[name], "trigger": trig_launches[name],
-                    "shell": shell_launches[name]}
+                    "shell": shell_launches[name],
+                    **{path: counts[name]
+                       for path, counts in tshell_launches.items()}}
         rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",

@@ -9,7 +9,12 @@ Ported so far:
 - the continuous-data trigger step
   (:class:`detprocess_tpu_torch.pipelines.trigger_step.TriggerStep`):
   overlap-save FIR, Δχ², tiled threshold and pileup merge, and the
-  residual re-trigger with its saturation veto.
+  residual re-trigger with its saturation veto;
+- the shells over raw files:
+  :class:`detprocess_tpu_torch.pipelines.features.FeatureProcessing` and
+  :class:`detprocess_tpu_torch.pipelines.triggers.TriggerProcessing`
+  (continuous files to a coincidence-merged trigger table, with the
+  ``EventBuilder`` and the ``OptimumFilterTrigger`` object API).
 
 The two hand-written CUDA kernels (``csrc/``) are the batched real FFT
 (``ops/cuda_fft.py``, also the trigger FIR's segment transform) and the

@@ -22,6 +22,17 @@ step on one device.
   (:func:`shell_config`, :func:`shell_filter_data`,
   :func:`shell_events`, :func:`write_shell_dumps`) are shared with the GPU
   smoke run.
+- :func:`trigger_processing_entry` is the trigger half of BASELINE.json
+  config 5, "Continuous-stream OF trigger", as a :class:`TriggerProcessing`
+  shell over flat int16 continuous dumps of the same four channels that it
+  writes: 1,250,000 samples an event, each channel 1x1 on its Nt = 4096
+  template and PSD, 5σ, pileup window 0.1 ms, coincidence window 0.2 ms;
+  chan1 also in residual mode with its saturation veto and 5 ms edge
+  exclusion. Each event holds 40 coincident 10σ pulses, single 10σ pulses
+  on chan2–chan4 and, on chan1, pulses above its saturation level. Its
+  builders (:func:`trigger_shell_config`, :func:`trigger_shell_pulses`,
+  :func:`write_trigger_dumps`, :func:`trigger_shell_index`) are shared
+  with the GPU smoke run.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from detprocess_tpu_torch.ops import filterbank, trigger
 from detprocess_tpu_torch.pipelines.feature_step import FeatureStep
 from detprocess_tpu_torch.pipelines.features import FeatureProcessing
 from detprocess_tpu_torch.pipelines.trigger_step import TriggerStep
+from detprocess_tpu_torch.pipelines.triggers import TriggerProcessing
 
 FS = 1.25e6
 CHANNEL = "chan1"
@@ -273,4 +285,181 @@ def feature_processing_entry(device=None, directory: str | None = None,
     index = shell_index(paths)
     shell = FeatureProcessing(index, shell_config(), shell_filter_data(),
                               verbose=False, device=device)
+    return shell, index
+
+
+# the trigger shell's configuration (the trigger half of BASELINE.json
+# config 5): the four shell channels, continuous, each 1x1 on the
+# shell's templates and PSDs at Nt = 4096
+TSHELL_SERIES = "I1_D20260101_T120000"
+TSHELL_SIGMA = 5.0
+TSHELL_WINDOW_MSEC = 0.1          # pileup window, 125 samples
+TSHELL_COINCIDENT_MSEC = 0.2      # coincidence window, 250 samples
+TSHELL_EDGE_MSEC = 5.0            # chan1's edge exclusion
+TSHELL_SAT = 5e-7                 # chan1's saturation level (A, low-passed)
+TSHELL_COINCIDENT = 40            # coincident pulses an event
+TSHELL_SINGLES = 2                # single-channel pulses a channel and event
+TSHELL_PULSE_SIGMA = 10.0         # their amplitude, in resolutions
+TSHELL_SPREAD = 20                # coincident channel offsets, ± samples
+TSHELL_SAT_PULSE = 8e-6           # the saturating pulse on chan1 (A)
+TSHELL_MARGIN = 5000              # a 10σ pulse's clearance in its slot
+
+
+def trigger_shell_config(coincident_window_msec=TSHELL_COINCIDENT_MSEC):
+    """The trigger config (the dict a YAML file would load to): every
+    channel 5σ with a 0.1 ms pileup window; chan1 also in residual mode,
+    with the saturation veto and edge exclusion."""
+    chans = {c: {"run": True, "template_tag": "default",
+                 "threshold_sigma": TSHELL_SIGMA,
+                 "pileup_window_msec": TSHELL_WINDOW_MSEC}
+             for c in SHELL_CHANNELS}
+    chans["chan1"].update(run_residual=True, saturation_amplitudes=[TSHELL_SAT],
+                          edge_exclusion_msec=TSHELL_EDGE_MSEC)
+    return {"trigger": {"coincident_window_msec": coincident_window_msec,
+                        **chans}}
+
+
+def trigger_shell_resolutions(fs: float = FS) -> np.ndarray:
+    """Each channel's amplitude resolution (A) in its trigger bank."""
+    fd = shell_filter_data(TRIGGER_NT, TRIGGER_PRETRIG, fs)
+    out = []
+    for chan in SHELL_CHANNELS:
+        tmpl, _ = fd.get_template(chan)
+        psd, _ = fd.get_psd(chan)
+        out.append(filterbank.make_ofnxm_bank(
+            tmpl, psd.astype(complex), fs, TRIGGER_PRETRIG).resolution[0])
+    return np.asarray(out)
+
+
+def trigger_shell_pulses(gen: torch.Generator, nevents: int,
+                         length: int = TRIGGER_L,
+                         ncoincident: int = TSHELL_COINCIDENT,
+                         nsingles: int = TSHELL_SINGLES) -> dict:
+    """Pulse indices (trigger points) of ``nevents`` continuous events:
+    ``coincident`` [E, P, 4] (one index a pulse, each channel offset
+    within ±TSHELL_SPREAD), ``single`` [E, 3, S] on chan2–chan4, one
+    10σ pulse a slot of [20000, L − 250000), each at least TSHELL_MARGIN
+    from its slot's edges; ``big`` [E, S] chan1 singles of ``big_amp``
+    1–5 µA and ``sat`` [E] the TSHELL_SAT_PULSE pulse, at L − 210000,
+    − 140000 (S = 2) and − 70000 (± 1000), clear of every 10σ pulse by
+    more than an FIR segment and two templates."""
+    nslot = ncoincident + 3 * nsingles
+    lo, hi = 20000, length - 250000
+    slot = (hi - lo) // nslot
+    if slot <= 2 * TSHELL_MARGIN:
+        raise ValueError(f"{nslot} pulses do not fit into {length} samples")
+    pos = lo + slot * torch.arange(nslot) + torch.randint(
+        TSHELL_MARGIN, slot - TSHELL_MARGIN, (nevents, nslot), generator=gen)
+    perm = torch.argsort(torch.rand((nevents, nslot), generator=gen), dim=-1)
+    pos = pos.gather(-1, perm)
+    spread = torch.randint(-TSHELL_SPREAD, TSHELL_SPREAD + 1,
+                           (nevents, ncoincident, len(SHELL_CHANNELS)),
+                           generator=gen)
+    big_at = length - torch.tensor([210000, 140000, 70000])
+    jitter = torch.randint(-1000, 1001, (nevents, 3), generator=gen)
+    big = (big_at + jitter)[:, :nsingles]
+    return {"coincident": (pos[:, :ncoincident, None] + spread).numpy(),
+            "single": pos[:, ncoincident:].reshape(
+                nevents, 3, nsingles).numpy(),
+            "big": big.numpy(),
+            "big_amp": torch.empty(big.shape).uniform_(
+                1e-6, 5e-6, generator=gen).numpy(),
+            "sat": (big_at[2] + jitter[:, 2]).numpy()}
+
+
+def trigger_shell_events(gen: torch.Generator, pulses: dict, first: int,
+                         count: int, device, length: int = TRIGGER_L,
+                         fs: float = FS) -> torch.Tensor:
+    """Events ``first`` … ``first + count − 1`` of ``pulses`` as int16
+    codes [count, 4, L] on ``device``: each channel's PSD-matched noise
+    plus its pulses (10σ of its resolution; chan1's large ones)."""
+    c = len(SHELL_CHANNELS)
+    nh = length // 2 + 1
+    scale = torch.as_tensor(np.sqrt(shell_psds(length, fs)[:, :nh] * fs
+                                    * length / 2.0), dtype=torch.float32,
+                            device=device)
+    tmpl = torch.as_tensor(shell_templates(TRIGGER_NT, TRIGGER_PRETRIG, fs),
+                           dtype=torch.float32, device=device)
+    amp10 = TSHELL_PULSE_SIGMA * trigger_shell_resolutions(fs)
+    conv = torch.as_tensor(shell_conv(), dtype=torch.float32, device=device)
+    steps = torch.arange(TRIGGER_NT, device=device) - TRIGGER_PRETRIG
+    out = torch.empty((count, c, length), dtype=torch.int16, device=device)
+    for k in range(count):
+        e = first + k
+        z = torch.randn((c, 2, nh), generator=gen).to(device)
+        nf = torch.complex(z[:, 0], z[:, 1]) * scale
+        nf[:, 0] = 0.0
+        x = torch.fft.irfft(nf, n=length)
+        for ch in range(c):
+            at = [pulses["coincident"][e, :, ch]]
+            amps = [np.full(at[0].shape, amp10[ch])]
+            if ch == 0:
+                at += [pulses["big"][e], pulses["sat"][e:e + 1]]
+                amps += [pulses["big_amp"][e], [TSHELL_SAT_PULSE]]
+            else:
+                at.append(pulses["single"][e, ch - 1])
+                amps.append(np.full(at[-1].shape, amp10[ch]))
+            at = torch.as_tensor(np.concatenate(at), device=device)
+            amp = torch.as_tensor(np.concatenate(amps), dtype=torch.float32,
+                                  device=device)
+            x[ch].index_add_(0, (at[:, None] + steps).reshape(-1),
+                             (amp[:, None] * tmpl[ch]).reshape(-1))
+        codes = torch.round(x / conv[:, None])
+        if float(codes.abs().max()) > np.iinfo(np.int16).max:
+            raise ValueError("int16 ADC overflow in the synthetic events")
+        out[k] = codes.to(torch.int16)
+    return out
+
+
+def write_trigger_dumps(directory: str, gen: torch.Generator, nevents: int,
+                        nfiles: int, device, length: int = TRIGGER_L,
+                        **counts):
+    """Write ``nevents`` continuous events (:func:`trigger_shell_events`)
+    into ``nfiles`` flat dumps in ``directory``, one event made at a time;
+    returns (paths, the :func:`trigger_shell_pulses` dict)."""
+    pulses = trigger_shell_pulses(gen, nevents, length, **counts)
+    per = -(-nevents // nfiles)
+    paths = []
+    for i in range(nfiles):
+        path = os.path.join(directory,
+                            f"flat_{TSHELL_SERIES}_F{i + 1:04d}.bin")
+        for j in range(i * per, min((i + 1) * per, nevents)):
+            codes = trigger_shell_events(gen, pulses, j, 1, device, length)
+            write_flat_dump(path, codes.cpu().numpy(), append=j > i * per)
+        paths.append(path)
+    return paths, pulses
+
+
+def trigger_shell_index(paths, length: int = TRIGGER_L,
+                        fs: float = FS) -> RawIndex:
+    """The raw index of flat int16 continuous dumps of the shell's
+    channels."""
+    return RawIndex.from_flat(
+        paths, SHELL_CHANNELS, length, fs, TSHELL_SERIES, dtype=np.int16,
+        adc_conversion_factor=SHELL_CAL,
+        detector_config={c: {"close_loop_norm": cln}
+                         for c, cln in zip(SHELL_CHANNELS, SHELL_CLN)},
+        data_type="continuous")
+
+
+def trigger_processing_entry(device=None, directory: str | None = None,
+                             nevents: int = 4, seed: int = 0,
+                             length: int = TRIGGER_L, **counts):
+    """Return ``(shell, index)``: the :class:`TriggerProcessing` shell of
+    the 4-channel trigger configuration over ``nevents`` continuous events
+    of ``length`` samples that it writes as two flat int16 dumps into
+    ``directory`` (a new temporary directory by default); ``counts``
+    (``ncoincident``, ``nsingles``) scale the pulses down for short
+    events. ``device=None`` means the GPU."""
+    device = _device(device)
+    if directory is None:
+        directory = tempfile.mkdtemp(prefix="detprocess_trigger_shell_")
+    gen = torch.Generator().manual_seed(seed)
+    paths, _ = write_trigger_dumps(directory, gen, nevents, 2, "cpu",
+                                   length, **counts)
+    index = trigger_shell_index(paths, length)
+    shell = TriggerProcessing(
+        index, trigger_shell_config(),
+        shell_filter_data(TRIGGER_NT, TRIGGER_PRETRIG), verbose=False,
+        device=device)
     return shell, index

@@ -112,16 +112,20 @@ def table_rows(table: Table) -> int:
 
 
 def concat_tables(parts: List[Table]) -> Table:
-    """Row-wise concatenation; columns in order of first appearance, a
-    column missing from a part filled with NaN for its rows."""
+    """Row-wise concatenation as ``pd.concat`` does it: columns in order
+    of first appearance, a column missing from a part filled with NaN for
+    its rows (ints become float64; booleans and strings become object)."""
     if len(parts) == 1:
         return dict(parts[0])
     keys = list(dict.fromkeys(k for p in parts for k in p))
     out = {}
     for k in keys:
-        cols = [p[k] if k in p else np.full(table_rows(p), np.nan)
-                for p in parts]
-        out[k] = np.concatenate(cols)
+        cols = [np.asarray(p[k]) if k in p else None for p in parts]
+        if any(c is None for c in cols) and any(
+                c.dtype.kind in "bUS" for c in cols if c is not None):
+            cols = [None if c is None else c.astype(object) for c in cols]
+        out[k] = np.concatenate([np.full(table_rows(p), np.nan) if c is None
+                                 else c for c, p in zip(cols, parts)])
     return out
 
 

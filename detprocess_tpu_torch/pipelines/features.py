@@ -28,7 +28,7 @@ A ``process()`` call:
 3. **Upload.** In float32 the int16 ADC codes are read as stored into a
    ring of pinned host buffers, copied to the card ``non_blocking`` on a
    side stream behind an event that the compute stream waits on, and
-   converted there (``ops/adc.py``); a buffer is read into again only
+   converted there (``io/upload.py``); a buffer is read into again only
    after its copy's event has completed. Float64 reads convert on the
    host (the golden-precision path), as the JAX shell does.
 4. **Compute.** Each trace group's :class:`GroupStep` on the batch; the
@@ -46,7 +46,6 @@ only when the caller passes ``"cpu"``.
 from __future__ import annotations
 
 import os
-import queue
 import time
 from contextlib import nullcontext
 from typing import List, Optional
@@ -61,7 +60,7 @@ from detprocess_tpu_torch.io.fastio import FastReader
 from detprocess_tpu_torch.io.filterdata import FilterData
 from detprocess_tpu_torch.io.prefetch import OrderedChunkPrefetcher
 from detprocess_tpu_torch.io.rawdata import RawIndex
-from detprocess_tpu_torch.ops.adc import adc_convert
+from detprocess_tpu_torch.io.upload import BufferRing, Uploader
 from detprocess_tpu_torch.pipelines import feature_plan as fplan
 from detprocess_tpu_torch.pipelines.feature_group import GroupStep
 from detprocess_tpu_torch.utils.misc import create_series_name
@@ -321,15 +320,15 @@ class FeatureProcessing:
                   for i in range(0, len(rows), batch_size)]
         nworkers = max(1, min(nreaders, len(chunks)))
         shape = (min(batch_size, max(len(rows), 1)), nchan, n)
-        rings = [_BufferRing(self.READ_AHEAD + 1, shape, buf_dtype,
-                             pin=on_cuda) for _ in range(nworkers)]
+        rings = [BufferRing(self.READ_AHEAD + 1, shape, buf_dtype,
+                            pin=on_cuda) for _ in range(nworkers)]
         fast = FastReader()
         reader = OrderedChunkPrefetcher(
             lambda ring, chunk: self._fill(fast, ring, chunk, raw_mode,
                                            dtype),
             chunks, rings, depth=self.READ_AHEAD)
         batches = iter(reader)
-        copy_stream = (torch.cuda.Stream(self._device) if on_cuda else None)
+        uploader = Uploader(self._device)
 
         self.stats = {"events": 0, "dropped": int(dropped),
                       "upload_bytes": 0, "upload_samples": 0,
@@ -346,35 +345,17 @@ class FeatureProcessing:
             while (got := next_batch()) is not None:
                 t_disp = time.perf_counter()
                 ring, buf, nb, chunk = got
-                host_t, host_a = buf
+                host_t, _ = buf
                 conv = None
                 if raw_mode:
                     conv = np.stack([conv32[int(f)]
                                      for f in self._index.file[chunk[0]]])
+                x, copied = uploader.upload(host_t[:nb], conv)
                 if on_cuda:
                     compute = torch.cuda.current_stream(self._device)
-                    with torch.cuda.stream(copy_stream):
-                        x = torch.empty((nb,) + shape[1:],
-                                        dtype=host_t.dtype,
-                                        device=self._device)
-                        x.copy_(host_t[:nb], non_blocking=True)
-                        if conv is not None:
-                            conv_d = torch.from_numpy(conv).pin_memory().to(
-                                self._device, non_blocking=True)
-                        copied = torch.cuda.Event(blocking=True)
-                        copied.record(copy_stream)
-                    compute.wait_event(copied)
-                    x.record_stream(compute)
-                    if conv is not None:
-                        conv_d.record_stream(compute)
                     ring.release(buf, copied)
-                else:
-                    x = torch.from_numpy(host_a[:nb])
-                    conv_d = None if conv is None else torch.from_numpy(conv)
-                self.stats["upload_bytes"] += x.numel() * x.element_size()
-                self.stats["upload_samples"] += x.numel()
-                if raw_mode:
-                    x = adc_convert(x, conv_d)
+                self.stats["upload_bytes"] = uploader.bytes
+                self.stats["upload_samples"] = uploader.samples
                 feats = {}
                 for step in steps:
                     feats.update(step(x))
@@ -562,43 +543,6 @@ class FeatureProcessing:
             state["dump"],
             "parquet" if output_format == "parquet" else "hdf5")
         state["writer"].write(table, path, fmt=output_format)
-
-
-class _BufferRing:
-    """Up to ``count`` host buffers of one batch for one reader thread,
-    made when first needed: (tensor, its numpy view), pinned for the GPU.
-    A buffer given back with the event of its copy to the card is handed
-    out again only after that event has completed."""
-
-    def __init__(self, count: int, shape, dtype, pin: bool):
-        self._free: queue.Queue = queue.Queue()
-        self._left = count
-        self._shape = shape
-        self._dtype = torch.from_numpy(np.empty(0, dtype)).dtype
-        self._pin = pin
-
-    def acquire(self):
-        try:
-            event, buf = self._free.get_nowait()
-        except queue.Empty:
-            if self._left > 0:
-                self._left -= 1
-                t = torch.empty(self._shape, dtype=self._dtype,
-                                pin_memory=self._pin)
-                return t, t.numpy()
-            event, buf = self._free.get()
-        if buf is None:
-            raise RuntimeError("the batch buffers were closed")
-        if event is not None:
-            event.synchronize()
-        return buf
-
-    def release(self, buf, event=None):
-        self._free.put((event, buf))
-
-    def close(self):
-        """Wake a reader thread waiting for a buffer: it gets none."""
-        self._free.put((None, None))
 
 
 def _isna(values: np.ndarray) -> np.ndarray:

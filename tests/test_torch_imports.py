@@ -5,10 +5,12 @@ The machine with the GPU has none of them, so the port and
 without them. A subprocess blocks each (``sys.modules[name] = None`` makes
 any import of it raise) and then imports every module of the port and
 runs the CPU feature step, the CPU trigger step (on the first 200000
-samples of one event of ``trigger_entry``'s batch) and the feature shell
+samples of one event of ``trigger_entry``'s batch), the feature shell
 of ``feature_processing_entry`` on flat int16 dumps it writes into the
-test's directory; a second one runs ``chip_smoke.py``, which must fail
-without a GPU and print no result.
+test's directory, and the trigger shell of ``trigger_processing_entry``
+(two continuous events of 400,000 samples, the pulses scaled down to
+fit); a second one runs ``chip_smoke.py``, which must fail without a GPU
+and print no result.
 """
 
 import json
@@ -42,7 +44,18 @@ RUN_STEP = textwrap.dedent("""
     from detprocess_tpu_torch.entry import feature_processing_entry
     shell, index = feature_processing_entry("cpu", SHELL_DIR, nevents=6)
     table = shell.process(batch_size=4, dtype=np.float32, nreaders=2)
+    from detprocess_tpu_torch.entry import trigger_processing_entry
+    tshell, tindex = trigger_processing_entry(
+        "cpu", TRIG_DIR, nevents=2, length=400000, ncoincident=8,
+        nsingles=1)
+    ttable = tshell.process(event_batch=2, nreaders=2)
     print(json.dumps({
+        "trigger_shell": [len(tindex), sorted(os.listdir(TRIG_DIR)),
+                          sorted(set(ttable["trigger_channel"].tolist())),
+                          len(ttable["trigger_index"]) >= 2 * 13,
+                          tshell.stats["upload_bytes"]
+                          == 2 * tshell.stats["upload_samples"]
+                          == 2 * 2 * 4 * 400000],
         "shell": [len(index), sorted(os.listdir(SHELL_DIR)),
                   {k: len(v) for k, v in table.items()
                    if k.startswith(("event_number", "amp_of1x1_nodelay"))},
@@ -73,16 +86,24 @@ def _run(code, cwd=REPO, timeout=120):
 
 
 def test_port_imports_and_runs_without_jax_h5py_pandas_yaml(tmp_path):
-    proc = _run(PRELUDE + f"SHELL_DIR = {str(tmp_path)!r}\n" + RUN_STEP)
+    for sub in ("shell", "trig"):
+        (tmp_path / sub).mkdir()
+    proc = _run(PRELUDE + f"SHELL_DIR = {str(tmp_path / 'shell')!r}\n"
+                + f"TRIG_DIR = {str(tmp_path / 'trig')!r}\n" + RUN_STEP)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("utils.windows", "utils.channels", "utils.misc",
                  "utils.logging", "config.yamlconfig", "io.filterdata",
                  "io.fastio", "io.rawdata", "io.prefetch", "io.tables",
                  "ops.adc", "pipelines.feature_plan",
-                 "pipelines.feature_group", "pipelines.features"):
+                 "pipelines.feature_group", "pipelines.features",
+                 "io.upload", "pipelines.triggers", "pipelines.oftrigger"):
         assert f"detprocess_tpu_torch.{name}" in res["modules"], name
     compound = "chan1+chan2+chan3+chan4"
+    assert res["trigger_shell"] == [
+        2, ["flat_I1_D20260101_T120000_F0001.bin",
+            "flat_I1_D20260101_T120000_F0002.bin"],
+        ["chan1", "chan2", "chan3", "chan4"], True, True]
     assert res["shell"] == [
         6, ["flat_I1_D20260101_T000000_F0001.bin",
             "flat_I1_D20260101_T000000_F0002.bin"],
