@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of detprocess_tpu_torch: the of1x1 feature step, the
-continuous-data trigger step, the FeatureProcessing shell and the
-TriggerProcessing shell chained into it, on one card.
+continuous-data trigger step, the FeatureProcessing shell, the
+TriggerProcessing shell chained into it, and every feature algorithm
+through FeatureProcessing, on one card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -114,6 +115,31 @@ h. the TriggerProcessing shell (entry.py's trigger configuration, the
    batch of each kernel, cuFFT 0, every row kept, chan1's large pulses'
    amplitude bias below 5e-3 and t0 within one sample for > 99 %; both
    kernels against their twins on its windows.
+i. every feature algorithm (entry.feature_coverage_entry, the
+   configuration of docs/CONFIG.md:38-75 on the 4 shell channels at
+   N = 32768): 2048 events made on the card (int16 codes, 512 MiB, 2 flat
+   dumps in a temporary directory, deleted at the end) with, on chan1, a
+   scintillation pulse and an evaporation pulse 40–400 samples later, on
+   chan2 the shared pulse's part and a line at the bin nearest 25 kHz, on
+   chan3 and chan4 two-pole pulses of known rise and fall times; chan1's
+   and chan2's noise correlated as their CSD says. process(batch_size=
+   1024, nreaders=4) in float32 three times (the third under
+   torch.profiler). It fails unless the rFFT kernel launches 4 times a
+   batch (one a channel, shared by every spec) and the fused kernel once
+   (chan1's of1x1_nodelay), cuFFT 0; the upload is 2 bytes a sample; all
+   34 feature columns are finite; of1x2x2 and ofnxmx2 recover both
+   amplitudes (mean relative error < 5e-3) and Δt (within 3 samples for
+   > 99 %, mean error < 0.25 samples); ofnxm's shared amplitude is
+   unbiased against its noiseless float64 fit (< 5e-3); psd_peaks finds
+   the line within a bin in every event; phase's circular spread is below
+   2e-3 rad and its mean within 1e-3 rad of the injected phase; rftau's
+   median rise and fall times are within 15 % and 5 % of the injected
+   ones; events 0–15 of each batch agree with the float64 CPU run of the
+   shell, family by family (the joint fits where both chose the same
+   delays, on at least 95 % of the events; rftau's times within the
+   float64 run's spread). It prints rows/s of the second call, the busy
+   share, each spec's layer in CUDA-event and device ms on one batch, and
+   holds both kernels against their twins on the path's batch.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
@@ -122,8 +148,8 @@ one PyTorch call that computes the same function, where there is one, and
 its launches on each path (feature: phase d; trigger: phase e's residual
 run; shell: phase g's two process() calls with the counts at 0;
 trigger_shell: phase h's first process() call; chain: its table through
-FeatureProcessing), whose sum is ``launches``, and the SM clocks of its
-phases from phase (d).
+FeatureProcessing; coverage: phase i's first process() call), whose sum
+is ``launches``, and the SM clocks of its phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
 
@@ -161,6 +187,8 @@ from detprocess_tpu_torch.io.rawdata import (  # noqa: E402
 from detprocess_tpu_torch.ops.adc import adc_convert  # noqa: E402
 from detprocess_tpu_torch.pipelines.features import (  # noqa: E402
     FeatureProcessing)
+from detprocess_tpu_torch.pipelines.feature_group import (  # noqa: E402
+    GroupStep)
 from detprocess_tpu_torch.io.upload import BufferRing, Uploader  # noqa: E402
 from detprocess_tpu_torch.pipelines import triggers  # noqa: E402
 from detprocess_tpu_torch.pipelines.triggers import (  # noqa: E402
@@ -241,6 +269,42 @@ TSHELL_BATCH = 8
 TSHELL_READERS = 4
 TSHELL_CAPACITY = 4096
 CHAIN_BATCH = 512
+
+# phase (i): every feature algorithm through FeatureProcessing
+COV_EVENTS = 2048
+COV_FILES = 2
+COV_BATCH = 1024
+COV_SPECTRAL = 4         # chan1 … chan4, each read through its spectrum
+COV_FUSED = 1            # chan1's of1x1_nodelay
+COV_COLUMNS = 34         # feature columns of the configuration
+COV_NOISELESS = 128      # events whose noiseless NxM fit is ofnxm's truth
+# the card (float32) against the float64 CPU run: the joint fits'
+# amplitudes where both chose the same delays, and the share of events
+# where they did not
+# (float32 against float64 on the CPU, 512 events: amplitudes where the
+# delays agree 3.4e-7, delays differing on 0.2 % of the events)
+COV_RTOL = {"amp": 1e-4, "chi2": 5e-3, "lowchi2": 2e-2, "psd": 1e-4,
+            "phase": 1e-3, "amplitud": 1e-2, "chisq": 5e-2}
+COV_DELAY_MISMATCH = 0.05
+# rftau's rise and fall times against the float64 run's spread over the
+# same events (its noise): the largest difference within the spread, the
+# median within 1 % of it (float32 against float64 on the CPU, 512
+# events: largest 0.46, median 8e-5 of the spread; the LM steps accepted
+# near the optimum differ)
+COV_RFTAU_SPREAD = 1.0
+COV_RFTAU_MEDIAN = 0.01
+# physics
+COV_BIAS = 5e-3          # joint fits' and ofnxm's mean relative amplitude
+# Δt of the joint fits: the evaporation pulse's timing spreads over ±2
+# samples in float64 too (1-3 µA; 512 events on the CPU: 71 % exact, 27 %
+# one sample off, 1.4 % two)
+COV_DT_TOL = 3           # samples, for > 99 % of the events
+COV_DT_MEAN = 0.25       # samples, the mean error
+COV_PHASE_STD = 2e-3     # rad, circular spread of the line's phase (4e-4)
+COV_PHASE_MEAN = 1e-3    # rad, its mean from the injected phase
+COV_RISE_SHARE = 0.15    # rftau median rise within this share of truth
+COV_FALL_SHARE = 0.05    # and fall (the 50 kHz RC filter slows the rise:
+                         # 21.9 for 20 and 36.3 for 35 samples in float64)
 
 KERNEL_INFO = {
     "rfft": {"source": "detprocess_tpu_torch/csrc/rfft.cu",
@@ -864,10 +928,11 @@ def keep_layers(store):
 
 
 def trigger_layer_times(step, x):
-    """Each layer of one TriggerStep batch, through the step's own
-    ``run_layer`` hook: {layer: (CUDA-event ms, device ms)}. The CUDA
-    events bracket each layer with the card synchronised between layers,
-    so they include the host's enqueue time; the device ms are the layer's
+    """Each layer of one TriggerStep or GroupStep batch, through the
+    step's own ``run_layer`` hook: ({layer: (CUDA-event ms, device ms)},
+    device ms of work the profiler ties to no layer). The CUDA events
+    bracket each layer with the card synchronised between layers, so they
+    include the host's enqueue time; the device ms are the layer's
     kernels, copies and fills in a second, profiled run (torch.profiler,
     summed under the layer's record_function range)."""
     def timed(times):
@@ -885,12 +950,29 @@ def trigger_layer_times(step, x):
     with torch.profiler.profile(activities=acts) as prof:
         step(x, run_layer=timed({}))
         torch.cuda.synchronize(x.device)
+    # each kernel, copy and fill goes to the layer whose range holds the
+    # op that launched it or, for the hand-written kernels (launched
+    # through ctypes, by no op), the CUDA runtime call that launched it
+    cpu = torch.autograd.DeviceType.CPU
+    raw = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == cpu]
+    ranges = sorted((e.start_ns(), e.end_ns(), e.name()) for e in raw
+                    if e.name() in event_ms)
+    ops = {e.correlation_id(): e.start_ns() for e in raw
+           if e.linked_correlation_id() == 0 and not e.name().startswith("cu")}
+    calls = {e.correlation_id(): e.start_ns() for e in raw
+             if e.name().startswith("cu")}
     device_ms = dict.fromkeys(event_ms, 0.0)
-    for e in prof.events():
-        if (e.name in device_ms
-                and e.device_type == torch.autograd.DeviceType.CPU):
-            device_ms[e.name] += e.device_time_total / 1e3
-    return {k: (event_ms[k], device_ms[k]) for k in event_ms}
+    total = 0.0
+    for _, _, dur, linked, own in device_events(prof):
+        total += dur / 1e6
+        t = ops.get(linked) if linked else calls.get(own)
+        layer = next((name for a, b, name in ranges
+                      if t is not None and a <= t <= b), None)
+        if layer is not None:
+            device_ms[layer] += dur / 1e6
+    untied = max(0.0, total - sum(device_ms.values()))
+    return {k: (event_ms[k], device_ms[k]) for k in event_ms}, untied
 
 
 def device_busy(step, x, device):
@@ -1103,13 +1185,14 @@ def phase_e(device, card, errs):
 
     check_event0(steps, results, batches, args, sat)
 
-    layers = trigger_layer_times(steps["residual"], batches[0].x)
+    layers, untied = trigger_layer_times(steps["residual"], batches[0].x)
     total = max(sum(v[1] for v in layers.values()), 1e-9)
     log(f"[e] layers of one residual batch ({tentry.TRIGGER_EVENTS} x "
         f"{tentry.TRIGGER_L}, on {card}), CUDA-event ms / device ms "
         "(share of device ms): "
         + "; ".join(f"{k} {ev:.3f} / {dv:.3f} ms ({100 * dv / total:.1f}%)"
-                    for k, (ev, dv) in layers.items()))
+                    for k, (ev, dv) in layers.items())
+        + f"; not tied to a layer {untied:.3f} device ms")
 
     # the rFFT kernel against its twin on the path's own segments
     kernel_d, basis_d = steps["residual"].device_kernels()
@@ -1212,25 +1295,36 @@ def compare_shell(got, ref, rows, what):
         f"{k} {v:.3e}" for k, v in sorted(worst.items())))
 
 
+def device_events(prof):
+    """Every kernel, copy and fill of a torch.profiler run as (name, start
+    ns, duration ns, correlation id of the op that launched it, its own
+    correlation id), read from the profiler's raw results:
+    ``prof.events()`` first builds a tree of every op, tens of seconds for
+    a call of 10^5 small ops."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns(), e.duration_ns(),
+             e.linked_correlation_id(), e.correlation_id())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not e.is_user_annotation()]
+
+
 def device_intervals(prof):
     """(union of device busy intervals, kernel sum, copy sum), each in ms,
     of a torch.profiler run: kernels and copies on different streams
     overlap, so the union is the device's busy time."""
     spans, kern, copy = [], 0.0, 0.0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        if e.name.startswith("Memcpy"):
-            copy += e.device_time_total / 1e3
+    for name, start, dur, _, _ in device_events(prof):
+        spans.append((start, start + dur))
+        if name.startswith("Memcpy"):
+            copy += dur / 1e6
         else:
-            kern += e.device_time_total / 1e3
-    busy, end = 0.0, -np.inf
-    for a, b in sorted(spans):              # µs
+            kern += dur / 1e6
+    busy, end = 0, -1
+    for a, b in sorted(spans):              # ns
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy / 1e3, kern, copy
+    return busy / 1e6, kern, copy
 
 
 def run_shell(shell, what, card, phase="g", **kw):
@@ -1931,6 +2025,308 @@ def _phase_h(device, card, errs, tmp):
     return {"trigger_shell": launches, "chain": chain}
 
 
+def coverage_truth_rows(table):
+    """Each row's event, numbered 0 … in file order."""
+    return event_of(table, COV_EVENTS // COV_FILES)
+
+
+def coverage_physics(table, truth, n=tentry.SHELL_N,
+                     pretrig=tentry.SHELL_PRETRIG):
+    """The injected values recovered on all events: the joint fits'
+    amplitudes and Δt, the line's frequency and phase, rftau's rise and
+    fall times."""
+    ev = coverage_truth_rows(table)
+    out = {}
+    for name, a1, a2, dt in (
+            ("of1x2x2", "scintillation_amp_of1x2x2_chan1",
+             "evaporation_amp_of1x2x2_chan1", "time_diff_of1x2x2_chan1"),
+            ("ofnxmx2", "amp1_ofnxmx2_chan1", "amp2_ofnxmx2_chan1",
+             "delta_t_ofnxmx2_chan1")):
+        s, e = truth["scint"][ev], truth["evap"][ev]
+        dt_err = np.rint(table[dt] * FS) - truth["delay"][ev]
+        p = {"scint_bias": float(np.mean((table[a1] - s) / s)),
+             "evap_bias": float(np.mean((table[a2] - e) / e)),
+             "scint_rms": float(np.std((table[a1] - s) / s)),
+             "evap_rms": float(np.std((table[a2] - e) / e)),
+             "dt_exact": float(np.mean(dt_err == 0)),
+             "dt_within_tol": float(np.mean(np.abs(dt_err) <= COV_DT_TOL)),
+             "dt_mean": float(dt_err.mean())}
+        p["pass"] = bool(abs(p["scint_bias"]) < COV_BIAS
+                         and abs(p["evap_bias"]) < COV_BIAS
+                         and p["dt_within_tol"] > 0.99
+                         and abs(p["dt_mean"]) < COV_DT_MEAN)
+        out[name] = p
+    fline = tentry.coverage_line_freq(n, FS)
+    f1 = table["psd_peaks_10000_50000_freq_1_chan2"]
+    out["psd_peaks"] = {"line_within_a_bin": float(np.mean(
+        np.abs(f1 - fline) <= FS / n))}
+    out["psd_peaks"]["pass"] = out["psd_peaks"]["line_within_a_bin"] == 1.0
+    ph = table["phase_10000_50000_phase_1_chan2"]
+    z = np.mean(np.exp(1j * ph))
+    k0 = round(fline * n / FS)
+    want = tentry.COV_LINE_PHASE - np.pi / 2 + 2 * np.pi * k0 * pretrig / n
+    off = float(np.angle(z * np.exp(-1j * want)))
+    out["phase"] = {"circular_std": float(np.sqrt(-2 * np.log(abs(z)))),
+                    "mean_off": off}
+    out["phase"]["pass"] = bool(out["phase"]["circular_std"] < COV_PHASE_STD
+                                and abs(off) < COV_PHASE_MEAN)
+    for j, chan in enumerate(("chan3", "chan4")):
+        rise, fall = tentry.COV_RFTAU[j]
+        r = float(np.median(table[f"risetime_rftau_{chan}"]))
+        f = float(np.median(table[f"falltime_rftau_{chan}"]))
+        out[f"rftau_{chan}"] = {"rise_median": r, "fall_median": f,
+                                "rise_true": rise, "fall_true": fall}
+        out[f"rftau_{chan}"]["pass"] = bool(
+            abs(r / rise - 1) < COV_RISE_SHARE
+            and abs(f / fall - 1) < COV_FALL_SHARE)
+    log(f"[i] physics: {json.dumps(out)}")
+    if not all(p["pass"] for p in out.values()):
+        raise RuntimeError("coverage physics failed")
+
+
+def coverage_noiseless_nxm(shell, table, truth, n=tentry.SHELL_N,
+                           pretrig=tentry.SHELL_PRETRIG):
+    """ofnxm's shared amplitude against its float64 fit of the same events
+    without noise (the evaporation pulse that the shared template does not
+    model is in both), on the first COV_NOISELESS events: no bias beyond
+    COV_BIAS."""
+    count = min(COV_NOISELESS, len(table["event_number"]))
+    ev = coverage_truth_rows(table)[:count]
+    tm = tentry.coverage_templates(n, pretrig, FS)
+    idx = np.arange(n)
+
+    def rolled(tmpl, by):
+        return tmpl[(idx[None, :] - by[:, None]) % n]
+
+    sh, dl = truth["shift"][ev], truth["delay"][ev]
+    raw = np.zeros((len(ev), len(tentry.SHELL_CHANNELS), n))
+    raw[:, 0] = (truth["scint"][ev, None] * rolled(tm["scint"], sh)
+                 + truth["evap"][ev, None] * rolled(tm["evap"], sh + dl))
+    raw[:, 1] = (truth["scint"][ev, None] * rolled(tm["shared"][1], sh)
+                 + tentry.COV_LINE_AMP * np.sin(
+                     2 * np.pi * tentry.coverage_line_freq(n, FS) * idx / FS
+                     + tentry.COV_LINE_PHASE))
+    group = shell.plan.groups[0]
+    step = GroupStep(group, FS, (n, pretrig), "cpu", torch.float64)
+    keep = ("mix", "rfft", "ofnxm:chan1|chan2")
+    ref = step(torch.as_tensor(raw), run_layer=lambda name, fn, *a: (
+        fn(*a) if name in keep else {}))
+    col = "shared_ofnxm_constrained_chan1|chan2"
+    a0 = ref[col].numpy()
+    rel = (table[col][:count] - a0) / a0
+    vs_truth = (table[col][:count] - truth["scint"][ev]) / truth["scint"][ev]
+    bias = float(rel.mean())
+    log(f"[i] ofnxm: shared amplitude against its noiseless float64 fit on "
+        f"{count} events: mean {bias:.3e}, rms {rel.std():.3e} (limit "
+        f"{COV_BIAS:g}); against the injected amplitude mean "
+        f"{vs_truth.mean():.3e} (the unmodelled evaporation pulse)")
+    if not abs(bias) < COV_BIAS:
+        raise RuntimeError(f"ofnxm amplitude biased: {bias:.3e}")
+
+
+def compare_coverage(got, ref, rows, what, n=tentry.SHELL_N):
+    """Rows ``rows`` of the card's table against the float64 CPU table
+    ``ref``, family by family (COV_RTOL): the joint fits where both chose
+    the same delays (the share where they did not within
+    COV_DELAY_MISMATCH), the PSD peaks where both found the same bin,
+    rftau's times against the float64 run's spread (COV_RFTAU_SPREAD,
+    COV_RFTAU_MEDIAN)."""
+    g = {k: np.asarray(v, np.float64)[rows] for k, v in got.items()
+         if k in ref and np.asarray(ref[k]).dtype.kind == "f"}
+    r = {k: np.asarray(ref[k], np.float64) for k in g}
+    worst, notes = {}, {}
+
+    def check(key, family, mask=None, tol=None, absolute=None):
+        a, b = g[key], r[key]
+        if mask is not None:
+            a, b = a[mask], b[mask]
+        if absolute is not None:
+            err = float(np.abs(a - b).max(initial=0.0))
+            lim = absolute
+        else:
+            err = float((np.abs(a - b) / np.abs(b)).max(initial=0.0))
+            lim = COV_RTOL[family] if tol is None else tol
+        worst[family] = max(worst.get(family, 0.0), err / lim)
+        if not err <= lim:
+            raise RuntimeError(f"{what}: {key} off by {err:.3e} (limit "
+                               f"{lim:g})")
+
+    for dt, amps in (("time_diff_of1x2x2_chan1",
+                      ("scintillation_amp_of1x2x2_chan1",
+                       "evaporation_amp_of1x2x2_chan1")),
+                     ("delta_t_ofnxmx2_chan1",
+                      ("amp1_ofnxmx2_chan1", "amp2_ofnxmx2_chan1",
+                       "chi2_ofnxmx2_chan1"))):
+        same = np.rint(g[dt] * FS) == np.rint(r[dt] * FS)
+        notes[dt] = float(1 - same.mean())
+        if notes[dt] > COV_DELAY_MISMATCH:
+            raise RuntimeError(f"{what}: {dt} differs on {notes[dt]:.3f} of "
+                               "the events")
+        for key in amps:
+            check(key, key.split("_")[0] if key.startswith("chi2")
+                  else "amp", same)
+    for key in g:
+        if key.startswith(("amp_of1x1", "chi2_of1x1", "lowchi2_of1x1",
+                           "shared_", "chi2_ofnxm_")):
+            check(key, key.split("_")[0] if not key.startswith("shared")
+                  else "amp")
+        elif key.startswith("t0_"):
+            check(key, "t0", absolute=1.0 / FS + 1e-12)
+        elif key.startswith("psd_amp") or key.endswith("dc_amp_chan2"):
+            check(key, "psd")
+    def same_bin(f):                        # float32 and float64 freqs
+        return np.rint(g[f] * n / FS) == np.rint(r[f] * n / FS)
+
+    for i in (1, 2, 3):
+        f = f"psd_peaks_10000_50000_freq_{i}_chan2"
+        same = same_bin(f)
+        notes[f] = float(1 - same.mean())
+        check(f"psd_peaks_10000_50000_amp_{i}_chan2", "psd", same)
+    if not same_bin("phase_10000_50000_freq_1_chan2").all():
+        raise RuntimeError(f"{what}: the line's bin differs")
+    d = np.angle(np.exp(1j * (g["phase_10000_50000_phase_1_chan2"]
+                              - r["phase_10000_50000_phase_1_chan2"])))
+    err = float(np.abs(d).max())
+    worst["phase"] = err / COV_RTOL["phase"]
+    if not err <= COV_RTOL["phase"]:
+        raise RuntimeError(f"{what}: phase off by {err:.3e} rad")
+    for chan in ("chan3", "chan4"):
+        for kind in ("risetime", "falltime"):
+            key = f"{kind}_rftau_{chan}"
+            spread = float(np.std(r[key]))
+            check(key, kind, absolute=COV_RFTAU_SPREAD * spread)
+            med = float(np.median(np.abs(g[key] - r[key])))
+            if not med <= COV_RFTAU_MEDIAN * spread:
+                raise RuntimeError(f"{what}: {key} median difference "
+                                   f"{med:.3e}, spread {spread:.3e}")
+        check(f"amplitud_rftau_{chan}", "amplitud")
+        check(f"chisq_rftau_{chan}", "chisq")
+    log(f"[i] {what}: worst error over its limit by family " + "; ".join(
+        f"{k} {v:.3f}" for k, v in sorted(worst.items()))
+        + "; share of events where the choices differ " + "; ".join(
+        f"{k} {v:.4f}" for k, v in sorted(notes.items())))
+
+
+def phase_i(device, card, errs):
+    """Every feature algorithm through FeatureProcessing from flat int16
+    files (entry.feature_coverage_entry); returns the kernels' launches
+    on its path."""
+    tmp = tempfile.mkdtemp(prefix="detprocess_smoke_cov_")
+    try:
+        return _phase_i(device, card, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_i(device, card, errs, tmp):
+    t = time.perf_counter()
+    shell, index, truth = tentry.feature_coverage_entry(
+        device, tmp, nevents=COV_EVENTS, seed=SEED, nfiles=COV_FILES)
+    paths = index.paths
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    log(f"[i] wrote {COV_EVENTS} events, {nbytes / 2**30:.3f} GiB of int16 "
+        f"codes, in {COV_FILES} flat dumps in {time.perf_counter() - t:.1f} "
+        "s (set-up, not timed)")
+    kw = dict(batch_size=COV_BATCH, nreaders=SHELL_READERS)
+    nbatch = -(-COV_EVENTS // COV_BATCH)
+
+    _kernels.reset_launch_counts()
+    table, _, _ = run_shell(shell, "coverage, first call", card, phase="i",
+                            **kw)
+    launches, library = _kernels.launch_counts(), _kernels.library_counts()
+    want = {"rfft": COV_SPECTRAL * nbatch,
+            "fused_nodelay_of": COV_FUSED * nbatch, "cufft_rfft": 0}
+    log(f"[i] launches: {launches}, library route {library} ({nbatch} "
+        f"batches; expected {want})")
+    if {**launches, **library} != want:
+        raise RuntimeError(f"coverage launches {launches}, library "
+                           f"{library}, expected {want}")
+    st = shell.stats
+    want_samples = COV_EVENTS * len(tentry.SHELL_CHANNELS) * tentry.SHELL_N
+    if (st["upload_samples"] != want_samples
+            or st["upload_bytes"] != 2 * want_samples):
+        raise RuntimeError(f"coverage upload not int16: {st}")
+    feats = [k for k in table if k.endswith(
+        ("_chan1", "_chan2", "_chan3", "_chan4", "|chan2"))]
+    if len(feats) != COV_COLUMNS:
+        raise RuntimeError(f"{len(feats)} feature columns, not "
+                           f"{COV_COLUMNS}: {sorted(feats)}")
+    for key in feats:
+        v = table[key]
+        if len(v) != COV_EVENTS or not np.isfinite(v).all():
+            raise RuntimeError(f"column {key}: {len(v)} rows or not finite")
+    coverage_physics(table, truth)
+    coverage_noiseless_nxm(shell, table, truth)
+
+    # events 0–15 of every batch against the float64 CPU run
+    pos = np.concatenate([np.arange(b * COV_BATCH, b * COV_BATCH + REF_EVENTS)
+                          for b in range(nbatch)])
+    rows = index.order[pos]
+    t = time.perf_counter()
+    ref = FeatureProcessing(index.subset(rows), tentry.coverage_config(),
+                            tentry.coverage_filter_data(), verbose=False,
+                            device="cpu").process(batch_size=len(rows),
+                                                  dtype=np.float64)
+    log(f"[i] the float64 CPU run of {len(rows)} events: "
+        f"{time.perf_counter() - t:.1f} s")
+    for key in ("event_number", "dump_number"):
+        if not np.array_equal(ref[key], table[key][pos]):
+            raise RuntimeError(f"CPU and card rows differ in {key}")
+    compare_coverage(table, ref, pos, f"events 0-{REF_EVENTS - 1} of each "
+                     f"of {nbatch} batches vs the float64 CPU run")
+
+    _, warm_s, _ = run_shell(shell, "coverage, second call", card,
+                             phase="i", **kw)
+    log(f"[i] second call: {COV_EVENTS / warm_s:.1f} rows/s (host clock, "
+        f"process() call to returned columns); on {card}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, prof_s, _ = run_shell(shell, "coverage, under torch.profiler",
+                                 card, phase="i", **kw)
+    busy, kern, copy = device_intervals(prof)
+    share = busy / (1e3 * prof_s)
+    log(f"[i] device busy {busy:.3f} ms of the profiled {1e3 * prof_s:.3f} "
+        f"ms call ({100 * share:.1f}% busy, {100 * (1 - share):.1f}% idle; "
+        f"union of device intervals); kernels {kern:.3f} ms, copies "
+        f"{copy:.3f} ms; on {card}")
+
+    # each spec's layer on one batch already on the card
+    block = COV_BATCH * len(tentry.SHELL_CHANNELS) * tentry.SHELL_N
+    codes = torch.as_tensor(np.fromfile(paths[0], np.int16, block).reshape(
+        COV_BATCH, len(tentry.SHELL_CHANNELS), tentry.SHELL_N)).to(device)
+    conv = torch.as_tensor(tentry.shell_conv(), dtype=torch.float32,
+                           device=device).expand(COV_BATCH, -1)
+    x = adc_convert(codes, conv)
+    (step,) = shell.group_steps()
+    step(x)
+    layers, untied = trigger_layer_times(step, x)
+    total = sum(v[0] for v in layers.values())
+    log(f"[i] layers of one batch of {COV_BATCH} (CUDA-event ms with the "
+        f"card synchronised between layers, device ms, device share): "
+        + "; ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} / "
+                    f"{100 * v[1] / v[0]:.1f}%" for k, v in layers.items())
+        + f"; sum {total:.3f} ms, {COV_BATCH / (total / 1e3):.1f} events/s; "
+        f"not tied to a layer {untied:.3f} device ms; peak memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; on "
+        f"{card}")
+    # the joint scan's least time: u1 and u2 read once an event, and for
+    # every (d1, Δ) two FMAs and a compare (5 operations)
+    (key,) = [k for k in step.of1x2]
+    nd, n = len(step.of1x2[key][1].deltas), tentry.SHELL_N
+    ops, nbytes = 5.0 * COV_BATCH * n * nd, 2.0 * COV_BATCH * n * 4
+    b_ms = 1e3 * max(ops / F32_PEAK, nbytes / HBM_PEAK)
+    scan_ms = layers[f"of1x2x2:{key[1]}"][1]
+    log(f"[i] of1x2x2 joint scan over {nd} Δ: bound {b_ms:.4f} ms "
+        f"({ops:.4g} operations at {F32_PEAK:g}/s, {nbytes:.4g} bytes at "
+        f"{HBM_PEAK:g} B/s), device {scan_ms:.3f} ms, "
+        f"{scan_ms / b_ms:.1f}x the bound; on {card}")
+    slot = next(s.slot for s in step.specs if s.base == "of1x1_nodelay")
+    compare_kernels(x[:, 0].contiguous(), step.nodelay[str(slot)], errs, "i")
+    del codes, x
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=os.path.abspath, default=None,
@@ -1951,13 +2347,15 @@ def main(argv=None):
     phase_f(device, card)
     shell_launches = phase_g(device, card, errs)
     tshell_launches = phase_h(device, card, errs)
+    cov_launches = phase_i(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
         per_path = {"feature": launches[name], "trigger": trig_launches[name],
                     "shell": shell_launches[name],
                     **{path: counts[name]
-                       for path, counts in tshell_launches.items()}}
+                       for path, counts in tshell_launches.items()},
+                    "coverage": cov_launches[name]}
         rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",

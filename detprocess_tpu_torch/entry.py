@@ -22,6 +22,17 @@ step on one device.
   (:func:`shell_config`, :func:`shell_filter_data`,
   :func:`shell_events`, :func:`write_shell_dumps`) are shared with the GPU
   smoke run.
+- :func:`feature_coverage_entry` is the configuration users write from
+  docs/CONFIG.md:38-75 and examples/processing/process_example.yaml: every
+  feature algorithm beside the of1x1 fits and the trace stats, on the
+  four shell channels at N = 32768: ``of1x2x2`` (scintillation and
+  evaporation templates, Δ within 0–500 µs) and an ``of1x1_nodelay`` on
+  chan1, ``ofnxm`` with one template shared by chan1|chan2 (a 2 × 2 CSD
+  with a cross term), ``ofnxmx2`` on chan1, ``psd_amp``, ``psd_peaks``
+  and ``phase`` on chan2, ``rftau`` on chan3 and chan4. The functions
+  that make its parts (:func:`coverage_config`,
+  :func:`coverage_filter_data`, :func:`coverage_events`,
+  :func:`write_coverage_dumps`) are shared with the GPU smoke run.
 - :func:`trigger_processing_entry` is the trigger half of BASELINE.json
   config 5, "Continuous-stream OF trigger", as a :class:`TriggerProcessing`
   shell over flat int16 continuous dumps of the same four channels that it
@@ -463,3 +474,221 @@ def trigger_processing_entry(device=None, directory: str | None = None,
         shell_filter_data(TRIGGER_NT, TRIGGER_PRETRIG), verbose=False,
         device=device)
     return shell, index
+
+
+# the feature coverage configuration (docs/CONFIG.md:38-75): the shell's
+# four channels, templates and PSDs, plus
+COV_SCINT = (10e-6, 60e-6)        # chan1's scintillation template τ_r, τ_f
+COV_EVAP = (30e-6, 400e-6)        # its evaporation template
+COV_DELAY = (40, 400)             # evaporation after scintillation, samples
+COV_SHIFT = 25                    # event offsets within ± samples
+COV_SHARED = (50e-6, 500e-6, 0.5)  # chan2's part of the shared pulse
+COV_RHO = 0.3                     # chan2's noise: 0.3·chan1's, 3 samples late
+COV_LAG = 3
+COV_LINE_AMP = 2e-6               # chan2's line near 25 kHz (A) and phase
+COV_LINE_PHASE = 0.7
+COV_RFTAU = ((20.0, 150.0), (35.0, 250.0))   # chan3, chan4 rise, fall
+COV_DELTA_USEC = 500.0
+COV_SERIES = "I1_D20260101_T060000"
+
+
+def coverage_line_freq(n: int = SHELL_N, fs: float = FS) -> float:
+    """chan2's line: the frequency bin nearest 25 kHz."""
+    return round(25e3 * n / fs) * fs / n
+
+
+def coverage_config(n: int = SHELL_N, pretrig: int = SHELL_PRETRIG,
+                    fs: float = FS) -> dict:
+    """The processing config (the dict a YAML file would load to)."""
+    return {"feature": {
+        "trace_length_samples": n, "pretrigger_length_samples": pretrig,
+        "chan1": {
+            "of1x2x2": {"run": True, "template_tag_1": "Scintillation",
+                        "template_tag_2": "Evaporation",
+                        "delta_window_min_usec": 0.0,
+                        "delta_window_max_usec": COV_DELTA_USEC},
+            "of1x1_nodelay": {"run": True, "template_tag": "Scintillation"},
+            "ofnxmx2": {"run": True, "template_tag": "ScintEvap",
+                        "template_group_ids": [0, 1],
+                        "fit_window": [[pretrig - 30, pretrig + 30],
+                                       [pretrig - 10, pretrig + 650]]},
+        },
+        "chan1|chan2": {
+            "ofnxm": {"run": True, "template_tag": "shared",
+                      "amplitude_names": ["shared"],
+                      "window_min_from_trig_usec": -50.0,
+                      "window_max_from_trig_usec": 50.0,
+                      "ignored_frequency_peaks": [coverage_line_freq(n, fs)]},
+        },
+        "chan2": {
+            "psd_amp": {"run": True, "f_lims": [[45, 65], [1000, 10000]]},
+            "psd_peaks": {"run": True, "f_lims": [[10000, 50000]],
+                          "npeaks": 3, "min_separation_hz": 100.0},
+            "phase": {"run": True, "f_lims": [[10000, 50000]], "npeaks": 1},
+        },
+        "chan3,chan4": {"rftau": {"run": True, "rtau": 30.0, "ftau": 100.0}},
+    }}
+
+
+def coverage_templates(n: int = SHELL_N, pretrig: int = SHELL_PRETRIG,
+                       fs: float = FS) -> dict:
+    """scintillation and evaporation [n] (chan1), and the shared pulse
+    [2, n] (chan1's scintillation, chan2's slower part)."""
+    scint = pulse.make_template(fs, n, pretrig, A=1.0, tau_r=COV_SCINT[0],
+                                tau_f1=COV_SCINT[1])
+    evap = pulse.make_template(fs, n, pretrig, A=1.0, tau_r=COV_EVAP[0],
+                               tau_f1=COV_EVAP[1])
+    part2 = COV_SHARED[2] * pulse.make_template(
+        fs, n, pretrig, A=1.0, tau_r=COV_SHARED[0], tau_f1=COV_SHARED[1])
+    return {"scint": scint, "evap": evap,
+            "shared": np.stack([scint, part2])}
+
+
+def coverage_csd(n: int = SHELL_N, fs: float = FS) -> np.ndarray:
+    """The chan1|chan2 CSD [2, 2, n] of the coverage noise: chan2 is
+    COV_RHO·√(psd2/psd1) times chan1 delayed COV_LAG samples, plus its
+    own part."""
+    psd = shell_psds(n, fs)[:2]
+    ph = np.exp(-2j * np.pi * np.fft.fftfreq(n) * COV_LAG)
+    csd = np.zeros((2, 2, n), complex)
+    csd[0, 0], csd[1, 1] = psd
+    csd[1, 0] = COV_RHO * np.sqrt(psd[0] * psd[1]) * ph
+    csd[0, 1] = np.conj(csd[1, 0])
+    return csd
+
+
+def coverage_filter_data(n: int = SHELL_N, pretrig: int = SHELL_PRETRIG,
+                         fs: float = FS) -> FilterData:
+    """The shell's filter data plus the coverage templates and CSDs."""
+    fd = shell_filter_data(n, pretrig, fs)
+    tm = coverage_templates(n, pretrig, fs)
+    kw = dict(pretrigger_length_samples=pretrig)
+    fd.set_template("chan1", tm["scint"], fs, tag="Scintillation", **kw)
+    fd.set_template("chan1", tm["evap"], fs, tag="Evaporation", **kw)
+    fd.set_template("chan1", np.stack([tm["scint"], tm["evap"]])[None],
+                    fs, tag="ScintEvap", **kw)
+    fd.set_csd("chan1", shell_psds(n, fs)[:1, None, :].astype(complex), fs)
+    fd.set_template("chan1|chan2", tm["shared"][:, None, :], fs,
+                    tag="shared", **kw)
+    fd.set_csd("chan1|chan2", coverage_csd(n, fs), fs)
+    return fd
+
+
+def coverage_events(gen: torch.Generator, nevents: int, device,
+                    n: int = SHELL_N, pretrig: int = SHELL_PRETRIG,
+                    fs: float = FS):
+    """``nevents`` events as int16 codes [E, 4, n] on ``device``: noise of
+    each channel's PSD (chan2's correlated with chan1's as
+    :func:`coverage_csd` says); on chan1 a scintillation pulse of 1–5 µA
+    and an evaporation pulse of 1–3 µA 40–400 samples later; on chan2 the
+    shared pulse's part at the scintillation amplitude and the line; on
+    chan3 and chan4 two-pole pulses of COV_RFTAU rise and fall times
+    (samples) and 1–3 µA; all at one offset an event within ±COV_SHIFT.
+    Returns (codes, truth dict of [E] or [E, 2] tensors)."""
+    nh = n // 2 + 1
+    c = len(SHELL_CHANNELS)
+    scale = torch.as_tensor(np.sqrt(shell_psds(n, fs)[:, :nh] * fs * n / 2.0),
+                            dtype=torch.float32, device=device)
+    z = torch.randn((nevents, c, 2, nh), generator=gen, device=device)
+    white = torch.complex(z[:, :, 0], z[:, :, 1])
+    white[..., -1] = z[:, :, 0, -1] * np.sqrt(2.0)
+    lag = torch.exp(-2j * np.pi * torch.arange(nh, device=device) * COV_LAG
+                    / n)
+    white[:, 1] = (COV_RHO * white[:, 0] * lag
+                   + np.sqrt(1.0 - COV_RHO ** 2) * white[:, 1])
+    nf = white * scale
+    nf[..., 0] = 0.0
+    traces = torch.fft.irfft(nf, n=n)
+
+    def uniform(lo, hi, shape=(nevents,)):
+        return torch.empty(shape, device=device).uniform_(lo, hi,
+                                                          generator=gen)
+
+    shifts = torch.randint(-COV_SHIFT, COV_SHIFT + 1, (nevents,),
+                           generator=gen, device=device)
+    delays = torch.randint(COV_DELAY[0], COV_DELAY[1] + 1, (nevents,),
+                           generator=gen, device=device)
+    a_scint, a_evap = uniform(1e-6, 5e-6), uniform(1e-6, 3e-6)
+    a_tau = uniform(1e-6, 3e-6, (nevents, 2))
+    tm = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+          for k, v in coverage_templates(n, pretrig, fs).items()}
+    idx = torch.arange(n, device=device)
+
+    def rolled(tmpl, by):
+        return tmpl[(idx[None, :] - by[:, None]) % n]
+
+    traces[:, 0] += (a_scint[:, None] * rolled(tm["scint"], shifts)
+                     + a_evap[:, None] * rolled(tm["evap"], shifts + delays))
+    t = torch.arange(n, device=device, dtype=torch.float32)
+    line = COV_LINE_AMP * torch.sin(2 * np.pi * coverage_line_freq(n, fs)
+                                    * t / fs + COV_LINE_PHASE)
+    traces[:, 1] += a_scint[:, None] * rolled(tm["shared"][1], shifts) + line
+    for j, (rise, fall) in enumerate(COV_RFTAU):
+        tp = t[None, :] - (pretrig + shifts[:, None]).float()
+        p = torch.where(tp > 0, torch.exp(-tp / fall) - torch.exp(-tp / rise),
+                        torch.zeros_like(tp))
+        traces[:, 2 + j] += a_tau[:, j, None] * p / p.amax(dim=-1,
+                                                            keepdim=True)
+    conv = torch.as_tensor(shell_conv(), dtype=torch.float32, device=device)
+    codes = torch.round(traces / conv[:, None])
+    if float(codes.abs().max()) > np.iinfo(np.int16).max:
+        raise ValueError("int16 ADC overflow in the synthetic events")
+    truth = {"shift": shifts, "delay": delays, "scint": a_scint,
+             "evap": a_evap, "tau_amp": a_tau}
+    return codes.to(torch.int16), truth
+
+
+def write_coverage_dumps(directory: str, gen: torch.Generator, nevents: int,
+                         nfiles: int, device, chunk: int = 256,
+                         n: int = SHELL_N, pretrig: int = SHELL_PRETRIG):
+    """Write ``nevents`` events (:func:`coverage_events`) into ``nfiles``
+    flat dumps in ``directory``, ``chunk`` events made at a time; returns
+    (paths, truth dict of numpy arrays)."""
+    per = -(-nevents // nfiles)
+    paths, truth = [], {}
+    for i in range(nfiles):
+        path = os.path.join(directory,
+                            f"flat_{COV_SERIES}_F{i + 1:04d}.bin")
+        count = min(per, nevents - i * per)
+        for j in range(0, count, chunk):
+            codes, t = coverage_events(gen, min(chunk, count - j), device, n,
+                                       pretrig)
+            write_flat_dump(path, codes.cpu().numpy(), append=j > 0)
+            for k, v in t.items():
+                truth.setdefault(k, []).append(v.cpu().numpy())
+        paths.append(path)
+    return paths, {k: np.concatenate(v) for k, v in truth.items()}
+
+
+def coverage_index(paths, n: int = SHELL_N, pretrig: int = SHELL_PRETRIG,
+                   fs: float = FS) -> RawIndex:
+    """The raw index of flat int16 coverage dumps."""
+    return RawIndex.from_flat(
+        paths, SHELL_CHANNELS, n, fs, COV_SERIES, dtype=np.int16,
+        adc_conversion_factor=SHELL_CAL,
+        detector_config={c: {"close_loop_norm": cln}
+                         for c, cln in zip(SHELL_CHANNELS, SHELL_CLN)},
+        nb_pretrigger_samples=pretrig)
+
+
+def feature_coverage_entry(device=None, directory: str | None = None,
+                           nevents: int = 16, seed: int = 0,
+                           nfiles: int = 2):
+    """Return ``(shell, index, truth)``: the :class:`FeatureProcessing`
+    shell of the coverage configuration over ``nevents`` synthetic events
+    that it makes on ``device`` and writes as ``nfiles`` flat int16 dumps
+    into ``directory`` (a new temporary directory by default), and the
+    events' injected values (:func:`coverage_events`). ``device=None``
+    means the GPU."""
+    device = _device(device)
+    if directory is None:
+        directory = tempfile.mkdtemp(prefix="detprocess_coverage_")
+    os.makedirs(directory, exist_ok=True)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    paths, truth = write_coverage_dumps(directory, gen, nevents, nfiles,
+                                        device)
+    index = coverage_index(paths)
+    shell = FeatureProcessing(index, coverage_config(),
+                              coverage_filter_data(), verbose=False,
+                              device=device)
+    return shell, index, truth

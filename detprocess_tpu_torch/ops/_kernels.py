@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The kernels live in ``detprocess_tpu_torch/csrc/*.cu`` behind a plain C
-interface. At first use they are compiled by ``nvcc`` into one shared
-library under ``build/torch_kernels/`` at the repository root (rebuilt
-whenever a source's hash changes) and loaded with :mod:`ctypes`. Nothing
+interface. At first use each source is compiled by its own ``nvcc``, all
+started together, and the objects are linked into one shared library
+under ``build/torch_kernels/`` at the repository root (rebuilt whenever a
+source's hash changes), loaded with :mod:`ctypes`. Nothing
 here runs at import time, so the package imports on machines without a
 GPU or a CUDA toolkit; a missing toolkit raises at the first launch.
 
@@ -29,8 +30,9 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 KERNELS = ("rfft", "fused_nodelay_of")
 LIBRARY_ROUTES = ("cufft_rfft",)
@@ -97,35 +99,47 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(nvcc: str, output: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(output),
-            *(str(p) for p in sources())]
+def compile_command(nvcc: str, source: Path, obj: Path) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(source)]
+
+
+def link_command(nvcc: str, objs: list[Path], output: Path) -> list[str]:
+    return [nvcc, *ARCH, "-shared", "-o", str(output),
+            *(str(p) for p in objs)]
 
 
 def build() -> Path:
     """Compile the kernels if the library for the current sources is
-    missing; return its path. The compiler's output (``-Xptxas -v``:
-    registers, shared memory and spills per kernel) is kept beside the
-    library as ``.log``."""
+    missing; return its path. One ``nvcc`` a source, all started together,
+    then one link. The compilers' output (``-Xptxas -v``: registers,
+    shared memory and spills per kernel) is kept beside the library as
+    ``.log``, in source order."""
     lib_path = library_path()
     if lib_path.exists():
         return lib_path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(nvcc, Path(tmp)),
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = Path(tmp) / "lib.so"
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen(compile_command(nvcc, src, obj),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            link = subprocess.run(link_command(nvcc, objs, out),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            failed = [link.returncode] if link.returncode != 0 else []
+        log = "".join(logs)
         lib_path.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
+        if failed:
             raise RuntimeError(
-                f"nvcc failed (rc={proc.returncode}):\n{log[-4000:]}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+                f"nvcc failed (rc={failed[0]}):\n{log[-4000:]}")
+        os.replace(out, lib_path)
     return lib_path
 
 

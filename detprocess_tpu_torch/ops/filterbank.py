@@ -183,6 +183,29 @@ def bank_to_torch(bank: OF1x1Bank, device, dtype=torch.float32) -> dict:
     }
 
 
+def bank_nxm_to_torch(bank: "OFNxMBank", device,
+                      dtype=torch.float32) -> dict:
+    """The NxM fits' half-spectrum tensors on ``device`` (the device form
+    of the JAX package's ``device_bank_nxm`` :613): ``phi_h`` [C, M,
+    N/2+1] and ``icsd_h`` [N/2+1, C, C] complex, ``w_matrix`` and
+    ``iw_matrix`` [M, M] and ``bin_w`` [N/2+1] real, in ``dtype`` (and its
+    complex counterpart)."""
+    cdtype = _complex_dtype(dtype)
+    nh = bank.nbins // 2 + 1
+
+    def put(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+
+    return {
+        "phi_h": put(bank.phi[..., :nh], cdtype),
+        "icsd_h": put(bank.icsd[:nh], cdtype),
+        "w_matrix": put(bank.w_matrix, dtype),
+        "iw_matrix": put(bank.iw_matrix, dtype),
+        "bin_w": put(half_bin_weights(bank.nbins), dtype),
+    }
+
+
 def bank_from_jax(dev: dict, device, dtype=torch.float32) -> dict:
     """The same tensors as :func:`bank_to_torch`, from the JAX package's
     ``OF1x1Bank.to_device()`` dict (``phi_h``/``s_fft_h`` as split re/im

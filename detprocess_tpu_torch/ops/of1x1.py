@@ -178,6 +178,159 @@ def of1x1_withdelay_half(vr, phi_h, norm, denom_inv_h, s_fft_h, bin_w,
     return OF1x1Result(amp, t0, chi2, lowchi2, c0)
 
 
+class OF1x2Result(NamedTuple):
+    amp1: torch.Tensor
+    amp2: torch.Tensor
+    t0_1: torch.Tensor
+    t0_2: torch.Tensor
+    time_diff: torch.Tensor
+    chi2: torch.Tensor
+
+
+# bytes of one [B, S, K, N] temporary of the joint scan: K, the number of
+# Δ shifts evaluated at once, is as large as this allows
+OF1X2_SCAN_BYTES = 1 << 30
+
+
+def of1x2_overlap(phi1_h, norm1, s_fft2_h, norm2, n: int) -> torch.Tensor:
+    """The templates' normalized overlap c(Δ) = Re Σ_k φ₁ s̃₂ e^{2πikΔ/N}
+    / √(norm₁·norm₂) over Δ = 0 … N−1 ([S, N]); a function of the bank
+    alone, computed once per bank."""
+    norm1 = torch.as_tensor(norm1)
+    sq12 = torch.sqrt(norm1 * torch.as_tensor(norm2))
+    return fft.irfft(phi1_h * s_fft2_h, n) * n / sq12[..., None]
+
+
+class DeltaScan(NamedTuple):
+    """The Δ shifts of a joint scan, in scan order: circular (0 … N−1)
+    and signed (reported in time_diff), on the host and on the device."""
+
+    deltas: np.ndarray
+    signed: np.ndarray
+    deltas_t: torch.Tensor
+    signed_t: torch.Tensor
+
+
+def delta_scan(delta_window: Optional[np.ndarray], n: int,
+               device) -> DeltaScan:
+    """The scan of ``delta_window`` (signed samples; None: all N circular
+    shifts, those past N/2 read as negative)."""
+    if delta_window is None:
+        signed = np.arange(n, dtype=np.int64)
+        signed = np.where(signed > n // 2, signed - n, signed)
+    else:
+        signed = np.asarray(delta_window, dtype=np.int64).reshape(-1)
+    deltas = signed % n
+    return DeltaScan(deltas, signed, torch.as_tensor(deltas, device=device),
+                     torch.as_tensor(signed, device=device))
+
+
+def of1x2_half(vr, phi1_h, norm1, phi2_h, norm2, s_fft2_h, denom_inv_h,
+               bin_w, pretrigger: int, fs: float, n: int,
+               delta_window: Optional[np.ndarray] = None,
+               c_all: Optional[torch.Tensor] = None,
+               scan: Optional[DeltaScan] = None,
+               scan_bytes: int = OF1X2_SCAN_BYTES) -> OF1x2Result:
+    """Joint two-template OF fit on the half spectrum (JAX
+    ``of1x2_half`` :732, qetpy OF1x2 as FeatureExtractors.of1x2x2 uses
+    it): both amplitudes and both delays fitted jointly, the coupled 2×2
+    normal equations solved in closed form at each delay pair (d1, Δ),
+    in the normalized form
+
+        Δχ²(d1, Δ) = (u1² − 2c·u1·u2 + u2²) / (1 − c²),
+
+    u_i = q_i/√norm_i the significance series in delay order,
+    u2 = u2(d1 + Δ), c = c(−Δ) (:func:`of1x2_overlap`), and maximized over
+    d1 and the Δ of ``delta_window`` (signed samples; default: all N
+    circular shifts, those past N/2 read as negative). ``vr`` [..., S,
+    N/2+1]; bank rows [S, N/2+1] and [S]; ``c_all`` the precomputed
+    overlap and ``scan`` the window's :func:`delta_scan`, else made here.
+
+    The scan runs over chunks of Δ, each a vectorized pass over all d1
+    (a [..., S, K, N] temporary of at most ``scan_bytes``), carrying the
+    best (value, d1, Δ, signed Δ) per event: within a chunk the first
+    maximum over d1, then the first over the chunk; across chunks a
+    winner is replaced only by a strictly larger value. Δ whose 1 − c²
+    is at most 1e-6 (templates coinciding) are excluded."""
+    norm1 = torch.as_tensor(norm1)
+    norm2 = torch.as_tensor(norm2)
+    sq1 = torch.sqrt(norm1)
+    sq2 = torch.sqrt(norm2)
+    u1 = fft.irfft(phi1_h * vr, n) * n / sq1[..., None]     # delay order
+    u2 = fft.irfft(phi2_h * vr, n) * n / sq2[..., None]
+    if c_all is None:
+        c_all = of1x2_overlap(phi1_h, norm1, s_fft2_h, norm2, n)
+    if scan is None:
+        scan = delta_scan(delta_window, n, vr.device)
+    c0 = chi2_base_half(vr, denom_inv_h, bin_w)
+    return _of1x2_scan(u1, u2, c_all.to(u1.dtype), sq1, sq2, c0, n,
+                       pretrigger, fs, scan, scan_bytes)
+
+
+def _of1x2_scan(u1, u2, c_all, sq1, sq2, c0, n, pretrigger, fs,
+                scan: DeltaScan, scan_bytes) -> OF1x2Result:
+    rdt = u1.dtype
+    dev = u1.device
+    deltas = scan.deltas
+    batch = u1.shape[:-1]                                   # [..., S]
+    u1sq = u1 * u1
+    u2ext = torch.cat([u2, u2], dim=-1)                     # circular view
+    rows = int(np.prod(batch)) if batch else 1
+    k = max(1, min(len(deltas),
+                   int(scan_bytes) // max(1, rows * n * u1.element_size())))
+    best_val = torch.full(batch, -math.inf, dtype=rdt, device=dev)
+    best_d1 = torch.zeros(batch, dtype=torch.int64, device=dev)
+    best_dl = torch.zeros(batch, dtype=torch.int64, device=dev)
+    best_sg = torch.zeros(batch, dtype=torch.int64, device=dev)
+    pos = torch.arange(n, device=dev)
+    for start in range(0, len(deltas), k):
+        dl = deltas[start:start + k]
+        dl_t = scan.deltas_t[start:start + k]
+        if np.all(np.diff(dl) == 1):
+            # consecutive shifts: a strided view of the doubled series
+            u2s = u2ext[..., int(dl[0]):int(dl[0]) + len(dl) - 1 + n].unfold(
+                -1, n, 1)                                   # [..., S, K, N]
+        else:
+            u2s = u2[..., (pos[None, :] + dl_t[:, None]) % n]
+        # W12 carries e^{−iωΔ}: c at −Δ
+        c = c_all[..., (n - dl_t) % n]                      # [S, K]
+        det = 1.0 - c * c
+        a = torch.addcmul(u2s, u1[..., None, :], (-2.0 * c)[..., None])
+        num = torch.addcmul(u1sq[..., None, :], a, u2s)
+        vmax, d1 = num.max(dim=-1)                          # [..., S, K]
+        ok = det > 1e-6
+        vals = torch.where(ok, vmax / torch.where(ok, det, torch.ones_like(
+            det)), torch.full_like(vmax, -math.inf))
+        cv, ci = vals.max(dim=-1)                           # first in chunk
+        cd1 = torch.gather(d1, -1, ci[..., None])[..., 0]
+        cdl = dl_t[ci]
+        csg = scan.signed_t[start:start + k][ci]
+        upd = cv > best_val
+        best_val = torch.where(upd, cv, best_val)
+        best_d1 = torch.where(upd, cd1, best_d1)
+        best_dl = torch.where(upd, cdl, best_dl)
+        best_sg = torch.where(upd, csg, best_sg)
+
+    # re-solve the 2×2 system at the winning (d1, Δ)
+    d1, dl = best_d1, best_dl
+    d2 = (d1 + dl) % n
+    u1b = _take_last(u1, d1)
+    u2b = _take_last(u2, d2)
+    c = _take_last(c_all.expand(batch + (n,)), (n - dl) % n)
+    det = 1.0 - c * c
+    det = torch.where(det.abs() > 0, det, torch.ones_like(det))
+    amp1 = (u1b - c * u2b) / (sq1 * det)
+    amp2 = (u2b - c * u1b) / (sq2 * det)
+    chi2 = c0 - best_val
+    # d1 is a delay index: absolute i = (d1 + pretrigger) mod n
+    d_f = d1.to(rdt)
+    shift1 = torch.where(d1 < n - pretrigger, d_f, d_f - n)
+    shift2 = shift1 + best_sg.to(rdt)
+    t0_1 = shift1 / fs
+    t0_2 = shift2 / fs
+    return OF1x2Result(amp1, amp2, t0_1, t0_2, t0_2 - t0_1, chi2)
+
+
 def energy_resolution(norm: torch.Tensor) -> torch.Tensor:
     """σ_amp = 1/sqrt(norm), the OF amplitude resolution."""
     return 1.0 / torch.sqrt(norm)

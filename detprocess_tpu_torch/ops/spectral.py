@@ -1,9 +1,10 @@
-"""Spectral helpers of the trigger path.
+"""Spectral helpers of the trigger path and the pulse fits.
 
 Counterpart of ``detprocess_tpu/ops/spectral.py::lowpass_filter`` :288:
 the zero-phase Butterworth low-pass that the saturation veto reads
 (reference: qetpy.utils.lowpassfilter, scipy butter + filtfilt, in
-detprocess/core/oftrigger.py:627-633).
+detprocess/core/oftrigger.py:627-633) and that ``rftau`` applies as its RC
+filter.
 """
 
 from __future__ import annotations
@@ -20,10 +21,18 @@ def lowpass_filter(traces: torch.Tensor, cut_off_freq: float, fs: float,
     1 / (1 + (f/fc)^(2·order)), on the half spectrum of ``ops/fft.rfft``.
     Circular, like the JAX function: it differs from filtfilt's reflect
     padding only near the trace edges, which triggering excludes."""
-    n = traces.shape[-1]
-    # the gain in float64 on the traces' device (one small kernel, not a
-    # host computation and copy of N/2+1 values per call)
+    return lowpass_from_spectrum(fft.rfft(traces), traces.shape[-1],
+                                 cut_off_freq, fs, order)
+
+
+def lowpass_from_spectrum(vhalf: torch.Tensor, n: int, cut_off_freq: float,
+                          fs: float, order: int = 2) -> torch.Tensor:
+    """:func:`lowpass_filter` of the length-``n`` traces whose half
+    spectrum ``vhalf`` already is."""
+    # the gain in float64 on the spectrum's device (one small kernel, not
+    # a host computation and copy of N/2+1 values per call)
     f = torch.fft.rfftfreq(n, d=1.0 / fs, dtype=torch.float64,
-                           device=traces.device)
-    gain = (1.0 / (1.0 + (f / cut_off_freq) ** (2 * order))).to(traces.dtype)
-    return fft.irfft(fft.rfft(traces) * gain, n)
+                           device=vhalf.device)
+    gain = (1.0 / (1.0 + (f / cut_off_freq) ** (2 * order))).to(
+        vhalf.real.dtype)
+    return fft.irfft(vhalf * gain, n)

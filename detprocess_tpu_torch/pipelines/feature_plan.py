@@ -20,7 +20,13 @@ trigger-table mode, the trigger geometry:
 - the OF delay alignment follows the template's stored pretrigger when
   there is one (``of_pretrigger``, :469-477), and template and PSD must
   have the group's length (:478-487);
-- algorithms the port does not run yet are refused by name.
+- ``of1x2x2`` takes two slots of that bank (its two templates); each
+  ``ofnxm`` and ``ofnxmx2`` spec an NxM bank of its own
+  (``ops/filterbank.make_ofnxm_bank`` on the template and CSD stored
+  under its '|' channel, :512-542) over the compound channels of its
+  sub-channels;
+- the PSD features, ``rftau`` and the trace stats read one compound
+  channel each; external extractors and unknown names are refused.
 """
 
 from __future__ import annotations
@@ -37,12 +43,10 @@ from detprocess_tpu_torch.utils import windows as winutils
 
 OF_1X1_ALGORITHMS = ("of1x1_nodelay", "of1x1_unconstrained",
                      "of1x1_constrained")
+OF_NXM_ALGORITHMS = ("ofnxm", "ofnxmx2")
+PSD_ALGORITHMS = ("psd_amp", "psd_peaks", "phase")
 TRACE_ALGORITHMS = ("baseline", "integral", "maximum", "minimum",
                     "energyabsorbed")
-# algorithms of the JAX feature plan that the port refuses until it has
-# them (ROADMAP queue 1 item 3)
-NOT_PORTED = ("ofnxm", "ofnxmx2", "of1x2x2", "psd_amp", "psd_peaks",
-              "phase", "rftau")
 
 
 @dataclass
@@ -56,7 +60,10 @@ class AlgoSpec:
     kwargs: dict
     window: tuple           # (min_index, max_index)
     slot: int = -1          # row of the group's 1x1 bank
+    slot2: int = -1         # second row (of1x2x2)
+    nxm_key: str = ""       # key of the group's NxM bank
     chan_idx: int = -1      # compound-channel row of the group's mix
+    nxm_chan_idx: tuple = ()    # rows of the NxM sub-channels
 
 
 @dataclass
@@ -70,6 +77,7 @@ class TraceGroup:
     specs: List[AlgoSpec] = field(default_factory=list)
     bank_1x1: Optional[filterbank.OF1x1Bank] = None
     slot_keys: List[tuple] = field(default_factory=list)
+    nxm_banks: Dict[str, filterbank.OFNxMBank] = field(default_factory=dict)
     of_pretrigger: Optional[int] = None   # the templates' own pretrigger
 
 
@@ -182,7 +190,8 @@ def build_plan(feature_config: dict, channels: List[str], fs: float,
 
 def resolve_group(group: TraceGroup, weights_cfg: dict,
                   raw_channels: List[str], fs: float, filter_data) -> None:
-    """Fill ``group``'s compound channels, mix matrix and 1x1 bank."""
+    """Fill ``group``'s compound channels, mix matrix, 1x1 bank and NxM
+    banks."""
     compound: List[str] = []
     mix_rows: List[np.ndarray] = []
 
@@ -205,6 +214,11 @@ def resolve_group(group: TraceGroup, weights_cfg: dict,
         mix_rows.append(row)
         return len(compound) - 1
 
+    def need_filter_data(chan: str):
+        if filter_data is None:
+            raise ValueError(f"no filter data for {chan}: pass filter_data "
+                             "or set filter_file in the config")
+
     slot_keys: List[tuple] = []
     slot_templates: List[np.ndarray] = []
     slot_psds: List[np.ndarray] = []
@@ -221,9 +235,7 @@ def resolve_group(group: TraceGroup, weights_cfg: dict,
                 coupling)
         if skey in slot_keys:
             return slot_keys.index(skey)
-        if filter_data is None:
-            raise ValueError(f"no filter data for {chan}: pass filter_data "
-                             "or set filter_file in the config")
+        need_filter_data(chan)
         template, _, tmeta = filter_data.get_template(
             chan, tag=template_tag, return_metadata=True)
         check_fs_consistent(fs, tmeta, "template", chan, template_tag)
@@ -265,12 +277,47 @@ def resolve_group(group: TraceGroup, weights_cfg: dict,
             spec.slot = bank_slot(spec.channel, tag,
                                   kwargs.get("csd_tag", "default"), kwargs)
             spec.chan_idx = compound_index(spec.channel)
-        elif spec.base in TRACE_ALGORITHMS:
+        elif spec.base == "of1x2x2":
+            csd_tag = kwargs.get("csd_tag", "default")
+            spec.slot = bank_slot(spec.channel, kwargs.get(
+                "template_tag_1", "Scintillation"), csd_tag, kwargs)
+            spec.slot2 = bank_slot(spec.channel, kwargs.get(
+                "template_tag_2", "Evaporation"), csd_tag, kwargs)
             spec.chan_idx = compound_index(spec.channel)
-        elif spec.base in NOT_PORTED:
-            raise ValueError(
-                f'algorithm "{spec.base}" ({spec.algorithm} on channel '
-                f"{spec.channel}) is not ported yet")
+            delta_window(spec, fs)
+        elif spec.base in OF_NXM_ALGORITHMS:
+            tag = kwargs.get("template_tag")
+            if tag is None:
+                raise ValueError(
+                    f'Missing "template_tag" for channel {spec.channel},'
+                    f' algorithm "{spec.algorithm}"')
+            if spec.base == "ofnxmx2":
+                nxmx2_windows(spec, group.nb_samples)
+            need_filter_data(spec.channel)
+            csd_tag = kwargs.get("csd_tag", "default")
+            template, _, tmeta = filter_data.get_template(
+                spec.channel, tag=tag, return_metadata=True)
+            check_fs_consistent(fs, tmeta, "template", spec.channel, tag)
+            csd, _, cmeta = filter_data.get_csd(
+                spec.channel, tag=csd_tag, return_metadata=True)
+            check_fs_consistent(fs, cmeta, "csd", spec.channel, csd_tag)
+            nxm_pre = int(tmeta.get("nb_pretrigger_samples")
+                          or group.nb_pretrigger)
+            if group.of_pretrigger is None:
+                group.of_pretrigger = nxm_pre
+            key = f"{spec.channel}::{spec.algorithm}"
+            group.nxm_banks[key] = filterbank.make_ofnxm_bank(
+                np.asarray(template), np.asarray(csd), fs, nxm_pre,
+                ignored_frequency_peaks=kwargs.get("ignored_frequency_peaks"),
+                ignore_harmonics=kwargs.get("ignore_harmonics", False),
+                coupling=str(kwargs.get("coupling", "AC")))
+            spec.nxm_key = key
+            subs, _ = chutils.split_channel_name(spec.channel, raw_channels,
+                                                 separator="|")
+            spec.nxm_chan_idx = tuple(compound_index(c) for c in subs)
+        elif (spec.base in TRACE_ALGORITHMS or spec.base in PSD_ALGORITHMS
+              or spec.base == "rftau"):
+            spec.chan_idx = compound_index(spec.channel)
         else:
             raise ValueError(
                 f'Cannot find algorithm "{spec.base}" — check feature '
@@ -345,3 +392,45 @@ def window_mask(spec: AlgoSpec, n: int, pretrig: int,
             "no delays — fix window_min/max_index or "
             "window_*_from_trig_usec in the processing config")
     return mask
+
+
+def delta_window(spec: AlgoSpec, fs: float) -> Optional[np.ndarray]:
+    """The Δ = t2 − t1 samples that an ``of1x2x2`` spec's joint scan may
+    take (``delta_window_min_usec``/``delta_window_max_usec``,
+    features.py:912-929), or None for the full circular scan."""
+    dmin = spec.kwargs.get("delta_window_min_usec")
+    dmax = spec.kwargs.get("delta_window_max_usec")
+    if dmin is None and dmax is None:
+        return None
+    if dmax is None:
+        raise ValueError(f"{spec.algorithm} on {spec.channel}: "
+                         "delta_window_max_usec required when "
+                         "delta_window_min_usec is set")
+    lo = int(round((dmin if dmin is not None else -dmax) * 1e-6 * fs))
+    hi = int(round(dmax * 1e-6 * fs))
+    if hi < lo:
+        raise ValueError(f"{spec.algorithm} on {spec.channel}: empty delta "
+                         f"window [{lo}, {hi}] samples")
+    return np.arange(lo, hi + 1)
+
+
+def nxmx2_windows(spec: AlgoSpec, n: int):
+    """(group ids [M], shift mask of group 0, of group 1) of an
+    ``ofnxmx2`` spec (features.py:1004-1009), whose ``fit_window`` and
+    ``template_group_ids`` are required: the JAX shell fails on either's
+    absence with a bare KeyError while it runs, this plan when it is
+    built, naming the key."""
+    for key in ("template_group_ids", "fit_window"):
+        if spec.kwargs.get(key) is None:
+            raise ValueError(
+                f'Missing "{key}" for {spec.algorithm} on channel '
+                f"{spec.channel}: ofnxmx2 takes the shifts of each template "
+                "group from fit_window [[min, max], [min, max]] (trace "
+                "indices) and the groups from template_group_ids")
+    gids = np.asarray(spec.kwargs["template_group_ids"])
+    fit_window = np.asarray(spec.kwargs["fit_window"])
+    w1 = np.zeros(n, bool)
+    w1[fit_window[0][0]:fit_window[0][1] + 1] = True
+    w2 = np.zeros(n, bool)
+    w2[fit_window[1][0]:fit_window[1][1] + 1] = True
+    return gids, w1, w2

@@ -271,6 +271,10 @@ def test_kernel_build_is_not_triggered_by_import():
     assert all(str(p).endswith(".cu") for p in _kernels.sources())
     assert {p.name for p in _kernels.sources()} == {"rfft.cu",
                                                      "fused_nodelay_of.cu"}
-    cmd = _kernels.nvcc_command("nvcc", _kernels.library_path())
-    assert "arch=compute_90a,code=sm_90a" in cmd
+    src = _kernels.sources()[0]
+    cmd = _kernels.compile_command("nvcc", src, src.with_suffix(".o"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
+    link = _kernels.link_command("nvcc", [src.with_suffix(".o")],
+                                 _kernels.library_path())
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
     assert _kernels.library_path().parent == _kernels.BUILD_DIR

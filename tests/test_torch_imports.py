@@ -7,10 +7,11 @@ any import of it raise) and then imports every module of the port and
 runs the CPU feature step, the CPU trigger step (on the first 200000
 samples of one event of ``trigger_entry``'s batch), the feature shell
 of ``feature_processing_entry`` on flat int16 dumps it writes into the
-test's directory, and the trigger shell of ``trigger_processing_entry``
+test's directory, the trigger shell of ``trigger_processing_entry``
 (two continuous events of 400,000 samples, the pulses scaled down to
-fit); a second one runs ``chip_smoke.py``, which must fail without a GPU
-and print no result.
+fit) and the shell of ``feature_coverage_entry`` (every feature
+algorithm, two events); a second one runs ``chip_smoke.py``, which must
+fail without a GPU and print no result.
 """
 
 import json
@@ -49,7 +50,15 @@ RUN_STEP = textwrap.dedent("""
         "cpu", TRIG_DIR, nevents=2, length=400000, ncoincident=8,
         nsingles=1)
     ttable = tshell.process(event_batch=2, nreaders=2)
+    from detprocess_tpu_torch.entry import feature_coverage_entry
+    cshell, cindex, _ = feature_coverage_entry("cpu", COV_DIR, nevents=2)
+    ctable = cshell.process(batch_size=2, dtype=np.float32)
     print(json.dumps({
+        "coverage": [len(cindex), sorted(os.listdir(COV_DIR)),
+                     sum(k.endswith(("_chan1", "_chan2", "_chan3", "_chan4",
+                                     "|chan2")) for k in ctable),
+                     bool(all(np.isfinite(v).all() for k, v in ctable.items()
+                              if v.dtype.kind == "f"))],
         "trigger_shell": [len(tindex), sorted(os.listdir(TRIG_DIR)),
                           sorted(set(ttable["trigger_channel"].tolist())),
                           len(ttable["trigger_index"]) >= 2 * 13,
@@ -86,10 +95,11 @@ def _run(code, cwd=REPO, timeout=120):
 
 
 def test_port_imports_and_runs_without_jax_h5py_pandas_yaml(tmp_path):
-    for sub in ("shell", "trig"):
+    for sub in ("shell", "trig", "cov"):
         (tmp_path / sub).mkdir()
     proc = _run(PRELUDE + f"SHELL_DIR = {str(tmp_path / 'shell')!r}\n"
-                + f"TRIG_DIR = {str(tmp_path / 'trig')!r}\n" + RUN_STEP)
+                + f"TRIG_DIR = {str(tmp_path / 'trig')!r}\n"
+                + f"COV_DIR = {str(tmp_path / 'cov')!r}\n" + RUN_STEP)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("utils.windows", "utils.channels", "utils.misc",
@@ -97,8 +107,13 @@ def test_port_imports_and_runs_without_jax_h5py_pandas_yaml(tmp_path):
                  "io.fastio", "io.rawdata", "io.prefetch", "io.tables",
                  "ops.adc", "pipelines.feature_plan",
                  "pipelines.feature_group", "pipelines.features",
-                 "io.upload", "pipelines.triggers", "pipelines.oftrigger"):
+                 "io.upload", "pipelines.triggers", "pipelines.oftrigger",
+                 "utils.freq", "ops.psdfeatures", "ops.ofnxm", "ops.lm",
+                 "ops.pulsefit"):
         assert f"detprocess_tpu_torch.{name}" in res["modules"], name
+    assert res["coverage"] == [
+        2, ["flat_I1_D20260101_T060000_F0001.bin",
+            "flat_I1_D20260101_T060000_F0002.bin"], 34, True]
     compound = "chan1+chan2+chan3+chan4"
     assert res["trigger_shell"] == [
         2, ["flat_I1_D20260101_T120000_F0001.bin",
