@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of detprocess_tpu_torch: the of1x1 feature step, the
 continuous-data trigger step, the FeatureProcessing shell, the
-TriggerProcessing shell chained into it, and every feature algorithm
-through FeatureProcessing, on one card.
+TriggerProcessing shell chained into it, every feature algorithm
+through FeatureProcessing, and filter generation chained into it, on one
+card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -140,6 +141,33 @@ i. every feature algorithm (entry.feature_coverage_entry, the
    float64 run's spread). It prints rows/s of the second call, the busy
    share, each spec's layer in CUDA-event and device ms on one batch, and
    holds both kernels against their twins on the path's batch.
+j. filter generation (entry.filter_generation_entry, docs/CONFIG.md's
+   noise and template sections at 2048 randoms of N = 32768 on the 4
+   shell channels): 64 continuous events of 1,250,000 int16 samples (610
+   MiB, 4 flat dumps in a temporary directory, deleted at the end) made on
+   the card, each channel's noise from its shell PSD (chan1's and chan2's
+   correlated as coverage_csd says), a DC offset a channel, one 1–2 µA
+   pulse and one glitch a channel and event. FilterDataProcessing.
+   process() three times (counted, timed with a StageTimer, under
+   torch.profiler). It fails unless the rFFT kernel launches 4 times a call
+   (one a channel for all windows; the CSD reuses the PSDs' spectra),
+   fused 0 and cuFFT 0; the upload is 2 bytes a sample; the card's cut
+   masks equal the float64 CPU cuts on the same windows but for traces
+   within 1e-4 of a cut edge, each named; the PSDs, the CSD (of
+   √(C_ii·C_jj)) and the offsets agree with the float64 CPU run on the
+   same kept windows within 1e-4; each PSD and the chan1|chan2 CSD agree
+   with the spectra the noise was drawn from on bins 100 … N/2 − 1 (band
+   mean of the pulls (est/truth − 1)·√K times √bins below 5, their rms
+   within 0.05 of 1); every window that holds an injected pulse (onset at
+   least 256 samples before its end) or glitch is cut in that channel;
+   the templates are the analytic ones within 1e-6. It holds the rFFT
+   kernel against its twin on the phase's windows and times it beside
+   cuFFT at [2048, 32768], prints the stages' host seconds, the passes and
+   kept counts of the cuts, the busy share, peak device memory and the
+   phase's time, then feeds the generated filter data (in memory) to
+   FeatureProcessing on 2048 of (g)'s events (without the compound
+   channel, which filter generation does not make): 4 launches of each
+   kernel, cuFFT 0, and (g)'s physics gate on every channel.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
@@ -148,8 +176,10 @@ one PyTorch call that computes the same function, where there is one, and
 its launches on each path (feature: phase d; trigger: phase e's residual
 run; shell: phase g's two process() calls with the counts at 0;
 trigger_shell: phase h's first process() call; chain: its table through
-FeatureProcessing; coverage: phase i's first process() call), whose sum
-is ``launches``, and the SM clocks of its phases from phase (d).
+FeatureProcessing; coverage: phase i's first process() call; filtergen:
+phase j's first process() call; filtergen_chain: its filter data through
+FeatureProcessing), whose sum is ``launches``, and the SM clocks of its
+phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
 
@@ -176,6 +206,8 @@ from detprocess_tpu_torch.entry import build_bank, entry  # noqa: E402
 from detprocess_tpu_torch.ops import _kernels, cuda_fft  # noqa: E402
 from detprocess_tpu_torch.ops import fft, filterbank, of1x1  # noqa: E402
 from detprocess_tpu_torch.ops import trigger  # noqa: E402
+from detprocess_tpu_torch.ops import autocuts, spectral  # noqa: E402
+from detprocess_tpu_torch.pipelines.randoms import Randoms  # noqa: E402
 from detprocess_tpu_torch.ops import tracestats  # noqa: E402
 from detprocess_tpu_torch.ops.cuda_of import FusedNodelayOF  # noqa: E402
 from detprocess_tpu_torch.pipelines.feature_step import (  # noqa: E402
@@ -306,6 +338,26 @@ COV_RISE_SHARE = 0.15    # rftau median rise within this share of truth
 COV_FALL_SHARE = 0.05    # and fall (the 50 kHz RC filter slows the rise:
                          # 21.9 for 20 and 36.3 for 35 samples in float64)
 
+# phase (j): filter generation (entry.filter_generation_entry)
+FG_EVENTS = tentry.FG_EVENTS     # continuous events of FG_LENGTH samples
+FG_FILES = 4
+FG_LENGTH = tentry.TRIGGER_L
+FG_NRANDOMS = tentry.FG_NRANDOMS
+FG_N, FG_PRETRIG = tentry.SHELL_N, tentry.SHELL_PRETRIG
+FG_SPECTRAL = 4          # rFFT launches a process() call: one a channel
+FG_RTOL = 1e-4           # PSD, CSD (of √(C_ii·C_jj)) and offsets vs float64
+FG_EDGE_TOL = 1e-4       # a trace this close (relative) to a cut edge may
+                         # fall on the other side in float32
+FG_BAND_LO = 100         # truth band from this bin (3.8 kHz at N = 32768):
+                         # the 1/f leakage of the boxcar window sits below
+FG_PULL_MEAN = 5.0       # |band mean of the pulls| · √bins below this
+FG_PULL_RMS = 0.05       # the pulls' rms within this of 1
+FG_HOLD = 256            # a pulse "held" by a window: onset ≥ this many
+                         # samples before the window's end
+FG_TEMPLATE_TOL = 1e-6
+FG_CHAIN_EVENTS = 2048   # (g)'s events for the chained FeatureProcessing
+FG_CHAIN_BATCH = 2048
+
 KERNEL_INFO = {
     "rfft": {"source": "detprocess_tpu_torch/csrc/rfft.cu",
              "replaces": "detprocess_tpu/ops/pallas_fft.py:95"},
@@ -418,6 +470,12 @@ def compare_kernels(x, fused, errs, phase, amp_scale="event"):
     amplitudes' error relative to each event's (``"event"``) or to the
     batch's largest (``"batch"``, for batches of noise windows, whose
     amplitudes sit near 0)."""
+    compare_rfft(x, errs, phase)
+    compare_fused(x, fused, errs, phase, amp_scale)
+
+
+def compare_rfft(x, errs, phase):
+    """The rFFT kernel against its plain twin on ``x`` [B, N]."""
     n, batch = x.shape[-1], x.shape[0]
     got = cuda_fft.rfft_kernel(x)
     ref = cuda_fft.rfft_plain(x)
@@ -431,8 +489,6 @@ def compare_kernels(x, fused, errs, phase, amp_scale="event"):
     if not rel <= RFFT_TOL:
         raise RuntimeError(f"rfft kernel disagrees at N={n}, B={batch}: "
                            f"{rel:.3e}")
-    del got, ref
-    compare_fused(x, fused, errs, phase, amp_scale)
 
 
 def compare_fused(x, fused, errs, phase, amp_scale="event"):
@@ -1344,11 +1400,11 @@ def run_shell(shell, what, card, phase="g", **kw):
     return table, sec, stages
 
 
-def shell_physics(table, amps, shifts):
+def shell_physics(table, amps, shifts, phase="g", n=tentry.SHELL_N,
+                  per_file=SHELL_EVENTS // SHELL_FILES):
     """Per channel: amplitude bias, χ²/dof, unconstrained t0 within one
     sample of the injected offset, constrained t0 inside its window."""
-    ev = ((table["dump_number"] - 1) * (SHELL_EVENTS // SHELL_FILES)
-          + table["event_number"] - 1)
+    ev = (table["dump_number"] - 1) * per_file + table["event_number"] - 1
     half = int(tentry.SHELL_WINDOW_USEC * 1e-6 * FS)
     out = {}
     for c, chan in enumerate(tentry.SHELL_CHANNELS):
@@ -1359,14 +1415,14 @@ def shell_physics(table, amps, shifts):
         t0c = np.rint(table[f"t0_of1x1_constrained_{chan}"] * FS)
         out[chan] = {
             "amp_bias": float(np.mean((amp - truth) / truth)),
-            "chi2_dof": float(np.mean(chi2) / (tentry.SHELL_N - 2)),
+            "chi2_dof": float(np.mean(chi2) / (n - 2)),
             "t0_within_1": float(np.mean(np.abs(t0 - shifts[ev]) <= 1)),
             "t0c_in_window": bool(np.all(np.abs(t0c) <= half))}
         p = out[chan]
         p["pass"] = bool(abs(p["amp_bias"]) < 5e-3
                          and abs(p["chi2_dof"] - 1.0) < 0.05
                          and p["t0_within_1"] > 0.99 and p["t0c_in_window"])
-    log(f"[g] physics: {json.dumps(out)}")
+    log(f"[{phase}] physics: {json.dumps(out)}")
     if not all(p["pass"] for p in out.values()):
         raise RuntimeError("shell physics invariants failed")
 
@@ -2326,6 +2382,266 @@ def _phase_i(device, card, errs, tmp):
     del codes, x
     return launches
 
+def fg_edge_margins(metric_stack, stages, nsigma=2.5):
+    """[4, C, B]: each trace's distance from its metric's cut edge, over
+    nsigma·std of that metric's kept traces (float64)."""
+    out = []
+    for metric, mask in zip(metric_stack, stages):
+        m = mask.to(metric.dtype)
+        cnt = m.sum(dim=-1, keepdim=True)
+        mean = (metric * m).sum(dim=-1, keepdim=True) / cnt
+        std = torch.sqrt(((metric - mean) ** 2 * m).sum(dim=-1, keepdim=True)
+                         / cnt)
+        out.append(((metric - mean).abs() - nsigma * std).abs()
+                   / (nsigma * std))
+    return torch.stack(out)
+
+
+def fg_compare_masks(card, ref, metrics64, stages64):
+    """The card's keep-masks [C, B] against the float64 CPU ones: every
+    trace that differs must lie within FG_EDGE_TOL of a cut edge; each is
+    named."""
+    diff = torch.nonzero(card.cpu() != ref).tolist()
+    margins = fg_edge_margins(metrics64, stages64)
+    for c, b in diff:
+        j = int(margins[:, c, b].argmin())
+        m = float(margins[j, c, b])
+        log(f"[j] cut mask differs: {tentry.SHELL_CHANNELS[c]}, window {b} "
+            f"({autocuts.METRICS[j]} within {m:.3e} of its edge; "
+            f"{'kept' if bool(ref[c, b]) else 'cut'} in float64)")
+        if not m <= FG_EDGE_TOL:
+            raise RuntimeError(f"cut masks differ beyond float32 rounding: "
+                               f"{tentry.SHELL_CHANNELS[c]}, window {b}, "
+                               f"margin {m:.3e}")
+    log(f"[j] cut masks: {len(diff)} of {ref.numel()} (channel, window) "
+        f"entries differ from the float64 CPU cuts (limit: within "
+        f"{FG_EDGE_TOL:g} of an edge)")
+
+
+def fg_pulls(est, truth, k, lo, hi):
+    """Band pulls (est/truth − 1)·√k over bins [lo, hi): (|mean|·√bins,
+    rms)."""
+    z = (est[lo:hi] / truth[lo:hi] - 1.0) * np.sqrt(k)
+    return float(abs(z.mean()) * np.sqrt(len(z))), float(np.sqrt(
+        np.mean(z ** 2)))
+
+
+def fg_check_truth(fd, chans, n):
+    """Each PSD and the chan1|chan2 CSD against the spectra the noise was
+    drawn from, within their statistical error on bins [FG_BAND_LO, N/2)."""
+    truth = tentry.filtergen_csd(n, FS)
+    lo, hi = FG_BAND_LO, n // 2
+    out = {}
+    for c, chan in enumerate(chans):
+        psd, _, md = fd.get_psd(chan, return_metadata=True)
+        mean, rms = fg_pulls(np.asarray(psd, np.float64), truth[c, c].real,
+                             md["nb_randoms"], lo, hi)
+        out[chan] = {"pull_mean_sqrt_bins": mean, "pull_rms": rms}
+    csd, _, md = fd.get_csd("|".join(chans), return_metadata=True)
+    k = md["nb_randoms"]
+    z = ((csd[0, 1, lo:hi] - truth[0, 1, lo:hi])
+         * np.sqrt(k / (truth[0, 0, lo:hi].real * truth[1, 1, lo:hi].real)))
+    out["chan1|chan2"] = {
+        "pull_mean_sqrt_bins": float(abs(z.mean()) * np.sqrt(len(z))),
+        "pull_rms": float(np.sqrt(np.mean(np.abs(z) ** 2)))}
+    log(f"[j] against the spectra the noise was drawn from, bins {lo}-"
+        f"{hi - 1} ({lo * FS / n:.0f} Hz up): {json.dumps(out)} (limits: "
+        f"|mean|·√bins < {FG_PULL_MEAN:g}, |rms − 1| < {FG_PULL_RMS:g})")
+    for name, p in out.items():
+        if not (p["pull_mean_sqrt_bins"] < FG_PULL_MEAN
+                and abs(p["pull_rms"] - 1.0) < FG_PULL_RMS):
+            raise RuntimeError(f"{name}: the estimate disagrees with the "
+                               f"spectrum the noise was drawn from: {p}")
+
+
+def fg_check_artifacts(table, kept_rows, masks, art, per_file, n, pretrig):
+    """Every window that holds an injected pulse (onset at least FG_HOLD
+    samples before its end) or glitch is cut in that channel."""
+    ev = ((table["dump_number"][kept_rows] - 1) * per_file
+          + table["event_number"][kept_rows] - 1)
+    start = np.maximum(table["trigger_index"][kept_rows] - pretrig, 0)
+    held = {"pulse": 0, "glitch": 0}
+    for c, chan in enumerate(tentry.SHELL_CHANNELS):
+        for kind, reach in (("pulse", n - FG_HOLD),
+                            ("glitch", n - tentry.FG_GLITCH + 1)):
+            at = art[kind][ev, c] - start
+            inside = (at >= 0) & (at < reach)
+            held[kind] += int(inside.sum())
+            left = np.flatnonzero(inside & masks[c])
+            if len(left):
+                raise RuntimeError(f"{chan}: windows {left.tolist()} hold an "
+                                   f"injected {kind} and were kept")
+    log(f"[j] injected artifacts held by windows: {held} (channel, window) "
+        f"pairs, every one cut")
+
+
+def phase_j(device, card, errs):
+    """Filter generation from flat int16 continuous files
+    (entry.filter_generation_entry), chained into FeatureProcessing;
+    returns the kernels' launches on both paths."""
+    tmp = tempfile.mkdtemp(prefix="detprocess_smoke_fg_")
+    try:
+        return _phase_j(device, card, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_j(device, card, errs, tmp):
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    proc, index, art = tentry.filter_generation_entry(
+        device, tmp, nevents=FG_EVENTS, seed=SEED, length=FG_LENGTH,
+        nrandoms=FG_NRANDOMS, n=FG_N, pretrig=FG_PRETRIG, nfiles=FG_FILES)
+    nbytes = sum(os.path.getsize(p) for p in index.paths)
+    log(f"[j] wrote {FG_EVENTS} continuous events of {FG_LENGTH} samples, "
+        f"{nbytes / 2**30:.3f} GiB of int16 codes, in {FG_FILES} flat dumps "
+        f"in {time.perf_counter() - t:.1f} s (set-up, not timed)")
+    chans = list(tentry.SHELL_CHANNELS)
+
+    _kernels.reset_launch_counts()
+    timer = StageTimer()
+    t = time.perf_counter()
+    fd = proc.process(seed=SEED, timer=timer)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches, library = _kernels.launch_counts(), _kernels.library_counts()
+    log(f"[j] first call: {first_s:.4f} s; host stages " + str(
+        {k: round(v["seconds"], 4)
+         for k, v in timer.report(log=False).items()}) + f" s; on {card}")
+    want = {"rfft": FG_SPECTRAL, "fused_nodelay_of": 0, "cufft_rfft": 0}
+    log(f"[j] launches: {launches}, library route {library} (expected "
+        f"{want})")
+    if {**launches, **library} != want:
+        raise RuntimeError(f"filter generation launches {launches}, library "
+                           f"{library}, expected {want}")
+    st = proc.stats
+    log(f"[j] windows {st['windows']} ({st['dropped']} dropped), kept "
+        f"{st['kept']}, clip passes (std, range, slope, baseline) "
+        f"{st['passes']}, offsets {st['offsets']}; upload "
+        f"{st['upload_bytes']} bytes for {st['upload_samples']} samples")
+    if st["upload_bytes"] != 2 * st["upload_samples"] or not st["windows"]:
+        raise RuntimeError(f"filter generation upload not int16: {st}")
+
+    # the timed call, and one under torch.profiler
+    timer = StageTimer()
+    torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    proc.process(seed=SEED, timer=timer)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    stages = {k: round(v["seconds"], 4)
+              for k, v in timer.report(log=False).items()}
+    log(f"[j] second call: {warm_s:.4f} s (host clock, process() call to "
+        f"returned filter data), {st['windows'] / warm_s:.1f} windows/s; "
+        f"host stages {stages} s; peak device memory {peak:.2f} GiB; on "
+        f"{card}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        proc.process(seed=SEED)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t
+    busy, kern, copy = device_intervals(prof)
+    share = busy / (1e3 * prof_s)
+    log(f"[j] device busy {busy:.3f} ms of the profiled {1e3 * prof_s:.3f} "
+        f"ms call ({100 * share:.1f}% busy, {100 * (1 - share):.1f}% idle; "
+        f"union of device intervals); kernels {kern:.3f} ms, copies "
+        f"{copy:.3f} ms; on {card}")
+
+    # the same windows and cuts again, on the card and in float64 on the
+    # CPU
+    table = Randoms(index, verbose=False, device=device).process(
+        nrandoms=FG_NRANDOMS, seed=SEED)
+    rows, _, kept_rows = Randoms(index, verbose=False, device="cpu") \
+        .window_rows(table, FG_N, FG_PRETRIG)
+    x = Randoms(index, verbose=False, device=device).read_random_traces(
+        table, FG_N, FG_PRETRIG, channels=chans)
+    stages32, _ = autocuts.cut_stages(autocuts.metrics(x))
+    card_masks = stages32[-1]
+    t = time.perf_counter()
+    x64 = Randoms(index, verbose=False, device="cpu").read_random_traces(
+        table, FG_N, FG_PRETRIG, channels=chans, dtype=torch.float64)
+    metrics64 = autocuts.metrics(x64)
+    stages64, _ = autocuts.cut_stages(metrics64)
+    fg_compare_masks(card_masks, stages64[-1], metrics64, stages64)
+    masks = card_masks.cpu()
+    kept = {c: int(masks[i].sum()) for i, c in enumerate(chans)}
+    every = masks.all(dim=0)
+    kept["|".join(chans)] = int(every.sum())
+    if kept != st["kept"]:
+        raise RuntimeError(f"process() kept {st['kept']}, the cuts of its "
+                           f"windows keep {kept}")
+    worst = {}
+    for i, chan in enumerate(chans):
+        k = torch.nonzero(masks[i]).flatten()
+        ref = spectral.welch_psd(x64[k, i], FS).numpy()
+        got = fd.get_psd(chan)[0]
+        worst[f"psd_{chan}"] = float(np.max(np.abs(got - ref) / ref))
+        med = np.median(x64[k, i].numpy(), axis=-1).mean()
+        worst[f"offset_{chan}"] = abs(st["offsets"][chan] - med) / abs(med)
+    k = torch.nonzero(every).flatten()
+    ref = spectral.welch_csd(x64[k], FS).numpy()
+    got = fd.get_csd("|".join(chans))[0]
+    diag = np.sqrt(np.abs(np.einsum("iik->ik", ref)))
+    worst["csd"] = float(np.max(np.abs(got - ref)
+                                / (diag[:, None] * diag[None, :])))
+    log(f"[j] against the float64 CPU run on the same kept windows "
+        f"({time.perf_counter() - t:.1f} s): worst relative error "
+        f"{json.dumps(worst)} (limit {FG_RTOL:g}; CSD of √(C_ii·C_jj))")
+    bad = {k: v for k, v in worst.items() if not v <= FG_RTOL}
+    if bad:
+        raise RuntimeError(f"filter generation differs from float64: {bad}")
+    fg_check_truth(fd, chans, FG_N)
+    fg_check_artifacts(table, kept_rows, masks.numpy(), art,
+                       FG_EVENTS // FG_FILES, FG_N, FG_PRETRIG)
+    tmpl_err = max(float(np.max(np.abs(fd.get_template(c, tag)[0] - want)))
+                   for (c, tag), want in tentry.filtergen_templates(
+                       FG_N, FG_PRETRIG, FS).items())
+    log(f"[j] templates: max |Δ| {tmpl_err:.3e} from the analytic ones "
+        f"(limit {FG_TEMPLATE_TOL:g})")
+    if not tmpl_err <= FG_TEMPLATE_TOL:
+        raise RuntimeError("generated templates differ from the analytic")
+
+    # the rFFT kernel on the phase's own windows, and its time there
+    w = x[:, 0].contiguous()
+    del x, x64, metrics64
+    compare_rfft(w, errs, "j")
+    k_ms, p_ms = time_pair(lambda: cuda_fft.rfft_kernel(w),
+                           lambda: cuda_fft.rfft_plain(w))
+    b_ms, b_by = bound("rfft", FG_N, w.shape[0])
+    log(f"[j] rfft at B={w.shape[0]}, N={FG_N}: kernel {k_ms:.4f} ms, "
+        f"cuFFT {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); on {card}")
+    del w
+
+    # the chain: the generated filter data into FeatureProcessing on (g)'s
+    # events (the compound channel, which filter generation does not
+    # make, left out)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    paths, amps, shifts = tentry.write_shell_dumps(
+        tmp, gen, FG_CHAIN_EVENTS, 1, device, n=FG_N, pretrig=FG_PRETRIG)
+    cfg = tentry.shell_config(FG_N, FG_PRETRIG)
+    del cfg["feature"][tentry.SHELL_COMPOUND]
+    shell = FeatureProcessing(tentry.shell_index(paths, FG_N, FG_PRETRIG),
+                              cfg, fd, verbose=False, device=device)
+    _kernels.reset_launch_counts()
+    ctable, _, _ = run_shell(shell, "chain, generated filter data", card,
+                             phase="j", batch_size=FG_CHAIN_BATCH,
+                             nreaders=SHELL_READERS)
+    chain = _kernels.launch_counts()
+    nbatch = -(-FG_CHAIN_EVENTS // FG_CHAIN_BATCH)
+    want = {"rfft": len(chans) * nbatch,
+            "fused_nodelay_of": len(chans) * nbatch, "cufft_rfft": 0}
+    log(f"[j] chain launches: {chain}, library route "
+        f"{_kernels.library_counts()} (expected {want})")
+    if {**chain, **_kernels.library_counts()} != want:
+        raise RuntimeError(f"chain launches {chain}, expected {want}")
+    shell_physics(ctable, amps, shifts, phase="j", n=FG_N,
+                  per_file=FG_CHAIN_EVENTS)
+    log(f"[j] phase time {time.perf_counter() - t_phase:.1f} s; on {card}")
+    return {"filtergen": launches, "filtergen_chain": chain}
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2348,6 +2664,7 @@ def main(argv=None):
     shell_launches = phase_g(device, card, errs)
     tshell_launches = phase_h(device, card, errs)
     cov_launches = phase_i(device, card, errs)
+    fg_launches = phase_j(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
@@ -2355,7 +2672,9 @@ def main(argv=None):
                     "shell": shell_launches[name],
                     **{path: counts[name]
                        for path, counts in tshell_launches.items()},
-                    "coverage": cov_launches[name]}
+                    "coverage": cov_launches[name],
+                    **{path: counts[name]
+                       for path, counts in fg_launches.items()}}
         rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",

@@ -44,6 +44,21 @@ step on one device.
   builders (:func:`trigger_shell_config`, :func:`trigger_shell_pulses`,
   :func:`write_trigger_dumps`, :func:`trigger_shell_index`) are shared
   with the GPU smoke run.
+- :func:`filter_generation_entry` is filter generation as docs/CONFIG.md
+  :115-128 configures it (N = 32768, pretrigger 16384, analytic
+  templates) at 2048 randoms, four times the default ``nrandoms``, as a
+  :class:`FilterDataProcessing` over flat int16 continuous dumps of the
+  four shell channels that it writes: 1,250,000 samples an event, each
+  channel's noise drawn from its shell PSD on that grid (chan1's and
+  chan2's correlated as :func:`coverage_csd` says), a DC offset a
+  channel, and one 1–2 µA pulse and one 2-sample glitch of 1–2 µA a
+  channel and event for the cuts to find. Templates: each channel's
+  two-pole shell template (``default``), chan1's sum of two two-poles
+  (``sum``) and chan2's three-pole (``threepole``). Its builders
+  (:func:`filtergen_config`, :func:`filtergen_templates`,
+  :func:`filtergen_csd`, :func:`filtergen_artifacts`,
+  :func:`write_filtergen_dumps`, :func:`filtergen_index`) are shared with
+  the GPU smoke run.
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ from detprocess_tpu_torch.models import pulse
 from detprocess_tpu_torch.ops import filterbank, trigger
 from detprocess_tpu_torch.pipelines.feature_step import FeatureStep
 from detprocess_tpu_torch.pipelines.features import FeatureProcessing
+from detprocess_tpu_torch.pipelines.filtergen import FilterDataProcessing
 from detprocess_tpu_torch.pipelines.trigger_step import TriggerStep
 from detprocess_tpu_torch.pipelines.triggers import TriggerProcessing
 
@@ -692,3 +708,187 @@ def feature_coverage_entry(device=None, directory: str | None = None,
                               coverage_filter_data(), verbose=False,
                               device=device)
     return shell, index, truth
+
+
+# the filter-generation configuration (docs/CONFIG.md:115-128): the shell's
+# four channels, continuous, at 4 × the default nrandoms
+FG_SERIES = "I1_D20260101_T180000"
+FG_EVENTS = 64
+FG_NRANDOMS = 2048
+FG_OFFSETS = (3e-7, 2e-7, -2e-7, -3e-7)     # DC offset a channel (A)
+FG_AMP = (1e-6, 2e-6)                       # pulses and |glitches| (A)
+FG_GLITCH = 2                               # glitch width, samples
+FG_SUM = ((1.0, 0.5), (20e-6, 40e-6), (200e-6, 800e-6))   # chan1's "sum"
+FG_THREE = (1.0, 0.3, 20e-6, 250e-6, 1e-3)  # chan2's A, B, τ_r, τ_f1, τ_f2
+
+
+def filtergen_config(n: int = SHELL_N, pretrig: int = SHELL_PRETRIG,
+                     nrandoms: int = FG_NRANDOMS) -> dict:
+    """The processing config's noise and template sections (the dict a
+    YAML file would load to)."""
+    lengths = {"trace_length_samples": n, "pretrigger_length_samples": pretrig}
+    template = {chan: {"run": True, **lengths, "A": 1.0,
+                       "tau_r": SHELL_TAU_R, "tau_f1": tau, "tag": "default"}
+                for chan, tau in zip(SHELL_CHANNELS, SHELL_TAU_F)}
+    for chan, tag, block in (
+            ("chan1", "sum", {"template_poles": 2,
+                              "amplitude_A": list(FG_SUM[0]),
+                              "rise_time": list(FG_SUM[1]),
+                              "fall_time_1": list(FG_SUM[2])}),
+            ("chan2", "threepole", {
+                "template_poles": 3, "amplitude_A": FG_THREE[0],
+                "amplitude_B": FG_THREE[1], "rise_time": FG_THREE[2],
+                "fall_time_1": FG_THREE[3], "fall_time_2": FG_THREE[4]})):
+        c = SHELL_CHANNELS.index(chan)
+        template[chan] = {
+            "template_tag_list": ["default", tag],
+            "default": {"template_poles": 2, "amplitude_A": 1.0,
+                        "rise_time": SHELL_TAU_R,
+                        "fall_time_1": SHELL_TAU_F[c], **lengths},
+            tag: {**block, **lengths}}
+    return {"noise": {**lengths, "nrandoms": nrandoms},
+            "template": template}
+
+
+def filtergen_templates(n: int = SHELL_N, pretrig: int = SHELL_PRETRIG,
+                        fs: float = FS) -> dict:
+    """The analytic templates of :func:`filtergen_config`, {(channel,
+    tag): [n]}."""
+    out = {(c, "default"): t for c, t in zip(
+        SHELL_CHANNELS, shell_templates(n, pretrig, fs))}
+    t = np.arange(n) / fs
+    out[("chan1", "sum")] = pulse.make_template_sum_twopoles(
+        t, *FG_SUM, t0=pretrig / fs)
+    a, b, tau_r, tau_f1, tau_f2 = FG_THREE
+    out[("chan2", "threepole")] = pulse.make_template(
+        fs, n, pretrig, A=a, B=b, tau_r=tau_r, tau_f1=tau_f1, tau_f2=tau_f2)
+    return out
+
+
+def filtergen_csd(n: int = SHELL_N, fs: float = FS) -> np.ndarray:
+    """The CSD [4, 4, n] the noise is drawn from: the shell PSDs, and
+    chan1's and chan2's cross term (:func:`coverage_csd`)."""
+    csd = np.zeros((4, 4, n), complex)
+    csd[np.arange(4), np.arange(4)] = shell_psds(n, fs)
+    csd[:2, :2] = coverage_csd(n, fs)
+    return csd
+
+
+def filtergen_artifacts(rng: np.random.Generator, nevents: int,
+                        length: int = TRIGGER_L) -> dict:
+    """Per event and channel, one pulse (onset ``pulse`` [E, 4], amplitude
+    ``pulse_amp``, the TRIGGER_NT-sample shell template from its onset)
+    and one glitch (``glitch`` [E, 4], FG_GLITCH samples of ``glitch_amp``,
+    either sign), placed uniformly in the event."""
+    shape = (nevents, len(SHELL_CHANNELS))
+    return {"pulse": rng.integers(0, length - TRIGGER_NT, shape),
+            "pulse_amp": rng.uniform(*FG_AMP, shape),
+            "glitch": rng.integers(0, length - FG_GLITCH, shape),
+            "glitch_amp": rng.uniform(*FG_AMP, shape)
+            * rng.choice([-1.0, 1.0], shape)}
+
+
+def filtergen_events(gen: torch.Generator, art: dict, first: int,
+                     count: int, device, length: int = TRIGGER_L,
+                     fs: float = FS) -> torch.Tensor:
+    """Events ``first`` … ``first + count − 1`` as int16 codes [count, 4,
+    L] on ``device``: the noise of :func:`filtergen_csd` continued to the
+    L-sample grid, the DC offsets, and the artifacts of ``art``."""
+    c, nh = len(SHELL_CHANNELS), length // 2 + 1
+    scale = torch.as_tensor(np.sqrt(shell_psds(length, fs)[:, :nh] * fs
+                                    * length / 2.0), dtype=torch.float32,
+                            device=device)
+    z = torch.randn((count, c, 2, nh), generator=gen, device=device)
+    white = torch.complex(z[:, :, 0], z[:, :, 1])
+    if length % 2 == 0:
+        white[..., -1] = z[:, :, 0, -1] * np.sqrt(2.0)
+    lag = torch.exp(-2j * np.pi * torch.arange(nh, device=device) * COV_LAG
+                    / length)
+    white[:, 1] = (COV_RHO * white[:, 0] * lag
+                   + np.sqrt(1.0 - COV_RHO ** 2) * white[:, 1])
+    nf = white * scale
+    nf[..., 0] = 0.0
+    x = torch.fft.irfft(nf, n=length)
+    x += torch.as_tensor(FG_OFFSETS, dtype=torch.float32,
+                         device=device)[:, None]
+    ev = slice(first, first + count)
+    base = (torch.arange(count * c, device=device) * length).reshape(count, c)
+    tmpl = torch.as_tensor(shell_templates(TRIGGER_NT, 0, fs),
+                           dtype=torch.float32, device=device)
+    pos = torch.as_tensor(art["pulse"][ev], device=device)
+    amp = torch.as_tensor(art["pulse_amp"][ev], dtype=torch.float32,
+                          device=device)
+    steps = torch.arange(TRIGGER_NT, device=device)
+    flat = x.view(-1)
+    flat.index_add_(0, ((base + pos)[..., None] + steps).reshape(-1),
+                    (amp[..., None] * tmpl).reshape(-1))
+    gpos = torch.as_tensor(art["glitch"][ev], device=device)
+    gamp = torch.as_tensor(art["glitch_amp"][ev], dtype=torch.float32,
+                           device=device)
+    gsteps = torch.arange(FG_GLITCH, device=device)
+    flat.index_add_(0, ((base + gpos)[..., None] + gsteps).reshape(-1),
+                    gamp[..., None].expand(-1, -1, FG_GLITCH).reshape(-1))
+    conv = torch.as_tensor(shell_conv(), dtype=torch.float32, device=device)
+    codes = torch.round(x / conv[:, None])
+    if float(codes.abs().max()) > np.iinfo(np.int16).max:
+        raise ValueError("int16 ADC overflow in the synthetic events")
+    return codes.to(torch.int16)
+
+
+def write_filtergen_dumps(directory: str, gen: torch.Generator,
+                          rng: np.random.Generator, nevents: int,
+                          nfiles: int, device, length: int = TRIGGER_L,
+                          chunk: int = 8):
+    """Write ``nevents`` continuous events (:func:`filtergen_events`)
+    into ``nfiles`` flat dumps in ``directory``, ``chunk`` made at a time;
+    returns (paths, the :func:`filtergen_artifacts` dict)."""
+    art = filtergen_artifacts(rng, nevents, length)
+    per = -(-nevents // nfiles)
+    paths = []
+    for i in range(nfiles):
+        path = os.path.join(directory, f"flat_{FG_SERIES}_F{i + 1:04d}.bin")
+        stop = min((i + 1) * per, nevents)
+        for j in range(i * per, stop, chunk):
+            codes = filtergen_events(gen, art, j, min(chunk, stop - j),
+                                     device, length)
+            write_flat_dump(path, codes.cpu().numpy(), append=j > i * per)
+        paths.append(path)
+    return paths, art
+
+
+def filtergen_index(paths, length: int = TRIGGER_L,
+                    fs: float = FS) -> RawIndex:
+    """The raw index of flat int16 filter-generation dumps."""
+    return RawIndex.from_flat(
+        paths, SHELL_CHANNELS, length, fs, FG_SERIES, dtype=np.int16,
+        adc_conversion_factor=SHELL_CAL,
+        detector_config={c: {"close_loop_norm": cln}
+                         for c, cln in zip(SHELL_CHANNELS, SHELL_CLN)},
+        data_type="continuous")
+
+
+def filter_generation_entry(device=None, directory: str | None = None,
+                            nevents: int = FG_EVENTS, seed: int = 0,
+                            length: int = TRIGGER_L,
+                            nrandoms: int = FG_NRANDOMS, n: int = SHELL_N,
+                            pretrig: int = SHELL_PRETRIG, nfiles: int = 4):
+    """Return ``(processing, index, artifacts)``: the
+    :class:`FilterDataProcessing` of the filter-generation configuration
+    over ``nevents`` continuous events of ``length`` samples that it makes
+    on ``device`` and writes as ``nfiles`` flat int16 dumps into
+    ``directory`` (a new temporary directory by default), and the
+    :func:`filtergen_artifacts` of those events. Run it with
+    ``processing.process(seed=...)``. ``device=None`` means the GPU."""
+    device = _device(device)
+    if directory is None:
+        directory = tempfile.mkdtemp(prefix="detprocess_filtergen_")
+    os.makedirs(directory, exist_ok=True)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    paths, art = write_filtergen_dumps(directory, gen,
+                                       np.random.default_rng(seed), nevents,
+                                       nfiles, device, length)
+    index = filtergen_index(paths, length)
+    proc = FilterDataProcessing(noise_files=index,
+                                config=filtergen_config(n, pretrig, nrandoms),
+                                verbose=False, device=device)
+    return proc, index, art

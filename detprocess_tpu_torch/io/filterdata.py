@@ -1,20 +1,26 @@
-"""Filter data in memory: tagged templates, PSDs and CSDs per channel.
+"""Filter data in memory and in HDF5 files: tagged templates, PSDs and
+CSDs, dPdI, IV-sweep and dIdV results per channel.
 
-Port of the part of ``detprocess_tpu/io/filterfile.py::FilterData`` that
-the feature shell reads (:223-325): ``set_template``/``get_template``,
-``set_psd``/``get_psd`` (with ``fold``) and ``set_csd``/``get_csd``,
-each with its metadata dict. A 1-D value keeps its index axis (time for
-a template, two-sided frequency for a PSD) beside it, where the JAX
-store keeps a ``pd.Series``.
+Port of ``detprocess_tpu/io/filterfile.py::FilterData``: the accessors
+(``set_template``/``get_template``, ``set_psd``/``get_psd`` with
+``fold``, ``set_csd``/``get_csd``, ``set_dpdi``/``get_dpdi`` :327-352,
+the IV-sweep, dIdV and noise tables and results :363-424, ``has``,
+``clear_data`` :175, ``set_data`` :203, ``describe`` :104), each value
+with its metadata dict. A 1-D value keeps its index axis (time for a
+template, two-sided frequency for a PSD) beside it, where the JAX store
+keeps a ``pd.Series``; a table (a DataFrame there) is a :class:`Table`,
+a dict of numpy columns.
 
 :func:`check_fs_consistent` is the JAX check with its guard repaired: a
 stored sample rate is compared whenever it is present, so a stored 0 is
 refused (the JAX guard tests truthiness and lets 0 through).
 
-:meth:`FilterData.load_hdf5` reads the JAX package's filter-file layout
-(``/{channel}/{param}_{tag}`` groups with a ``_metadata`` attrs group;
-``FilterData.load_hdf5`` :450 and ``_read_value`` :577). It imports h5py
-when called.
+:meth:`FilterData.load_hdf5` and :meth:`FilterData.save_hdf5` are h5py
+adapters (h5py is imported when they are called) for the JAX package's
+filter-file layout: ``/{channel}/{param}_{tag}`` groups with a
+``_metadata`` attrs group (``save_hdf5`` :426, ``_write_value`` :467,
+``_write_dict`` :530, ``_write_array`` :553, ``load_hdf5`` :450,
+``_read_value`` :577). The ``plot_*`` methods are not ported.
 """
 
 from __future__ import annotations
@@ -65,6 +71,22 @@ def estimate_sampling_rate(freq_array: np.ndarray) -> float:
     return n * df
 
 
+class Table(dict):
+    """A stored table: ``{column: numpy array}`` (or, for a column of
+    array-valued cells, a list of arrays and None)."""
+
+
+def as_table(table) -> Table:
+    """A :class:`Table` of a dict of columns or of a DataFrame."""
+    if isinstance(table, dict):
+        return Table({k: v if isinstance(v, list) else np.asarray(v)
+                      for k, v in table.items()})
+    if hasattr(table, "columns"):
+        return Table({str(c): table[c].to_numpy() for c in table.columns})
+    raise ValueError("ERROR: Input is not a table (a dict of columns or a "
+                     "DataFrame)!")
+
+
 class FilterData:
     """Tagged filter store: ``{channel: {param_tag: (value, index,
     metadata)}}``."""
@@ -73,8 +95,96 @@ class FilterData:
         self._verbose = verbose
         self._filter_data: dict = {}
 
+    @property
+    def data(self) -> dict:
+        """The store itself; stores that assign it share one dict."""
+        return self._filter_data
+
+    @property
+    def verbose(self) -> bool:
+        return self._verbose
+
+    @verbose.setter
+    def verbose(self, value: bool):
+        self._verbose = bool(value)
+
     def channels(self):
         return list(self._filter_data.keys())
+
+    def has(self, channel: str, name: str) -> bool:
+        return name in self._filter_data.get(channel, {})
+
+    def clear_data(self, channels=None, tag=None):
+        """Clear everything; or drop ``channels``; or, with ``tag`` too,
+        every parameter of those channels whose name contains ``tag``."""
+        if channels is None and tag is not None:
+            raise ValueError(
+                'ERROR: "channels" argument needed when "tag" is provided')
+        if channels is None:
+            self._filter_data.clear()
+            return
+        if isinstance(channels, str):
+            channels = [channels]
+        for chan in channels:
+            if chan not in self._filter_data:
+                continue
+            if tag is None:
+                self._filter_data.pop(chan)
+            else:
+                for key in [k for k in self._filter_data[chan] if tag in k]:
+                    self._filter_data[chan].pop(key)
+
+    def set_data(self, data: dict, overwrite: bool = False):
+        """Merge ``{channel: {param: (value, index, metadata)}}`` into the
+        store; present parameters stay unless ``overwrite``."""
+        if not isinstance(data, dict):
+            raise ValueError("ERROR: filter data should be a dictionary!")
+        for chan, params in data.items():
+            if chan not in self._filter_data:
+                self._filter_data[chan] = params
+                continue
+            for name, value in params.items():
+                if overwrite or name not in self._filter_data[chan]:
+                    self._filter_data[chan][name] = value
+
+    def describe(self, channels=None):
+        """Print each channel's parameters with type, shape, sample rate
+        and pretrigger length (and SC/normal point counts of IV-sweep
+        tables); ``channels`` filters by substring."""
+        if isinstance(channels, str):
+            channels = [channels]
+        shown = [c for c in self._filter_data
+                 if channels is None or any(u in c for u in channels)]
+        print(f"List of channels: {shown}")
+        for chan in shown:
+            print(f"\nChannel {chan}:")
+            for name, (val, index, md) in self._filter_data[chan].items():
+                if isinstance(val, Table):
+                    kind, shape = "table", None
+                elif isinstance(val, np.ndarray):
+                    kind = ("series" if index is not None
+                            else f"{val.ndim}D numpy.array")
+                    shape = val.shape
+                else:
+                    kind, shape = type(val).__name__, None
+                msg = f" * {name}: {kind}"
+                if shape is not None:
+                    msg += f" {tuple(shape)}"
+                extras = []
+                if "sample_rate" in md:
+                    extras.append(f"fs={float(md['sample_rate']):g} Hz")
+                if "nb_pretrigger_samples" in md:
+                    extras.append(
+                        f"pretrigger={int(md['nb_pretrigger_samples'])}")
+                if (name.startswith("ivsweep_data") and isinstance(val, Table)
+                        and "state" in val):
+                    st = np.asarray(val["state"]).astype(str)
+                    extras.append(f"SC points={int((st == 'sc').sum())}")
+                    extras.append(
+                        f"normal points={int((st == 'normal').sum())}")
+                if extras:
+                    msg += "  [" + ", ".join(extras) + "]"
+                print(msg)
 
     def _set(self, channel: str, name: str, value, metadata: Optional[dict],
              index=None):
@@ -111,11 +221,11 @@ class FilterData:
             "nb_samples": nbins,
             "nb_pretrigger_samples": int(pretrigger_length_samples),
         })
+        t = np.arange(nbins) / sample_rate if template.ndim == 1 else None
         if isinstance(channels, str):
             channels = [channels]
         for chan in channels:
-            # get_template makes the time axis from the sample rate
-            self._set(chan, f"template_{tag}", template.copy(), md)
+            self._set(chan, f"template_{tag}", template.copy(), md, index=t)
 
     def get_template(self, channel, tag: str = "default",
                      return_metadata: bool = False):
@@ -179,7 +289,106 @@ class FilterData:
             return csd, freqs, md
         return csd, freqs
 
+    # -- dPdI --------------------------------------------------------------
+    def set_dpdi(self, channels, dpdi: np.ndarray, freqs: np.ndarray,
+                 poles: int, tag: str = "default",
+                 metadata: Optional[dict] = None):
+        md = dict(metadata or {})
+        md["poles"] = int(poles)
+        if isinstance(channels, str):
+            channels = [channels]
+        for chan in channels:
+            self._set(chan, f"dpdi_{poles}poles_{tag}", np.asarray(dpdi), md)
+            self._set(chan, f"dpdi_{poles}poles_{tag}_freqs",
+                      np.asarray(freqs), md)
+
+    def get_dpdi(self, channel, poles: int, tag: str = "default",
+                 return_metadata: bool = False):
+        dpdi, _, md = self._get(channel, f"dpdi_{poles}poles_{tag}")
+        freqs, _, _ = self._get(channel, f"dpdi_{poles}poles_{tag}_freqs")
+        if return_metadata:
+            return np.asarray(dpdi), np.asarray(freqs), md
+        return np.asarray(dpdi), np.asarray(freqs)
+
+    # -- IV sweep, dIdV and noise results ----------------------------------
+    def set_ivsweep_data_from_dict(self, data_dict: dict,
+                                   tag: str = "default"):
+        for chan, table in data_dict.items():
+            self.set_ivsweep_data(chan, table, tag=tag)
+
+    def set_ivsweep_data(self, channel, table, tag: str = "default",
+                         metadata: Optional[dict] = None):
+        self._set(channel, f"ivsweep_data_{tag}", as_table(table), metadata)
+
+    def get_ivsweep_data(self, channel, tag: str = "default") -> Table:
+        return self._get(channel, f"ivsweep_data_{tag}")[0]
+
+    def set_ivsweep_results(self, channel, results: dict, measurement: str,
+                            tag: str = "default",
+                            metadata: Optional[dict] = None):
+        self._set(channel, f"ivsweep_results_{measurement}_{tag}",
+                  results, metadata)
+
+    def get_ivsweep_results(self, channel, measurement: str,
+                            tag: str = "default"):
+        return self._get(channel,
+                         f"ivsweep_results_{measurement}_{tag}")[0]
+
+    def set_didv_results(self, channel, results: dict, poles: int,
+                         tag: str = "default",
+                         metadata: Optional[dict] = None):
+        self._set(channel, f"didv_results_{poles}poles_{tag}", results,
+                  metadata)
+
+    def get_didv_results(self, channel, poles: int, tag: str = "default"):
+        return self._get(channel, f"didv_results_{poles}poles_{tag}")[0]
+
+    def set_didv_dataframe(self, channel, table,
+                           metadata: Optional[dict] = None,
+                           tag: str = "default"):
+        """Store a dIdV-processing table under ``didv_processing_{tag}``."""
+        self._set(channel, f"didv_processing_{tag}", as_table(table),
+                  metadata)
+
+    def get_didv_dataframe(self, channel, tag: str = "default") -> Table:
+        return self._get(channel, f"didv_processing_{tag}")[0]
+
+    def set_noise_dataframe(self, channel, table,
+                            metadata: Optional[dict] = None,
+                            tag: str = "default"):
+        """Store a noise-processing table under ``noise_processing_{tag}``."""
+        self._set(channel, f"noise_processing_{tag}", as_table(table),
+                  metadata)
+
+    def get_noise_dataframe(self, channel, tag: str = "default") -> Table:
+        return self._get(channel, f"noise_processing_{tag}")[0]
+
     # -- HDF5 adapter ----------------------------------------------------
+    def save_hdf5(self, path: str, overwrite: bool = True):
+        """Write the store at ``path`` in the JAX package's layout (mode
+        "w", or "a" without ``overwrite``, replacing the parameters it
+        writes)."""
+        import h5py
+
+        with h5py.File(path, "w" if overwrite else "a") as f:
+            for chan, params in self._filter_data.items():
+                cg = f.require_group(chan)
+                for name, (value, index, md) in params.items():
+                    if name in cg:
+                        del cg[name]
+                    g = cg.create_group(name)
+                    _write_value(g, value, index)
+                    mg = g.create_group("_metadata")
+                    for k, v in (md or {}).items():
+                        if v is None:
+                            continue
+                        try:
+                            mg.attrs[k] = v
+                        except TypeError:
+                            mg.attrs[k] = str(v)
+        if self._verbose:
+            print(f"INFO: filter data saved to {path}")
+
     def load_hdf5(self, path: str, overwrite: bool = False) -> "FilterData":
         """Merge the filter file at ``path`` (the JAX package's layout)
         into the store; present parameters stay unless ``overwrite``."""
@@ -245,7 +454,7 @@ def _read_value(g):
                            else None for i in range(len(lengths))]
             else:
                 data[c] = _read_array(node)
-        return data, None
+        return Table(data), None
     if kind == "array":
         return _read_array(g["values"]), None
     if kind == "dict":
@@ -253,3 +462,97 @@ def _read_value(g):
     if kind == "scalar":
         return g.attrs["value"], None
     raise ValueError(f"unknown stored type: {kind}")
+
+
+def _write_value(g, value, index):
+    """One parameter's group: a 1-D array with its index as a series, a
+    :class:`Table` as a dataframe, an array, a dict, or a scalar."""
+    if isinstance(value, np.ndarray) and index is not None:
+        g.attrs["__type__"] = "series"
+        _write_array(g, "values", value)
+        g.create_dataset("index", data=np.asarray(index))
+    elif isinstance(value, Table):
+        g.attrs["__type__"] = "dataframe"
+        cols = g.create_group("columns")
+        written = []
+        for col, arr in value.items():
+            if isinstance(arr, list) or np.asarray(arr).dtype == object:
+                cells = list(arr)
+                if _write_array_rows(cols, str(col), cells):
+                    written.append(str(col))
+                    continue
+                if not all(isinstance(v, (str, bytes, int, float, np.floating,
+                                          np.integer, type(None), bool))
+                           for v in cells):
+                    continue      # cells that cannot be stored
+                arr = np.asarray(cells, dtype=object)
+            _write_array(cols, str(col), arr)
+            written.append(str(col))
+        g.attrs["__columns__"] = written
+    elif isinstance(value, np.ndarray):
+        g.attrs["__type__"] = "array"
+        _write_array(g, "values", value)
+    elif isinstance(value, dict):
+        g.attrs["__type__"] = "dict"
+        _write_dict(g.create_group("values"), value)
+    else:
+        g.attrs["__type__"] = "scalar"
+        g.attrs["value"] = value
+
+
+def _write_array_rows(cols, name: str, cells) -> bool:
+    """Array-valued cells (one 1-D array a row, None where missing) as a
+    NaN-padded ``stack`` and the rows' ``lengths``; False when the cells
+    are not such arrays."""
+    rows = [np.asarray(v) for v in cells if isinstance(v, np.ndarray)]
+    if not rows or not all(r.ndim == 1 for r in rows):
+        return False
+    width = max(r.shape[0] for r in rows)
+    dt = complex if any(np.iscomplexobj(r) for r in rows) else float
+    stack = np.full((len(cells), width), np.nan, dtype=dt)
+    lengths = np.zeros(len(cells), dtype=np.int64)
+    for i, v in enumerate(cells):
+        if isinstance(v, np.ndarray):
+            stack[i, : v.shape[0]] = v
+            lengths[i] = v.shape[0]
+    sub = cols.create_group(name)
+    sub.attrs["__array_rows__"] = True
+    _write_array(sub, "stack", stack)
+    sub.create_dataset("lengths", data=lengths)
+    return True
+
+
+def _write_dict(vg, value: dict):
+    """Scalars as attrs, arrays as datasets, nested dicts as
+    ``__subdict__`` groups."""
+    for k, v in value.items():
+        if isinstance(v, dict):
+            sub = vg.create_group(str(k))
+            sub.attrs["__subdict__"] = True
+            _write_dict(sub, v)
+        elif isinstance(v, (np.ndarray, list)):
+            _write_array(vg, str(k), np.asarray(v))
+        elif v is None:
+            continue
+        else:
+            try:
+                vg.attrs[str(k)] = v
+            except TypeError:
+                vg.attrs[str(k)] = str(v)
+
+
+def _write_array(parent, name, arr):
+    """A dataset; strings as bytes, complex values as a re/im group."""
+    arr = np.asarray(arr)
+    if arr.dtype == object:
+        arr = np.asarray(["" if v is None else str(v) for v in arr],
+                         dtype="S")
+    elif arr.dtype.kind == "U":
+        arr = arr.astype("S")
+    if np.iscomplexobj(arr):
+        g = parent.create_group(name)
+        g.attrs["__complex__"] = True
+        g.create_dataset("re", data=arr.real)
+        g.create_dataset("im", data=arr.imag)
+    else:
+        parent.create_dataset(name, data=arr)

@@ -27,14 +27,19 @@ Two ways to build one:
   which need no HDF5 at all.
 
 :class:`RawReader` serves ``read_next_event``, ``read_single_event``
-(with ``trace_window``) and ``rewind`` over an index, in amps or, with
-``adctoamp=False, dtype=None``, in the stored dtype with the conversion
-factors in ``admin["adc_conv"]``; its admin dicts carry the JAX reader's
-keys.
+(with ``trace_window``), ``read_many_events`` and ``rewind`` over an
+index, in amps or, with ``adctoamp=False, dtype=None``, in the stored
+dtype with the conversion factors in ``admin["adc_conv"]``; its admin
+dicts carry the JAX reader's keys.
+
+:class:`RawData` (JAX ``RawData`` :566) classifies the files of a raw
+group directory by their name's prefix and maps each data type to its
+series; the queries that open files go through the h5py adapter.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import re
 import sys
@@ -51,6 +56,19 @@ FILE_STAMPS = ("fridge_run", "series_start_time", "group_start_time",
                "fridge_run_start_time")
 
 
+# file-name prefixes → data type (JAX ``DATA_TYPES``)
+DATA_TYPES = {
+    "cont": "continuous",
+    "rand": "rand",
+    "calib": "calib",
+    "iv": "iv",
+    "didv": "didv",
+    "exttrig": "exttrig",
+    "threshtrig": "threshtrig",
+    "treshtrig": "threshtrig",
+}
+
+
 def extract_series_name(filename: str) -> str:
     m = SERIES_RE.search(os.path.basename(filename))
     if not m:
@@ -61,6 +79,13 @@ def extract_series_name(filename: str) -> str:
 def series_to_number(series_name: str) -> int:
     fac, day, tme = SERIES_RE.search(series_name).groups()
     return int(fac) * 10**14 + int(day) * 10**6 + int(tme)
+
+
+def series_number_to_name(series_num: int) -> str:
+    """Inverse of :func:`series_to_number`."""
+    fac, daytime = divmod(int(series_num), 10**14)
+    day, tme = divmod(daytime, 10**6)
+    return f"I{fac}_D{day:08d}_T{tme:06d}"
 
 
 @dataclass
@@ -414,6 +439,24 @@ class RawReader:
                            f"{self.index.files[fi].path}")
         return self.read_row(row, channels, trace_window, adctoamp, dtype)
 
+    def read_many_events(self, nevents: Optional[int] = None,
+                         channels: Optional[Sequence[str]] = None):
+        """Up to ``nevents`` events from the start, in reading order:
+        (traces [B, C, N] in amps, float64; admin dicts). Rewinds before
+        and after."""
+        out, admins = [], []
+        self.rewind()
+        while nevents is None or len(out) < nevents:
+            traces, admin = self.read_next_event(channels)
+            if traces is None:
+                break
+            out.append(traces)
+            admins.append(admin)
+        self.rewind()
+        if not out:
+            return np.zeros((0, 0, 0)), []
+        return np.stack(out), admins
+
     def read_row(self, row: int, channels=None, trace_window=None,
                  adctoamp: bool = True, dtype=np.float64):
         """(traces, admin) of index row ``row``."""
@@ -439,3 +482,167 @@ class RawReader:
         if not adctoamp:
             admin["adc_conv"] = conv.astype(np.float32)
         return traces, admin
+
+
+class RawData:
+    """The files of a raw group directory (``{group}/*.hdf5``, else
+    ``{group}/*/*.hdf5``), classified by their name's prefix
+    (:data:`DATA_TYPES`; ``restricted`` in the prefix marks restricted
+    data) and mapped ``{data type: {series: [files]}}``."""
+
+    def __init__(self, raw_path: str, data_type: str = "continuous",
+                 series: Optional[Sequence[str]] = None,
+                 restricted: bool = False):
+        self.raw_path = raw_path
+        self.data_type = data_type
+        self.restricted = restricted
+        self._series_filter = set(series) if series else None
+        self._file_map: Dict[str, Dict[str, List[str]]] = {}
+        files = sorted(glob.glob(os.path.join(raw_path, "*.hdf5")))
+        if not files:
+            files = sorted(glob.glob(os.path.join(raw_path, "*", "*.hdf5")))
+        for afile in files:
+            dtype = self._classify(afile)
+            if dtype is None:
+                continue
+            try:
+                name = extract_series_name(afile)
+            except ValueError:
+                continue
+            if self._series_filter and name not in self._series_filter:
+                continue
+            self._file_map.setdefault(dtype, {}).setdefault(
+                name, []).append(afile)
+
+    def _classify(self, filename: str) -> Optional[str]:
+        prefix = os.path.basename(filename).split("_I")[0]
+        if ("restricted" in prefix) != self.restricted:
+            return None
+        for key, dtype in DATA_TYPES.items():
+            if prefix.startswith(key):
+                return dtype
+        return "unknown"
+
+    def get_group_name(self) -> str:
+        return os.path.basename(os.path.normpath(self.raw_path))
+
+    def get_base_path(self) -> str:
+        return os.path.dirname(os.path.normpath(self.raw_path))
+
+    def get_facility(self) -> Optional[int]:
+        """The facility number of the first series name ('I{fac}_…')."""
+        for dtype_map in self._file_map.values():
+            for name in dtype_map:
+                m = SERIES_RE.search(name)
+                if m:
+                    return int(m.group(1))
+        return None
+
+    def describe(self):
+        print(f"Raw data group: {self.get_group_name()}")
+        print(f"Base path: {self.get_base_path()}")
+        print("Number of series:")
+        for dtype, series_map in sorted(self._file_map.items()):
+            if series_map:
+                label = ("restricted " if self.restricted else "") + dtype
+                print(f" - {label} data: {len(series_map)} series")
+
+    def get_series_list(self, data_type: Optional[str] = None) -> List[str]:
+        return sorted(self._file_map.get(data_type or self.data_type, {}))
+
+    def get_data_files(self, data_type: Optional[str] = None,
+                       series: Optional[str] = None) -> Dict[str, List[str]]:
+        series_map = self._file_map.get(data_type or self.data_type, {})
+        if series is not None:
+            return {series: series_map.get(series, [])}
+        return dict(series_map)
+
+    def get_data_config(self, data_type: Optional[str] = None,
+                        series: Optional[str] = None) -> dict:
+        """{series: {"channel_list", "detector_config", "overall"}} from
+        each series' first file (h5py adapter)."""
+        out = {}
+        for name, files in self.get_data_files(data_type, series).items():
+            if not files:
+                continue
+            md = RawIndex.from_pytesdaq(files[:1]).get_metadata()
+            out[name] = {
+                "channel_list": list(md.get("channel_list", [])),
+                "detector_config": md.get("detector_config", {}),
+                "overall": {k: v for k, v in md.items()
+                            if k != "detector_config"},
+            }
+        return out
+
+    def get_available_channels(self, data_type: Optional[str] = None,
+                               series: Optional[str] = None) -> List[str]:
+        for cfg in self.get_data_config(data_type, series).values():
+            return list(cfg["channel_list"])
+        return []
+
+    def get_sample_rate(self, data_type: Optional[str] = None,
+                        series: Optional[str] = None) -> float:
+        for cfg in self.get_data_config(data_type, series).values():
+            return float(cfg["overall"]["sample_rate"])
+        return float("nan")
+
+    def get_duration(self, series: Optional[str] = None,
+                     data_type: Optional[str] = None,
+                     include_nb_events: bool = False):
+        """Total duration in seconds of the events of the series' files
+        (with their count)."""
+        files = [f for flist in self.get_data_files(data_type,
+                                                    series).values()
+                 for f in flist]
+        nb_events, duration = 0, 0.0
+        if files:
+            index = RawIndex.from_pytesdaq(files)
+            nb_events = sum(int(f.metadata.get("nb_events", 0))
+                            for f in index.files)
+            first = index.files[0]
+            duration = first.nb_samples / first.sample_rate * nb_events
+        if include_nb_events:
+            return duration, nb_events
+        return duration
+
+    def get_traces(self, series_nums, event_nums, channels=None,
+                   adctoamp: bool = True, include_metadata: bool = False):
+        """Events ``event_nums`` (by event number, searched through each
+        series' files) of series ``series_nums`` (numbers or names) →
+        [nevents, C, N]."""
+        if not isinstance(series_nums, (list, tuple, np.ndarray)):
+            series_nums = [series_nums]
+        if not isinstance(event_nums, (list, tuple, np.ndarray)):
+            event_nums = [event_nums]
+        if len(series_nums) == 1 and len(event_nums) > 1:
+            series_nums = list(series_nums) * len(event_nums)
+        if len(series_nums) != len(event_nums):
+            raise ValueError("series_nums and event_nums must align")
+        readers: Dict[str, RawReader] = {}
+        traces, admins = [], []
+        for ser, ev in zip(series_nums, event_nums):
+            name = (ser if isinstance(ser, str)
+                    else series_number_to_name(ser))
+            reader = readers.get(name)
+            if reader is None:
+                files = [f for dtype_map in self._file_map.values()
+                         for f in dtype_map.get(name, [])]
+                if not files:
+                    raise KeyError(f"series {name} not in this group")
+                reader = readers[name] = RawReader(sorted(files))
+            for fname in reader.files:
+                try:
+                    tr, admin = reader.read_single_event(
+                        int(ev), fname, channels=channels,
+                        adctoamp=adctoamp)
+                    break
+                except KeyError:
+                    continue
+            else:
+                raise KeyError(f"event_num {ev} not found in series {name}")
+            traces.append(tr)
+            admins.append(admin)
+        for reader in readers.values():
+            reader.close()
+        stacked = np.stack(traces) if traces else np.zeros((0, 0, 0))
+        return (stacked, admins) if include_metadata else stacked

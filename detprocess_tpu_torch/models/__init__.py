@@ -1,1 +1,1 @@
-"""Host-side models (pulse templates)."""
+"""Host-side models (pulse templates, the dIdV template conversion)."""

@@ -1,7 +1,7 @@
 """Analytic TES pulse templates (host numpy, float64).
 
 Copy of ``detprocess_tpu/models/pulse.py`` (qetpy's
-make_template_twopole/threepole/fourpole as used by
+make_template_twopole/threepole/fourpole/sum_twopoles as used by
 detprocess/core/template.py:327-447). It is a copy, not an import,
 because importing the JAX package needs JAX.
 
@@ -10,6 +10,7 @@ Functional forms (t' = t - t0, pulse zero for t' < 0):
 - two-pole:   p(t') = A·(exp(-t'/τ_f1) − exp(-t'/τ_r))
 - three-pole: adds B·(exp(-t'/τ_f2) − exp(-t'/τ_r))
 - four-pole:  adds C·(exp(-t'/τ_f3) − exp(-t'/τ_r))
+- sum of two-poles: Σ_i A_i·(exp(-t'/τ_fi) − exp(-t'/τ_ri))
 
 ``normalize=True`` scales the result to unit peak height.
 """
@@ -63,6 +64,17 @@ def make_template_fourpole(t, A, B, C, tau_r, tau_f1, tau_f2, tau_f3, t0=0.0,
         + C * (np.exp(-tp / tau_f3) - np.exp(-tp / tau_r)),
         0.0,
     )
+    return _normalize(pulse, normalize)
+
+
+def make_template_sum_twopoles(t, amplitudes, rise_times, fall_times,
+                               t0=0.0, normalize=True) -> np.ndarray:
+    t = np.asarray(t, dtype=np.float64)
+    tp = t - t0
+    pulse = np.zeros_like(t)
+    for a, tr, tf in zip(amplitudes, rise_times, fall_times):
+        pulse += np.where(tp >= 0,
+                          a * (np.exp(-tp / tf) - np.exp(-tp / tr)), 0.0)
     return _normalize(pulse, normalize)
 
 

@@ -9,9 +9,13 @@ samples of one event of ``trigger_entry``'s batch), the feature shell
 of ``feature_processing_entry`` on flat int16 dumps it writes into the
 test's directory, the trigger shell of ``trigger_processing_entry``
 (two continuous events of 400,000 samples, the pulses scaled down to
-fit) and the shell of ``feature_coverage_entry`` (every feature
-algorithm, two events); a second one runs ``chip_smoke.py``, which must
-fail without a GPU and print no result.
+fit), the shell of ``feature_coverage_entry`` (every feature
+algorithm, two events) and the filter generation of
+``filter_generation_entry`` (two continuous events of 200,000 samples,
+16 randoms of 4096 samples) chained into the feature shell; a second one
+runs ``chip_smoke.py``, which must fail without a GPU and print no
+result. The filter-generation entry points refuse to run without a GPU
+when no device is given.
 """
 
 import json
@@ -19,6 +23,10 @@ import os
 import subprocess
 import sys
 import textwrap
+
+import numpy as np
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "detprocess_tpu", "h5py", "pandas", "yaml")
@@ -53,7 +61,25 @@ RUN_STEP = textwrap.dedent("""
     from detprocess_tpu_torch.entry import feature_coverage_entry
     cshell, cindex, _ = feature_coverage_entry("cpu", COV_DIR, nevents=2)
     ctable = cshell.process(batch_size=2, dtype=np.float32)
+    from detprocess_tpu_torch import entry as E
+    from detprocess_tpu_torch.pipelines.features import FeatureProcessing
+    proc, findex, art = E.filter_generation_entry(
+        "cpu", FG_DIR, nevents=2, length=200000, nrandoms=16, n=4096,
+        pretrig=2048, nfiles=2)
+    fdata = proc.process(seed=0)
+    paths, _, _ = E.write_shell_dumps(CHAIN_DIR, torch.Generator(), 4, 1,
+                                      "cpu", n=4096, pretrig=2048)
+    fcfg = E.shell_config(4096, 2048)
+    del fcfg["feature"][E.SHELL_COMPOUND]
+    chain = FeatureProcessing(E.shell_index(paths, 4096, 2048), fcfg, fdata,
+                              verbose=False, device="cpu").process(
+        batch_size=4, dtype=np.float32)
     print(json.dumps({
+        "filtergen": [len(findex), sorted(os.listdir(FG_DIR)),
+                      fdata.channels(), proc.stats["windows"],
+                      len(chain["event_number"]),
+                      bool(all(np.isfinite(v).all() for k, v in chain.items()
+                               if k.startswith(("amp_", "chi2_"))))],
         "coverage": [len(cindex), sorted(os.listdir(COV_DIR)),
                      sum(k.endswith(("_chan1", "_chan2", "_chan3", "_chan4",
                                      "|chan2")) for k in ctable),
@@ -95,22 +121,31 @@ def _run(code, cwd=REPO, timeout=120):
 
 
 def test_port_imports_and_runs_without_jax_h5py_pandas_yaml(tmp_path):
-    for sub in ("shell", "trig", "cov"):
+    for sub in ("shell", "trig", "cov", "fg", "chain"):
         (tmp_path / sub).mkdir()
     proc = _run(PRELUDE + f"SHELL_DIR = {str(tmp_path / 'shell')!r}\n"
                 + f"TRIG_DIR = {str(tmp_path / 'trig')!r}\n"
-                + f"COV_DIR = {str(tmp_path / 'cov')!r}\n" + RUN_STEP)
+                + f"COV_DIR = {str(tmp_path / 'cov')!r}\n"
+                + f"FG_DIR = {str(tmp_path / 'fg')!r}\n"
+                + f"CHAIN_DIR = {str(tmp_path / 'chain')!r}\n" + RUN_STEP)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("utils.windows", "utils.channels", "utils.misc",
                  "utils.logging", "config.yamlconfig", "io.filterdata",
                  "io.fastio", "io.rawdata", "io.prefetch", "io.tables",
-                 "ops.adc", "pipelines.feature_plan",
+                 "ops.adc", "ops.autocuts", "pipelines.randoms",
+                 "pipelines.noise", "pipelines.template",
+                 "pipelines.filtergen", "models.didv",
+                 "pipelines.feature_plan",
                  "pipelines.feature_group", "pipelines.features",
                  "io.upload", "pipelines.triggers", "pipelines.oftrigger",
                  "utils.freq", "ops.psdfeatures", "ops.ofnxm", "ops.lm",
                  "ops.pulsefit"):
         assert f"detprocess_tpu_torch.{name}" in res["modules"], name
+    chans = ["chan1", "chan2", "chan3", "chan4"]
+    assert res["filtergen"] == [
+        2, [f"flat_I1_D20260101_T180000_F000{i}.bin" for i in (1, 2)],
+        chans + ["|".join(chans)], 16, 4, True]
     assert res["coverage"] == [
         2, ["flat_I1_D20260101_T060000_F0001.bin",
             "flat_I1_D20260101_T060000_F0002.bin"], 34, True]
@@ -153,3 +188,30 @@ def test_chip_smoke_fails_without_a_gpu():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+@pytest.mark.parametrize("which", ["FilterDataProcessing", "Noise",
+                                   "Randoms", "filter_generation_entry"])
+def test_filter_generation_needs_the_gpu(tmp_path, which):
+    """With no device given, each refuses to run without a GPU rather than
+    falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from detprocess_tpu_torch import entry
+    from detprocess_tpu_torch.io.rawdata import write_flat_dump
+    from detprocess_tpu_torch.pipelines.filtergen import FilterDataProcessing
+    from detprocess_tpu_torch.pipelines.noise import Noise
+    from detprocess_tpu_torch.pipelines.randoms import Randoms
+
+    path = str(tmp_path / f"flat_{entry.FG_SERIES}_F0001.bin")
+    write_flat_dump(path, np.zeros((1, 4, 8192), np.int16))
+    index = entry.filtergen_index([path], 8192)
+    make = {"FilterDataProcessing": lambda: FilterDataProcessing(
+                noise_files=index, config=entry.filtergen_config(1024, 512)),
+            "Noise": lambda: Noise(index),
+            "Randoms": lambda: Randoms(index),
+            "filter_generation_entry": lambda: entry.filter_generation_entry(
+                directory=str(tmp_path / "fg"))}[which]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    assert not os.path.exists(tmp_path / "fg")
