@@ -2,8 +2,8 @@
 """GPU smoke run of detprocess_tpu_torch: the of1x1 feature step, the
 continuous-data trigger step, the FeatureProcessing shell, the
 TriggerProcessing shell chained into it, every feature algorithm
-through FeatureProcessing, and filter generation chained into it, on one
-card.
+through FeatureProcessing, filter generation chained into it, and
+salting through both shells, on one card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -168,6 +168,31 @@ j. filter generation (entry.filter_generation_entry, docs/CONFIG.md's
    FeatureProcessing on 2048 of (g)'s events (without the compound
    channel, which filter generation does not make): 4 launches of each
    kernel, cuFFT 0, and (g)'s physics gate on every channel.
+k. salting (entry.salting_chain_entry, examples/salting/saltchecks.py on
+   (h)'s configuration): 64 noise-only continuous events of (h)'s four
+   channels × 1,250,000 int16 samples (610 MiB, one flat dump in a
+   temporary directory, deleted at the end) and 504 salts coincident on
+   the four channels, 72 at each of 2, 3, 4, 5, 6, 7 and 9 σ of each
+   channel's trigger resolution. TriggerProcessing three ways, each twice
+   (first call counted, second timed): with the device injector (also a
+   third call under torch.profiler), with the host injector, unsalted. It
+   fails unless each run launches (h)'s kernels (rFFT 5, cuFFT 1 a
+   batch); the device and unsalted runs upload 2 bytes a sample and the
+   host run twice that; the device and host runs find the same
+   (channel, event, index) triggers but for those whose Δχ² lies within
+   1e-4 of the threshold (counted), Δχ² and amplitudes within 1e-5;
+   salt_efficiency of chan1's salts against chan1's triggers (saltchecks'
+   match window) matches ε(A) = Φc(n − A/σ) + Φc(n + A/σ) with |pull| < 5
+   where A is more than 0.75 σ from n = 5; the unsalted run triggers at
+   no more than 2 of the salts' indices. Then FeatureProcessing with the
+   device injector on a table of the injected indices (4096/1024, the
+   of1x1 no-delay fit of each channel; first call counted, second timed):
+   rFFT and fused 4 a batch, cuFFT 0, every row kept, 2 bytes a sample,
+   and in every bin from 6.5 σ up each channel's amplitude unbiased
+   within max(4·its error, 2 %) with a scatter of 0.6–1.4 σ. It prints
+   events/s of every second call, the busy share, the device injection's
+   CUDA-event ms on one batch of each shell and its share of that batch,
+   and holds both kernels against their twins at the path's shapes.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
@@ -178,13 +203,17 @@ run; shell: phase g's two process() calls with the counts at 0;
 trigger_shell: phase h's first process() call; chain: its table through
 FeatureProcessing; coverage: phase i's first process() call; filtergen:
 phase j's first process() call; filtergen_chain: its filter data through
-FeatureProcessing), whose sum is ``launches``, and the SM clocks of its
-phases from phase (d).
+FeatureProcessing; salting_trigger, salting_trigger_host,
+salting_trigger_unsalted: phase k's first calls of the trigger shell with
+the device injector, the host injector and none; salting_feature: its
+first call of the salted feature shell), whose sum is ``launches``, and
+the SM clocks of its phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
 
 import argparse
 import json
+import math
 import os
 import re
 import shutil
@@ -208,6 +237,8 @@ from detprocess_tpu_torch.ops import fft, filterbank, of1x1  # noqa: E402
 from detprocess_tpu_torch.ops import trigger  # noqa: E402
 from detprocess_tpu_torch.ops import autocuts, spectral  # noqa: E402
 from detprocess_tpu_torch.pipelines.randoms import Randoms  # noqa: E402
+from detprocess_tpu_torch.pipelines.salting import (  # noqa: E402
+    salt_efficiency)
 from detprocess_tpu_torch.ops import tracestats  # noqa: E402
 from detprocess_tpu_torch.ops.cuda_of import FusedNodelayOF  # noqa: E402
 from detprocess_tpu_torch.pipelines.feature_step import (  # noqa: E402
@@ -357,6 +388,19 @@ FG_HOLD = 256            # a pulse "held" by a window: onset ≥ this many
 FG_TEMPLATE_TOL = 1e-6
 FG_CHAIN_EVENTS = 2048   # (g)'s events for the chained FeatureProcessing
 FG_CHAIN_BATCH = 2048
+# phase (k): salting (entry.salting_chain_entry, (h)'s configuration on
+# noise only, 504 salts coincident on the four channels)
+SALT_EVENTS = tentry.SALT_EVENTS
+SALT_LENGTH = tentry.TRIGGER_L
+SALT_PER_POINT = tentry.SALT_PER_POINT
+SALT_FEATURE_BATCH = 512
+SALT_AMP_RTOL = 1e-5     # device against host injector: Δχ² and amplitudes
+SALT_NEAR_THRESHOLD = 1e-4   # a trigger in one run only: Δχ² this close
+SALT_MAX_PULL = 5.0      # efficiency against the closed form (saltchecks)
+SALT_PULL_SKIP = 0.75    # … away from the threshold, in σ
+SALT_RECOVERY_MIN = 6.5  # energy recovery checked from this many σ
+SALT_SCATTER = (0.6, 1.4)
+SALT_BIAS_FLOOR = 0.02
 
 KERNEL_INFO = {
     "rfft": {"source": "detprocess_tpu_torch/csrc/rfft.cu",
@@ -1806,7 +1850,7 @@ def compare_tshell_event(got, ref, threshold, what):
         f"only; Δχ² and amplitudes within {worst:.3e} (tol {TRIG_RTOL:g})")
 
 
-def run_tshell(shell, what, card, **kw):
+def run_tshell(shell, what, card, phase="h", **kw):
     """One TriggerProcessing.process() call with a StageTimer: (table,
     seconds, stages)."""
     timer = StageTimer()
@@ -1819,12 +1863,12 @@ def run_tshell(shell, what, card, **kw):
     nev = shell.stats["events"]
     msps = nev * tentry.TRIGGER_L / sec / 1e6
     nchan = len(tentry.SHELL_CHANNELS)
-    log(f"[h] {what}: {nev} continuous events in {sec:.4f} s, "
+    log(f"[{phase}] {what}: {nev} continuous events in {sec:.4f} s, "
         f"{nev / sec:.3f} events/s, {msps:.3f} Msamples/s a channel, "
         f"{nchan * msps:.3f} Msamples/s over all {nchan} channels (host "
         f"clock, process() call to returned table); "
-        f"{len(table['trigger_index'])} rows; host stages {stages} s; on "
-        f"{card}")
+        f"{len(table.get('trigger_index', ()))} rows; host stages {stages} "
+        f"s; on {card}")
     return table, sec, stages
 
 
@@ -2643,6 +2687,340 @@ def _phase_j(device, card, errs, tmp):
     return {"filtergen": launches, "filtergen_chain": chain}
 
 
+def phi_c(x):
+    """The standard normal's upper tail, Φc(x)."""
+    return 0.5 * math.erfc(x / math.sqrt(2.0))
+
+
+def salt_match_window(sigma_amp, n_sigma):
+    """The salt-to-trigger match window of examples/salting/saltchecks.py:
+    5 σ_t of the optimal filter's timing at the threshold amplitude, from
+    chan1's template and PSD at Nt."""
+    n = tentry.TRIGGER_NT
+    tmpl = tentry.shell_templates(n, tentry.TRIGGER_PRETRIG)[0]
+    dinv = 1.0 / (n * FS * tentry.shell_psds(n)[0])
+    dinv[0] = 0.0
+    omega2 = (2.0 * np.pi * np.fft.fftfreq(n, 1.0 / FS)) ** 2
+    curv = float(np.sum(omega2 * np.abs(np.fft.fft(tmpl)) ** 2 * dinv))
+    sigma_t = 1.0 / (n_sigma * sigma_amp * np.sqrt(curv))
+    return int(np.ceil(5.0 * sigma_t * FS))
+
+
+def channel_triggers(table, chan):
+    """The triggers of ``chan`` in a merged trigger table (its suffixed
+    columns), as a table of series, event and index ({} without any)."""
+    if f"trigger_index_{chan}" not in table:
+        return {}
+    idx = np.asarray(table[f"trigger_index_{chan}"], np.float64)
+    ok = np.isfinite(idx)
+    return {"series_number": np.asarray(table["series_number"])[ok],
+            "event_number": np.asarray(table["event_number"])[ok],
+            "trigger_index": idx[ok].astype(np.int64)}
+
+
+def compare_salted_runs(dev_t, host_t, thresholds):
+    """The device-injector run's triggers against the host-injector run's,
+    channel by channel: the same (channel, event, index) triggers but for
+    those whose Δχ² lies within SALT_NEAR_THRESHOLD of the threshold, and
+    Δχ² and amplitudes within SALT_AMP_RTOL on the others. Returns the
+    count of triggers in one run only."""
+    def keys(t):
+        out = {}
+        ev = np.asarray(t["event_number"])
+        dump = np.asarray(t["dump_number"])
+        for chan in tentry.SHELL_CHANNELS:
+            i = np.asarray(t[f"trigger_index_{chan}"], np.float64)
+            d = np.asarray(t[f"trigger_delta_chi2_{chan}"], np.float64)
+            a = np.asarray(t[f"trigger_amplitude_{chan}"], np.float64)
+            for r in np.flatnonzero(np.isfinite(i)):
+                out[(chan, int(dump[r]), int(ev[r]), int(i[r]))] = (d[r],
+                                                                    a[r])
+        return out
+    kd, kh = keys(dev_t), keys(host_t)
+    only = 0
+    for mine, other, side in ((kd, kh, "device"), (kh, kd, "host")):
+        for key in set(mine) - set(other):
+            thr = thresholds[key[0]]
+            if abs(mine[key][0] - thr) > SALT_NEAR_THRESHOLD * thr:
+                raise RuntimeError(f"salting: trigger {key} (Δχ² "
+                                   f"{mine[key][0]:.6g}) only in the {side}"
+                                   "-injector run")
+            only += 1
+    worst = [0.0, 0.0]
+    for key in set(kd) & set(kh):
+        for j in range(2):
+            worst[j] = max(worst[j], abs(kd[key][j] - kh[key][j])
+                           / abs(kh[key][j]))
+    log(f"[k] device against host injector: {len(kd)} and {len(kh)} "
+        f"triggers over the 4 channels, {len(set(kd) & set(kh))} the same; "
+        f"{only} in one run only, each with Δχ² within "
+        f"{SALT_NEAR_THRESHOLD:g} of the threshold; Δχ² within "
+        f"{worst[0]:.3e}, amplitudes within {worst[1]:.3e} (tol "
+        f"{SALT_AMP_RTOL:g})")
+    if not max(worst) <= SALT_AMP_RTOL:
+        raise RuntimeError(f"salting: device and host runs differ by "
+                           f"{max(worst):.3e}")
+    return only
+
+
+def check_salt_efficiency(salts, table, res, what, closed_form=True):
+    """salt_efficiency of chan1's salts against chan1's triggers, bin by
+    bin against ε(A) = Φc(n − A/σ) + Φc(n + A/σ) (saltchecks.py:204-230):
+    |pull| < SALT_MAX_PULL where A/σ is more than SALT_PULL_SKIP from n.
+    Returns the efficiency table."""
+    chan = tentry.SHELL_CHANNELS[0]
+    rows = np.asarray(salts["salt_channel"]).astype(str) == chan
+    c1 = {k: np.asarray(v)[rows] for k, v in salts.items()}
+    points = np.unique(c1["salt_energy_ev"])
+    bins = np.concatenate([points * 0.999, [points[-1] * 1.001]])
+    n = tentry.TSHELL_SIGMA
+    window = salt_match_window(res[0], n)
+    eff = salt_efficiency(c1, channel_triggers(table, chan), window, bins)
+    pulls = []
+    for i, a in enumerate(tentry.SALT_SIGMAS):
+        pred = phi_c(n - a) + phi_c(n + a)
+        err = max(eff["efficiency_err"][i] if np.isfinite(
+            eff["efficiency_err"][i]) else 0.0,
+            np.sqrt(max(pred * (1 - pred), 1e-9) / eff["n_injected"][i]),
+            1e-3)
+        pulls.append((eff["efficiency"][i] - pred) / err)
+        log(f"[k] {what}: A = {a:g} σ: {eff['n_recovered'][i]} of "
+            f"{eff['n_injected'][i]} chan1 salts recovered within "
+            f"±{window} samples, ε {eff['efficiency'][i]:.4f}, closed form "
+            f"{pred:.4f}, pull {pulls[-1]:.2f}")
+    off = [abs(p) for p, a in zip(pulls, tentry.SALT_SIGMAS)
+           if abs(a - n) > SALT_PULL_SKIP]
+    if closed_form and not max(off) < SALT_MAX_PULL:
+        raise RuntimeError(f"salting: efficiency off the closed form, "
+                           f"|pull| {max(off):.2f}")
+    return eff
+
+
+def check_salt_recovery(salts, feats, res):
+    """The no-delay amplitudes at the injected indices, channel by channel
+    and bin by bin: unbiased within saltchecks.py's bound (max(4·the
+    bias's error, 2 %)) and with a scatter of 0.6–1.4 σ from
+    SALT_RECOVERY_MIN σ up."""
+    nch = len(tentry.SHELL_CHANNELS)
+    worst = {}
+    for c, chan in enumerate(tentry.SHELL_CHANNELS):
+        inj = np.asarray(salts["salt_amplitude"], np.float64)[c::nch]
+        got = np.asarray(feats[f"amp_of1x1_nodelay_{chan}"], np.float64)
+        nsig = inj / res[c]
+        parts = []
+        for a in tentry.SALT_SIGMAS:
+            sel = np.isclose(nsig, a, rtol=1e-3)
+            ratio = float(np.mean(got[sel] / inj[sel]))
+            scat = float(np.std(got[sel] - inj[sel]) / res[c])
+            parts.append(f"{a:g}σ {ratio:.4f}/{scat:.3f}")
+            if a < SALT_RECOVERY_MIN:
+                continue
+            bound = max(4 * scat / np.sqrt(sel.sum()) / a, SALT_BIAS_FLOOR)
+            if not (abs(ratio - 1) < bound
+                    and SALT_SCATTER[0] < scat < SALT_SCATTER[1]):
+                raise RuntimeError(f"salting: {chan} at {a:g} σ recovered "
+                                   f"{ratio:.4f} of the injected amplitude, "
+                                   f"scatter {scat:.3f} σ (bias bound "
+                                   f"{bound:.4f})")
+            worst[chan] = max(worst.get(chan, 0.0), abs(ratio - 1))
+        log(f"[k] {chan}: <recovered/injected>/scatter in σ by bin: "
+            + "; ".join(parts))
+    log(f"[k] energy recovery from {SALT_RECOVERY_MIN:g} σ up: worst bias "
+        + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
+        + f" (bound max(4·err, {SALT_BIAS_FLOOR:g})), scatter within "
+        f"{SALT_SCATTER}")
+
+
+def salt_injection_ms(injector, x, series, events, chans, starts=None):
+    """One batch's ``injector.inject`` into ``x``, the third of three
+    rounds: (its CUDA-event ms, the host ms of one separate ``plan`` call,
+    the plan)."""
+    for _ in range(3):
+        with dev.CudaTimer() as t:
+            injector.inject(x, series, events, window_starts=starts,
+                            channels=chans)
+    t0 = time.perf_counter()
+    plan = injector.plan(series, events, x.shape[-1], window_starts=starts,
+                         channels=chans)
+    return t.ms, 1e3 * (time.perf_counter() - t0), plan
+
+
+def phase_k(device, card, errs):
+    """Salting: the trigger shell with the device injector, the host
+    injector and unsalted, salt_efficiency against the closed form, then
+    the salted feature shell at the injected indices; returns each path's
+    launches."""
+    tmp = tempfile.mkdtemp(prefix="detprocess_smoke_salting_")
+    try:
+        return _phase_k(device, card, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_k(device, card, errs, tmp):
+    t_phase = t = time.perf_counter()
+    salting, tshell, fshell, index = tentry.salting_chain_entry(
+        device, tmp, nevents=SALT_EVENTS, seed=SEED, length=SALT_LENGTH,
+        nsalt=SALT_PER_POINT)
+    salts = salting.get_dataframe()
+    chans = list(tentry.SHELL_CHANNELS)
+    nsalt = len(salts["salt_id"]) // len(chans)
+    nbytes = sum(os.path.getsize(p) for p in index.paths)
+    log(f"[k] wrote {SALT_EVENTS} noise-only continuous events of "
+        f"{len(chans)} x {SALT_LENGTH} int16 samples, {nbytes / 2**20:.1f} "
+        f"MiB in one flat dump, and drew {nsalt} salts coincident on the "
+        f"{len(chans)} channels ({SALT_PER_POINT} at each of "
+        f"{tentry.SALT_SIGMAS} σ) in {time.perf_counter() - t:.1f} s "
+        "(set-up, not timed)")
+    res = tentry.trigger_shell_resolutions()
+    fd = tentry.shell_filter_data(tentry.TRIGGER_NT, tentry.TRIGGER_PRETRIG)
+    config = tentry.trigger_shell_config()
+    host = TriggerProcessing(index, config, fd, verbose=False, device=device)
+    host.set_salting(salting.make_injector(chans))
+    plain = TriggerProcessing(index, config, fd, verbose=False,
+                              device=device)
+    kw = dict(event_batch=TSHELL_BATCH, capacity=TSHELL_CAPACITY)
+    nbatch = -(-SALT_EVENTS // TSHELL_BATCH)
+    want = {"rfft": (len(chans) + 1) * nbatch, "fused_nodelay_of": 0,
+            "cufft_rfft": nbatch}
+    runs, launches, stats, secs = {}, {}, {}, {}
+    for what, shell in (("device", tshell), ("host", host),
+                        ("unsalted", plain)):
+        label = what if what == "unsalted" else f"{what} injector"
+        _kernels.reset_launch_counts()
+        runs[what], _, _ = run_tshell(shell, f"{label}, first call", card,
+                                      "k", **kw)
+        launches[what] = _kernels.launch_counts()
+        library = _kernels.library_counts()
+        log(f"[k] {label}: launches {launches[what]}, library route "
+            f"{library} ({nbatch} batches)")
+        if {**launches[what], **library} != want:
+            raise RuntimeError(f"salting, {label}: launches "
+                               f"{launches[what]}, library {library}, "
+                               f"expected {want}")
+        stats[what] = dict(shell.stats)
+        _, secs[what], _ = run_tshell(shell, f"{label}, second call", card,
+                                      "k", **kw)
+    samples = SALT_EVENTS * len(chans) * SALT_LENGTH
+    up = {k: v["upload_bytes"] for k, v in stats.items()}
+    log(f"[k] upload bytes for {samples} samples: {up}")
+    if not (up["device"] == up["unsalted"] == 2 * samples
+            and up["host"] == 2 * up["device"]
+            and all(v["upload_samples"] == samples for v in stats.values())):
+        raise RuntimeError(f"salting: the uploads are off: {stats}")
+    log("[k] second call, continuous events/s: " + ", ".join(
+        f"{k} {SALT_EVENTS / v:.3f}" for k, v in secs.items())
+        + f" (host clock); on {card}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, prof_s, _ = run_tshell(tshell, "device injector, third call, "
+                                  "under torch.profiler", card, "k", **kw)
+    busy, kern, copy = device_intervals(prof)
+    share = busy / (1e3 * prof_s)
+    log(f"[k] device injector: device busy {busy:.3f} ms of the profiled "
+        f"{1e3 * prof_s:.3f} ms call ({100 * share:.1f}% busy, "
+        f"{100 * (1 - share):.1f}% idle); kernels {kern:.3f} ms, copies "
+        f"{copy:.3f} ms; on {card}")
+
+    thresholds = {tc.name: tc.chi2_threshold for tc in tshell.channels}
+    compare_salted_runs(runs["device"], runs["host"], thresholds)
+    check_salt_efficiency(salts, runs["device"], res, "device injector")
+    none = check_salt_efficiency(salts, runs["unsalted"], res,
+                                 "unsalted run at the salts' indices",
+                                 closed_form=False)
+    if none["n_recovered"].sum() > 2:
+        raise RuntimeError("salting: the unsalted run triggers at the "
+                           "salts' indices")
+
+    # the device injection alone, on one batch of each shell
+    injector = salting.make_device_injector(chans, max_salts_per_event=64)
+    reader = RawReader(index)
+    rows = index.order[:TSHELL_BATCH]
+    evs = [reader.read_row(int(r), dtype=None, adctoamp=False)
+           for r in rows]
+    reader.close()
+    x = adc_convert(torch.as_tensor(np.stack([e for e, _ in evs]),
+                                    device=device),
+                    torch.as_tensor(np.stack([a["adc_conv"] for _, a in evs]),
+                                    device=device))
+    t_ms, t_host, plan = salt_injection_ms(
+        injector, x, [a["series_number"] for _, a in evs],
+        [a["event_number"] for _, a in evs], chans)
+    t_batch = 1e3 * secs["device"] / nbatch
+    truth = tentry.salting_truth_table(salts)
+    nrow = len(truth["trigger_index"])
+    nfb = -(-nrow // SALT_FEATURE_BATCH)
+    fx = torch.zeros((min(nrow, SALT_FEATURE_BATCH), len(chans),
+                      tentry.TRIGGER_NT), device=device)
+    f_ms, f_host, fplan = salt_injection_ms(
+        injector, fx, truth["series_number"][:len(fx)],
+        truth["event_number"][:len(fx)], chans,
+        truth["trigger_index"][:len(fx)] - tentry.TRIGGER_PRETRIG)
+
+    # the salted windows at the injected indices through FeatureProcessing
+    _kernels.reset_launch_counts()
+    feats, _, _ = run_shell(fshell, "salted windows at the injected "
+                            "indices, first call", card, "k",
+                            batch_size=SALT_FEATURE_BATCH)
+    flaunch = _kernels.launch_counts()
+    flib = _kernels.library_counts()
+    fwant = {"rfft": len(chans) * nfb, "fused_nodelay_of": len(chans) * nfb,
+             "cufft_rfft": 0}
+    log(f"[k] salted feature shell launches: {flaunch}, library route "
+        f"{flib} ({nfb} batches)")
+    if {**flaunch, **flib} != fwant:
+        raise RuntimeError(f"salted feature shell: launches {flaunch}, "
+                           f"library {flib}, expected {fwant}")
+    fst = fshell.stats
+    if (len(feats["event_number"]) != nrow or fst["dropped"]
+            or fst["upload_bytes"] != 2 * fst["upload_samples"]):
+        raise RuntimeError("salted feature shell: "
+                           f"{len(feats['event_number'])} of {nrow} rows, "
+                           f"stats {fst}")
+    _, fsec, _ = run_shell(fshell, "salted windows, second call", card, "k",
+                           batch_size=SALT_FEATURE_BATCH)
+    check_salt_recovery(salts, feats, res)
+    f_batch = 1e3 * fsec / nfb
+    log(f"[k] DeviceInjector.inject, CUDA-event ms a batch (the plan on "
+        f"the host, its copy and the add; the host ms of one separate plan "
+        f"call in brackets): trigger shell [{len(x)}, "
+        f"{len(chans)}, {SALT_LENGTH}] {t_ms:.4f} (plan {t_host:.4f}) ms "
+        f"for {int((plan.amp != 0).sum())} salts, "
+        f"{100 * t_ms / t_batch:.2f}% of its {t_batch:.3f} ms batch; "
+        f"feature shell [{len(fx)}, {len(chans)}, {tentry.TRIGGER_NT}] "
+        f"{f_ms:.4f} (plan {f_host:.4f}) ms for "
+        f"{int((fplan.amp != 0).sum())} salts, {100 * f_ms / f_batch:.2f}% "
+        f"of its {f_batch:.3f} ms batch; on {card}")
+
+    # both kernels against their twins at this path's shapes
+    step1 = tshell.trigger_steps()[0]
+    kernel_d, _ = step1.device_kernels()
+    compare_rfft(trigger.fir_segments(x[:, :1], kernel_d).reshape(
+        -1, kernel_d.fft_size), errs, "k")
+    fstep = fshell.group_steps()[0]
+    slot = next(s.slot for s in fstep.specs if s.base == "of1x1_nodelay")
+    treader = RawReader(index)
+    wins = []
+    for d, e, i in zip(truth["dump_number"][:SALT_FEATURE_BATCH],
+                       truth["event_number"][:SALT_FEATURE_BATCH],
+                       truth["trigger_index"][:SALT_FEATURE_BATCH]):
+        start = int(i) - tentry.TRIGGER_PRETRIG
+        w, admin = treader.read_row(int(index.lookup[(int(d) - 1, int(e))]),
+                                    [chans[0]], (start, tentry.TRIGGER_NT))
+        wins.append(salting.inject_raw_salt(w, admin, [chans[0]],
+                                            window_start=start)[0])
+    treader.close()
+    compare_kernels(torch.as_tensor(np.stack(wins), dtype=torch.float32,
+                                    device=device),
+                    fstep.nodelay[str(slot)], errs, "k", "batch")
+    log(f"[k] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"salting_trigger": launches["device"],
+            "salting_trigger_host": launches["host"],
+            "salting_trigger_unsalted": launches["unsalted"],
+            "salting_feature": flaunch}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=os.path.abspath, default=None,
@@ -2665,6 +3043,7 @@ def main(argv=None):
     tshell_launches = phase_h(device, card, errs)
     cov_launches = phase_i(device, card, errs)
     fg_launches = phase_j(device, card, errs)
+    salt_launches = phase_k(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
@@ -2674,7 +3053,9 @@ def main(argv=None):
                        for path, counts in tshell_launches.items()},
                     "coverage": cov_launches[name],
                     **{path: counts[name]
-                       for path, counts in fg_launches.items()}}
+                       for path, counts in fg_launches.items()},
+                    **{path: counts[name]
+                       for path, counts in salt_launches.items()}}
         rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",

@@ -59,6 +59,14 @@ step on one device.
   :func:`filtergen_csd`, :func:`filtergen_artifacts`,
   :func:`write_filtergen_dumps`, :func:`filtergen_index`) are shared with
   the GPU smoke run.
+- :func:`salting_chain_entry` is the salting check of
+  examples/salting/saltchecks.py on the trigger configuration: noise-only
+  continuous dumps of the four shell channels, salts coincident on all
+  four at 2, 3, 4, 5, 6, 7 and 9 σ of each channel's trigger resolution
+  (72 at each by default), the trigger shell and, on a table of the
+  injected indices, a feature shell of of1x1 no-delay fits at Nt = 4096,
+  both with the device injector. The GPU smoke run uses its parts too
+  (:func:`salting_feature_config`, :func:`salting_truth_table`).
 """
 
 from __future__ import annotations
@@ -77,6 +85,7 @@ from detprocess_tpu_torch.ops import filterbank, trigger
 from detprocess_tpu_torch.pipelines.feature_step import FeatureStep
 from detprocess_tpu_torch.pipelines.features import FeatureProcessing
 from detprocess_tpu_torch.pipelines.filtergen import FilterDataProcessing
+from detprocess_tpu_torch.pipelines.salting import Salting
 from detprocess_tpu_torch.pipelines.trigger_step import TriggerStep
 from detprocess_tpu_torch.pipelines.triggers import TriggerProcessing
 
@@ -361,19 +370,21 @@ def trigger_shell_resolutions(fs: float = FS) -> np.ndarray:
 def trigger_shell_pulses(gen: torch.Generator, nevents: int,
                          length: int = TRIGGER_L,
                          ncoincident: int = TSHELL_COINCIDENT,
-                         nsingles: int = TSHELL_SINGLES) -> dict:
+                         nsingles: int = TSHELL_SINGLES,
+                         saturating: bool = True) -> dict:
     """Pulse indices (trigger points) of ``nevents`` continuous events:
     ``coincident`` [E, P, 4] (one index a pulse, each channel offset
     within ±TSHELL_SPREAD), ``single`` [E, 3, S] on chan2–chan4, one
     10σ pulse a slot of [20000, L − 250000), each at least TSHELL_MARGIN
     from its slot's edges; ``big`` [E, S] chan1 singles of ``big_amp``
-    1–5 µA and ``sat`` [E] the TSHELL_SAT_PULSE pulse, at L − 210000,
-    − 140000 (S = 2) and − 70000 (± 1000), clear of every 10σ pulse by
-    more than an FIR segment and two templates."""
+    1–5 µA and ``sat`` [E] the TSHELL_SAT_PULSE pulse (None without
+    ``saturating``), at L − 210000, − 140000 (S = 2) and − 70000
+    (± 1000), clear of every 10σ pulse by more than an FIR segment and
+    two templates."""
     nslot = ncoincident + 3 * nsingles
     lo, hi = 20000, length - 250000
-    slot = (hi - lo) // nslot
-    if slot <= 2 * TSHELL_MARGIN:
+    slot = (hi - lo) // max(nslot, 1)
+    if nslot and slot <= 2 * TSHELL_MARGIN:
         raise ValueError(f"{nslot} pulses do not fit into {length} samples")
     pos = lo + slot * torch.arange(nslot) + torch.randint(
         TSHELL_MARGIN, slot - TSHELL_MARGIN, (nevents, nslot), generator=gen)
@@ -391,7 +402,8 @@ def trigger_shell_pulses(gen: torch.Generator, nevents: int,
             "big": big.numpy(),
             "big_amp": torch.empty(big.shape).uniform_(
                 1e-6, 5e-6, generator=gen).numpy(),
-            "sat": (big_at[2] + jitter[:, 2]).numpy()}
+            "sat": ((big_at[2] + jitter[:, 2]).numpy() if saturating
+                    else None)}
 
 
 def trigger_shell_events(gen: torch.Generator, pulses: dict, first: int,
@@ -421,8 +433,11 @@ def trigger_shell_events(gen: torch.Generator, pulses: dict, first: int,
             at = [pulses["coincident"][e, :, ch]]
             amps = [np.full(at[0].shape, amp10[ch])]
             if ch == 0:
-                at += [pulses["big"][e], pulses["sat"][e:e + 1]]
-                amps += [pulses["big_amp"][e], [TSHELL_SAT_PULSE]]
+                at.append(pulses["big"][e])
+                amps.append(pulses["big_amp"][e])
+                if pulses["sat"] is not None:
+                    at.append(pulses["sat"][e:e + 1])
+                    amps.append([TSHELL_SAT_PULSE])
             else:
                 at.append(pulses["single"][e, ch - 1])
                 amps.append(np.full(at[-1].shape, amp10[ch]))
@@ -892,3 +907,80 @@ def filter_generation_entry(device=None, directory: str | None = None,
                                 config=filtergen_config(n, pretrig, nrandoms),
                                 verbose=False, device=device)
     return proc, index, art
+
+
+# the salting chain (examples/salting/saltchecks.py on the trigger shell's
+# configuration): salts coincident on the four channels, each channel's
+# share at the same multiple of its own trigger resolution
+SALT_SIGMAS = (2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 9.0)
+SALT_PER_POINT = 72
+SALT_EVENTS = 64                  # continuous events of TRIGGER_L samples
+SALT_SEPARATION_MSEC = 20.0       # > Nt and the coincidence window
+SALT_EDGE_MSEC = 10.0             # > chan1's edge exclusion
+
+
+def salting_feature_config() -> dict:
+    """The feature config of the salting chain: of1x1 no-delay fits of
+    the four channels on windows of the trigger templates' geometry."""
+    return {"feature": {
+        "trace_length_samples": TRIGGER_NT,
+        "pretrigger_length_samples": TRIGGER_PRETRIG,
+        ",".join(SHELL_CHANNELS): {"of1x1_nodelay": {"run": True}}}}
+
+
+def salting_truth_table(salts: dict, channel: str = SHELL_CHANNELS[0]):
+    """A trigger table of the salts' injected indices, one row a salt (its
+    ``channel`` row), as saltchecks.py:125-150 builds it."""
+    rows = np.asarray(salts["salt_channel"]).astype(str) == channel
+    return {k: np.asarray(salts[k])[rows].astype(np.int64)
+            for k in ("trigger_index", "series_number", "event_number",
+                      "dump_number")}
+
+
+def salting_chain_entry(device=None, directory: str | None = None,
+                        nevents: int = SALT_EVENTS, seed: int = 0,
+                        length: int = TRIGGER_L,
+                        nsalt: int = SALT_PER_POINT):
+    """Return ``(salting, trigger_shell, feature_shell, index)``: noise-only
+    continuous events of the four shell channels (``nevents`` of
+    ``length`` samples, written as one flat int16 dump into ``directory``,
+    a new temporary directory by default; the injectors match salts by
+    (series, event), as the JAX ones do, and a flat dump numbers its
+    events from 1, so a second dump of the same series would share them), the
+    :class:`Salting` of ``nsalt`` salts at each of :data:`SALT_SIGMAS`
+    (``energy_norm_ev_per_amp`` set a channel so that each channel's
+    quarter lands at that many of its own resolutions), and both shells
+    with its device injector: the trigger shell of
+    :func:`trigger_shell_config` and the feature shell of
+    :func:`salting_feature_config` on :func:`salting_truth_table`.
+    ``device=None`` means the GPU."""
+    device = _device(device)
+    if directory is None:
+        directory = tempfile.mkdtemp(prefix="detprocess_salting_")
+    gen = torch.Generator().manual_seed(seed)
+    paths, _ = write_trigger_dumps(directory, gen, nevents, 1, device,
+                                   length, ncoincident=0, nsingles=0,
+                                   saturating=False)
+    index = trigger_shell_index(paths, length)
+    fd = shell_filter_data(TRIGGER_NT, TRIGGER_PRETRIG)
+    share = 1.0 / len(SHELL_CHANNELS)
+    salting = Salting(fd, verbose=False)
+    salts = salting.generate_salt(
+        index, SHELL_CHANNELS, energies=list(SALT_SIGMAS), nsalt=nsalt,
+        energy_norm_ev_per_amp={c: share / r for c, r in zip(
+            SHELL_CHANNELS, trigger_shell_resolutions())},
+        min_separation_msec=SALT_SEPARATION_MSEC,
+        edge_exclusion_msec=SALT_EDGE_MSEC, seed=seed)
+    per_event = -(-len(SALT_SIGMAS) * nsalt // nevents)
+    injector = salting.make_device_injector(
+        SHELL_CHANNELS, max_salts_per_event=2 * len(SHELL_CHANNELS)
+        * per_event)
+    tshell = TriggerProcessing(
+        index, trigger_shell_config(), fd, verbose=False, device=device)
+    tshell.set_salting(injector)
+    fshell = FeatureProcessing(
+        index, salting_feature_config(), fd,
+        trigger_table=salting_truth_table(salts), verbose=False,
+        device=device)
+    fshell.set_salting(injector)
+    return salting, tshell, fshell, index

@@ -197,6 +197,29 @@ def write_table(table: Table, path: str, fmt: Optional[str] = None):
         raise ValueError(f"unknown table format: {fmt}")
 
 
+def newest_dumps(output_dir: str, prefix: str, group_name: str,
+                 output_format: str = "hdf5"):
+    """(series name, [(dump number, path)] in dump order) of the newest
+    dump series of ``{prefix}_{group_name}`` in ``output_dir`` (the
+    latest series name), or None: what a resumed run continues."""
+    import glob
+    import re
+
+    ext = "parquet" if output_format == "parquet" else "hdf5"
+    rx = re.compile(re.escape(prefix) + "_" + re.escape(group_name)
+                    + r"_(.+)_F(\d+)\." + ext + "$")
+    by_series: Dict[str, list] = {}
+    for f in sorted(glob.glob(os.path.join(
+            output_dir, f"{prefix}_{group_name}_*.{ext}"))):
+        m = rx.match(os.path.basename(f))
+        if m:
+            by_series.setdefault(m.group(1), []).append((int(m.group(2)), f))
+    if not by_series:
+        return None
+    series = sorted(by_series)[-1]
+    return series, sorted(by_series[series])
+
+
 def read_table(path: str) -> Table:
     """A table file (vaex-layout HDF5 or parquet) as a table."""
     if path.endswith(".parquet"):

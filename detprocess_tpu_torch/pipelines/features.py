@@ -39,6 +39,17 @@ A ``process()`` call:
    per-event arrays and the trigger table's columns, whole batch at a
    time; dumps and the job summary as the JAX shell writes them.
 
+Salting (:meth:`FeatureProcessing.set_salting`, JAX :245): a host
+injector (``Salting.make_injector``) adds the salts into each event's
+traces in the reader threads, on float64 reads converted on the host, as
+the JAX shell does; a device injector (``Salting.make_device_injector``)
+keeps the stored-dtype reads, and its plan for the batch's rows and
+window starts is added on the device right after the conversion, before
+the group steps. Both map the salts' channels by name onto the channels
+read. ``resume`` continues the newest dump series in ``output_path``
+after the rows its dumps hold (JAX :1521-1529, :1721); ``mesh`` is
+refused by name.
+
 ``device=None`` means the GPU (``device.require_cuda``); the CPU runs
 only when the caller passes ``"cpu"``.
 """
@@ -61,6 +72,7 @@ from detprocess_tpu_torch.io.filterdata import FilterData
 from detprocess_tpu_torch.io.prefetch import OrderedChunkPrefetcher
 from detprocess_tpu_torch.io.rawdata import RawIndex
 from detprocess_tpu_torch.io.upload import BufferRing, Uploader
+from detprocess_tpu_torch.ops.saltinject import split_injector
 from detprocess_tpu_torch.pipelines import feature_plan as fplan
 from detprocess_tpu_torch.pipelines.feature_group import GroupStep
 from detprocess_tpu_torch.utils.misc import create_series_name
@@ -131,7 +143,16 @@ class FeatureProcessing:
             (raw_n, raw_pre), filter_data,
             trigger_mode=self._trigger_table is not None)
         self._steps = {}
+        self._injector = None
         self.stats: dict = {}
+
+    def set_salting(self, injector):
+        """Inject salts into every trace read (whole events or trigger
+        windows): a host injector (``Salting.make_injector``, or any
+        callable ``(traces, admin, window_start=, channels=)``; forces
+        float64 reads converted on the host) or a device injector
+        (``Salting.make_device_injector``; keeps the int16 upload)."""
+        self._injector = injector
 
     # -- accessors (processing_data.py:130, :500, :1230-1279) ------------
     def get_filter_data_inst(self):
@@ -225,6 +246,7 @@ class FeatureProcessing:
                         if c * n >= self.COALESCE_FRACTION
                         * idx.files[int(idx.file[r])].nb_samples}
         full = {}
+        inject, _ = split_injector(self._injector)
         for i, row in enumerate(rows):
             row = int(row)
             fi = int(idx.file[row])
@@ -244,9 +266,16 @@ class FeatureProcessing:
                 stored = fast.read(ds, window, rows=sel)
             if raw_mode:
                 arr[i] = stored
+                continue
+            conv = idx.files[fi].conv
+            conv = conv if sel is None else conv[sel]
+            if inject is not None:
+                admin = {"series_number": self._series[fi],
+                         "event_number": int(idx.event_number[row])}
+                arr[i] = inject(stored.astype(np.float64) * conv[:, None],
+                                admin, window_start=0 if window is None
+                                else window[0], channels=self._read_names)
             else:
-                conv = idx.files[fi].conv
-                conv = conv if sel is None else conv[sel]
                 np.multiply(stored.astype(dtype), conv[:, None].astype(dtype),
                             out=arr[i])
         return ring, buf, len(rows), chunk
@@ -259,20 +288,28 @@ class FeatureProcessing:
                 series_name: Optional[str] = None,
                 group_name: str = "features",
                 nb_events_per_dump: Optional[int] = None,
-                memory_limit=None, nreaders: int = 1, timer=None) -> dict:
+                memory_limit=None, resume: bool = False, mesh=None,
+                nreaders: int = 1, timer=None) -> dict:
         """Run feature extraction; returns the table as a dict of numpy
         columns (``io.tables.to_dataframe`` makes the JAX DataFrame).
 
         ``nreaders`` reader threads read whole batches, in batch order.
-        In full-trace mode ``nreaders > 1`` requires ``nevents=-1``, as
-        the JAX shell does. ``timer``: a ``utils.logging.StageTimer``
-        that adds up the host seconds of the read, dispatch and drain
-        stages. With ``lgc_save`` the table is written per dump to
-        ``output_path`` (one dump a batch unless ``nb_events_per_dump`` or
-        ``memory_limit`` say otherwise) with a job summary beside it."""
+        In full-trace mode ``nreaders > 1`` requires ``nevents=-1`` and no
+        ``resume``, as the JAX shell does. ``timer``: a
+        ``utils.logging.StageTimer`` that adds up the host seconds of the
+        read, dispatch and drain stages. With ``lgc_save`` the table is
+        written per dump to ``output_path`` (one dump a batch unless
+        ``nb_events_per_dump`` or ``memory_limit`` say otherwise) with a
+        job summary beside it; ``resume`` then skips the rows the newest
+        dump series there already holds and continues its series and
+        numbering (the returned table holds the new rows only)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "the mesh is not ported yet (ROADMAP.md §1 item 7): run one "
+                "process per GPU on its own files")
         t_start = time.time()
         trigger_mode = self._trigger_table is not None
-        if nreaders > 1 and not trigger_mode and nevents >= 0:
+        if nreaders > 1 and not trigger_mode and (nevents >= 0 or resume):
             raise ValueError("nreaders > 1 in full-trace mode requires "
                              "processing all events (nevents=-1) "
                              "without resume")
@@ -282,17 +319,27 @@ class FeatureProcessing:
         torch_dtype = torch.float64 if dtype == np.float64 else torch.float32
         steps = self.group_steps(torch_dtype)
         on_cuda = self._device.type == "cuda"
+        out_series = series_name or create_series_name(self._facility)
+        skip = dump0 = 0
         if lgc_save:
             if output_path is None:
                 raise ValueError("output_path required with lgc_save")
             os.makedirs(output_path, exist_ok=True)
-        out_series = series_name or create_series_name(self._facility)
+            found = (self._scan_resume(output_path, group_name, output_format)
+                     if resume else None)
+            if found is not None:
+                out_series, skip, dump0 = found
+                if self._verbose:
+                    print(f"INFO: resuming series {out_series} after {skip} "
+                          f"events (dump {dump0})")
         stage = (timer.stage if timer is not None
                  else (lambda name: nullcontext()))
 
         # stored-dtype reads in float32: int16 codes upload as stored and
-        # are converted on the card; float64 converts on the host
-        raw_mode = dtype == np.float32
+        # are converted on the card; float64, and a host injector, convert
+        # on the host
+        inject, device_inject = split_injector(self._injector)
+        raw_mode = dtype == np.float32 and inject is None
         if trigger_mode:
             rows, starts, trows, dropped = self._trigger_rows(nevents)
         else:
@@ -301,8 +348,16 @@ class FeatureProcessing:
                 rows = rows[:nevents]
             starts = trows = None
             dropped = 0
+        if skip:
+            rows = rows[skip:]
+            starts = None if starts is None else starts[skip:]
+            trows = None if trows is None else trows[skip:]
         n = self._plan.raw_nb_samples
         self._chan_rows = self._read_channel_rows()
+        self._read_names = list(self._plan.read_channels
+                                or self._available_channels)
+        self._series = np.asarray([f.admin["series_number"]
+                                   for f in self._index.files], np.int64)
         nchan = (len(self._available_channels)
                  if self._plan.read_channels is None
                  else len(self._plan.read_channels))
@@ -333,7 +388,7 @@ class FeatureProcessing:
         self.stats = {"events": 0, "dropped": int(dropped),
                       "upload_bytes": 0, "upload_samples": 0,
                       "batches": 0}
-        state = {"dump": 0, "pending": [], "frames": [],
+        state = {"dump": dump0, "pending": [], "frames": [],
                  "writer": tables.AsyncWriter() if lgc_save else None}
         inflight: List[tuple] = []
 
@@ -356,6 +411,11 @@ class FeatureProcessing:
                     ring.release(buf, copied)
                 self.stats["upload_bytes"] = uploader.bytes
                 self.stats["upload_samples"] = uploader.samples
+                if device_inject is not None:
+                    device_inject.inject(
+                        x, self._series[self._index.file[chunk[0]]],
+                        self._index.event_number[chunk[0]],
+                        window_starts=chunk[1], channels=self._read_names)
                 feats = {}
                 for step in steps:
                     feats.update(step(x))
@@ -530,6 +590,17 @@ class FeatureProcessing:
     def _output_prefix(self) -> str:
         return tables.build_prefix("feature", self._processing_id,
                                    self._restricted, self._calib)
+
+    def _scan_resume(self, output_path, group_name, output_format):
+        """(series name, rows written, last dump number) of the newest
+        dump series of this group in ``output_path``, or None."""
+        found = tables.newest_dumps(output_path, self._output_prefix(),
+                                    group_name, output_format)
+        if found is None:
+            return None
+        series, dumps = found
+        rows = sum(tables.table_rows(tables.read_table(f)) for _, f in dumps)
+        return series, rows, dumps[-1][0]
 
     def _flush_dump(self, state, output_path, output_format, out_series,
                     group_name):

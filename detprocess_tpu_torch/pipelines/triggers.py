@@ -34,17 +34,23 @@ A ``process()`` call:
    Dumps go through ``io.tables.AsyncWriter``; ``resume`` continues the
    newest dump series.
 
+Salting (:meth:`TriggerProcessing.set_salting`, JAX :410): a host
+injector (``Salting.make_injector``) adds the salts into each event's
+float64 traces, read and converted on the host, which then upload in the
+run's dtype (JAX :1047, :1462-1473); a device injector
+(``Salting.make_device_injector``) keeps the int16 upload, and its plan
+for the batch's events is added on the device right after the conversion
+(JAX :1528-1536). Both map the salts' channels by name onto the channels
+read.
+
 ``device=None`` means the GPU (``device.require_cuda``); the CPU runs
-only when the caller passes ``"cpu"``. Salting, the dynamic-threshold
-mode, the mesh and pileup windows below one 8-sample tile are refused by
-name.
+only when the caller passes ``"cpu"``. The dynamic-threshold mode, the
+mesh and pileup windows below one 8-sample tile are refused by name.
 """
 
 from __future__ import annotations
 
-import glob
 import os
-import re
 import time
 from contextlib import nullcontext
 from dataclasses import dataclass, field
@@ -62,6 +68,7 @@ from detprocess_tpu_torch.io.rawdata import RawIndex, RawReader
 from detprocess_tpu_torch.io.upload import BufferRing, Uploader
 from detprocess_tpu_torch.ops import filterbank
 from detprocess_tpu_torch.ops import trigger as trig_ops
+from detprocess_tpu_torch.ops.saltinject import split_injector
 from detprocess_tpu_torch.pipelines.trigger_step import TriggerStep
 from detprocess_tpu_torch.utils import channels as chutils
 from detprocess_tpu_torch.utils.misc import create_series_name
@@ -783,6 +790,7 @@ class TriggerProcessing:
         self._channels = build_channels(self._trigger_config, filter_data,
                                         self._available_channels, self._fs)
         self._steps: dict = {}
+        self._injector = None
         self._output_group_path: Optional[str] = None
         self.stats: dict = {}
 
@@ -795,9 +803,12 @@ class TriggerProcessing:
         return self._output_group_path
 
     def set_salting(self, injector):
-        raise NotImplementedError(
-            "salting is not ported yet (ROADMAP.md §1 item 3, "
-            "ops/saltinject.py)")
+        """Inject salts into every continuous event read: a host injector
+        (``Salting.make_injector``, or any callable ``(traces, admin,
+        window_start=, channels=)``; float64 reads converted on the host)
+        or a device injector (``Salting.make_device_injector``; keeps the
+        int16 upload)."""
+        self._injector = injector
 
     def set_dynamic_threshold(self, channel: str, window_fn,
                               candidate_capacity: int = 4096,
@@ -897,15 +908,19 @@ class TriggerProcessing:
         nb = int(self._index.get_metadata()["nb_samples"])
         stored = (self._index.datasets[int(self._index.order[0])].dtype
                   if len(self._index) else dtype)
-        buf_dtype = stored if stored.kind in "iu" else dtype
+        # a host injector needs float64 reads converted on the host, which
+        # upload in the run's dtype; otherwise the stored codes upload
+        inject, device_inject = split_injector(self._injector)
+        buf_dtype = stored if stored.kind in "iu" and inject is None else dtype
         ring = BufferRing(max(pipeline_depth, 0) + 2,
                           (event_batch, len(needed), nb), buf_dtype,
                           pin=on_cuda)
         uploader = Uploader(self._device)
         reader = RawReader(self._index)
         source = prefetch_events(reader, depth=self.PREFETCH_DEPTH,
-                                 raw=True, nreaders=nreaders,
-                                 channels=read_channels)
+                                 raw=inject is None,
+                                 dtype=None if inject is None else np.float64,
+                                 nreaders=nreaders, channels=read_channels)
         writer = tables.AsyncWriter() if lgc_save else None
         state = DrainState()
         frames: List[Table] = []
@@ -947,7 +962,11 @@ class TriggerProcessing:
                                 f"event of {traces.shape[-1]} samples in "
                                 f"{admin.get('file_name')}; the run's "
                                 f"events have {nb}")
-                        convs.append(admin.pop("adc_conv"))
+                        if inject is None:
+                            convs.append(admin.pop("adc_conv"))
+                        else:
+                            traces = inject(traces, admin,
+                                            channels=read_channels)
                         traces_list.append(traces)
                         admins.append(admin)
                 if not traces_list:
@@ -961,7 +980,13 @@ class TriggerProcessing:
                         host_a[i] = tr
                     x, copied = uploader.upload(
                         host_t[:len(traces_list)],
-                        np.stack(convs).astype(dtype), torch_dtype)
+                        np.stack(convs).astype(dtype) if convs else None,
+                        torch_dtype)
+                    if device_inject is not None:
+                        device_inject.inject(
+                            x, [a["series_number"] for a in admins],
+                            [a["event_number"] for a in admins],
+                            channels=read_channels)
                     batch_sets = {tc.name: step(x.index_select(1, g))
                                   for tc, step, g in zip(self._channels,
                                                          steps, gathers)}
@@ -1056,21 +1081,11 @@ class TriggerProcessing:
     def _scan_resume(self, output_path, group_name, output_format):
         """(series name, last dump number, (series_number, event_number))
         of the newest dump series in ``output_path``, or None."""
-        prefix = self._trigger_prefix()
-        ext = "parquet" if output_format == "parquet" else "hdf5"
-        rx = re.compile(re.escape(prefix) + "_" + re.escape(group_name)
-                        + r"_(.+)_F(\d+)\." + ext + "$")
-        by_series: Dict[str, list] = {}
-        for f in sorted(glob.glob(os.path.join(
-                output_path, f"{prefix}_{group_name}_*.{ext}"))):
-            m = rx.match(os.path.basename(f))
-            if m:
-                by_series.setdefault(m.group(1), []).append(
-                    (int(m.group(2)), f))
-        if not by_series:
+        found = tables.newest_dumps(output_path, self._trigger_prefix(),
+                                    group_name, output_format)
+        if found is None:
             return None
-        series = sorted(by_series)[-1]
-        dumps = sorted(by_series[series])
+        series, dumps = found
         last = tables.read_table(dumps[-1][1])
         key = (int(last["series_number"][-1]), int(last["event_number"][-1]))
         return series, dumps[-1][0], key

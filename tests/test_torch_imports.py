@@ -12,10 +12,12 @@ test's directory, the trigger shell of ``trigger_processing_entry``
 fit), the shell of ``feature_coverage_entry`` (every feature
 algorithm, two events) and the filter generation of
 ``filter_generation_entry`` (two continuous events of 200,000 samples,
-16 randoms of 4096 samples) chained into the feature shell; a second one
-runs ``chip_smoke.py``, which must fail without a GPU and print no
-result. The filter-generation entry points refuse to run without a GPU
-when no device is given.
+16 randoms of 4096 samples) chained into the feature shell, and the
+salting chain of ``salting_chain_entry`` (two continuous events of
+400,000 samples, one salt at each amplitude) through both shells with the
+device injector; a second one runs ``chip_smoke.py``, which must fail
+without a GPU and print no result. The filter-generation and salting
+entry points refuse to run without a GPU when no device is given.
 """
 
 import json
@@ -74,7 +76,22 @@ RUN_STEP = textwrap.dedent("""
     chain = FeatureProcessing(E.shell_index(paths, 4096, 2048), fcfg, fdata,
                               verbose=False, device="cpu").process(
         batch_size=4, dtype=np.float32)
+    sal, sshell, sfshell, sindex = E.salting_chain_entry(
+        "cpu", SALT_DIR, nevents=2, length=400000, nsalt=1)
+    stable = sshell.process(event_batch=2)
+    sfeats = sfshell.process(batch_size=8, dtype=np.float32)
     print(json.dumps({
+        "salting": [len(sindex), sorted(os.listdir(SALT_DIR)),
+                    len(sal.get_dataframe()["salt_id"]),
+                    len(stable["trigger_index"]) >= 4,
+                    sshell.stats["upload_bytes"]
+                    == 2 * sshell.stats["upload_samples"]
+                    == 2 * 2 * 4 * 400000,
+                    len(sfeats["event_number"]),
+                    sfshell.stats["upload_bytes"]
+                    == 2 * sfshell.stats["upload_samples"],
+                    bool(all(np.isfinite(v).all() for k, v in sfeats.items()
+                             if k.startswith("amp_")))],
         "filtergen": [len(findex), sorted(os.listdir(FG_DIR)),
                       fdata.channels(), proc.stats["windows"],
                       len(chain["event_number"]),
@@ -121,13 +138,14 @@ def _run(code, cwd=REPO, timeout=120):
 
 
 def test_port_imports_and_runs_without_jax_h5py_pandas_yaml(tmp_path):
-    for sub in ("shell", "trig", "cov", "fg", "chain"):
+    for sub in ("shell", "trig", "cov", "fg", "chain", "salt"):
         (tmp_path / sub).mkdir()
     proc = _run(PRELUDE + f"SHELL_DIR = {str(tmp_path / 'shell')!r}\n"
                 + f"TRIG_DIR = {str(tmp_path / 'trig')!r}\n"
                 + f"COV_DIR = {str(tmp_path / 'cov')!r}\n"
                 + f"FG_DIR = {str(tmp_path / 'fg')!r}\n"
-                + f"CHAIN_DIR = {str(tmp_path / 'chain')!r}\n" + RUN_STEP)
+                + f"CHAIN_DIR = {str(tmp_path / 'chain')!r}\n"
+                + f"SALT_DIR = {str(tmp_path / 'salt')!r}\n" + RUN_STEP)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("utils.windows", "utils.channels", "utils.misc",
@@ -140,9 +158,13 @@ def test_port_imports_and_runs_without_jax_h5py_pandas_yaml(tmp_path):
                  "pipelines.feature_group", "pipelines.features",
                  "io.upload", "pipelines.triggers", "pipelines.oftrigger",
                  "utils.freq", "ops.psdfeatures", "ops.ofnxm", "ops.lm",
-                 "ops.pulsefit"):
+                 "ops.pulsefit", "ops.saltinject", "pipelines.salting"):
         assert f"detprocess_tpu_torch.{name}" in res["modules"], name
     chans = ["chan1", "chan2", "chan3", "chan4"]
+    # 7 salts (one at each amplitude) on the 4 channels, one window each
+    assert res["salting"] == [
+        2, ["flat_I1_D20260101_T120000_F0001.bin"], 28, True, True, 7, True,
+        True]
     assert res["filtergen"] == [
         2, [f"flat_I1_D20260101_T180000_F000{i}.bin" for i in (1, 2)],
         chans + ["|".join(chans)], 16, 4, True]
@@ -215,3 +237,15 @@ def test_filter_generation_needs_the_gpu(tmp_path, which):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
     assert not os.path.exists(tmp_path / "fg")
+
+
+def test_salting_chain_needs_the_gpu(tmp_path):
+    """With no device given, salting_chain_entry refuses to run without a
+    GPU, before it writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from detprocess_tpu_torch import entry
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.salting_chain_entry(directory=str(tmp_path / "salt"))
+    assert not os.path.exists(tmp_path / "salt")

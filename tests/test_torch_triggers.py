@@ -44,6 +44,8 @@ from detprocess_tpu.ops import trigger as jtrig
 from detprocess_tpu.pipelines import triggers as jtp
 from detprocess_tpu_torch.io import tables
 from detprocess_tpu_torch.io.filterdata import FilterData
+from detprocess_tpu_torch.ops.saltinject import DeviceInjector, split_injector
+from detprocess_tpu_torch.pipelines import salting as ttp_salting
 from detprocess_tpu_torch.pipelines import triggers as ttp
 from test_trigger_coincidence import CHANNELS, FS, NT, PRE, L, _config, \
     _make_raw
@@ -256,8 +258,16 @@ def test_template_info_matches_jax(coinc):
 
 def test_refusals_and_device(coinc, tmp_path):
     shell = _port(coinc, "plain")
-    with pytest.raises(NotImplementedError, match="salting"):
-        shell.set_salting(lambda t, a: t)
+    host = ttp_salting.Salting(FilterData(verbose=False)).make_injector(
+        ["chan1"])
+    shell.set_salting(host)                   # both kinds of injector
+    assert split_injector(shell._injector) == (host, None)
+    device = DeviceInjector(
+        {"salt_channel": ["chan1"], "series_number": [1], "event_number": [1],
+         "trigger_index": [100], "salt_amplitude": [1.0]},
+        lambda chan, tag: (np.ones(4), 1), ["chan1"])
+    shell.set_salting(device)
+    assert split_injector(shell._injector) == (None, device)
     with pytest.raises(NotImplementedError, match="dynamic"):
         shell.set_dynamic_threshold("chan1", lambda m: 100.0)
     with pytest.raises(NotImplementedError, match="mesh"):
