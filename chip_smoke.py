@@ -2,8 +2,9 @@
 """GPU smoke run of detprocess_tpu_torch: the of1x1 feature step, the
 continuous-data trigger step, the FeatureProcessing shell, the
 TriggerProcessing shell chained into it, every feature algorithm
-through FeatureProcessing, filter generation chained into it, and
-salting through both shells, on one card.
+through FeatureProcessing, filter generation chained into it, salting
+through both shells, and the dynamic and sub-tile trigger modes, on one
+card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -193,6 +194,31 @@ k. salting (entry.salting_chain_entry, examples/salting/saltchecks.py on
    events/s of every second call, the busy share, the device injection's
    CUDA-event ms on one batch of each shell and its share of that batch,
    and holds both kernels against their twins at the path's shapes.
+l. the trigger modes (h)'s configuration does not use: 64 continuous
+   events written as for (h) plus, on chan2, 8 pairs an event of 20σ
+   pulses 1050 samples apart, whose above-threshold spans lie further
+   apart than (h)'s 125-sample window and closer than the dynamic one.
+   The shell runs once with (h)'s static windows, then twice (the first
+   call counted, the second timed) with each mode: dynamic windows on all
+   four channels (entry.trigger_shell_window_fn: 125 samples up to a
+   group maximum of Δχ² 150, 2000 above; the default pre-merge), and
+   pileup windows of 6, 1, 0 and 3 samples (tiles of 4, 2, 1 and 4) on 16
+   events with capacity 32768 and no coincidence merge, since at window 0
+   every above-threshold sample is a row. It fails unless each mode
+   launches (h)'s kernels (rFFT 5, cuFFT 1, fused 0 a batch), every
+   injected 10σ pulse is found as (h) finds it, every pair gives two
+   triggers within 400 samples of its pulses with the static windows,
+   one with the dynamic ones and at least two with the sub-tile ones,
+   event 1 agrees with the float64 CPU run of the same configuration
+   (phase (e)'s tolerances), the shell prints no warning (trigger or
+   candidate capacity), the dynamic walk reads the host once a merge, and
+   shift_templates_to_match_chi2 on the card (chan1's template and two
+   copies rolled by 37 and −101 samples) gives the float64 CPU run's
+   shifts. It prints events/s of each second call, the walk's steps and
+   host reads, the busy share of a third dynamic call under
+   torch.profiler, chan1's dynamic merges beside (h)'s tiled ones on one
+   batch (CUDA-event and device ms), the phase's seconds, and holds the
+   rFFT kernel against its twin on the path's FIR segments.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
@@ -206,12 +232,15 @@ phase j's first process() call; filtergen_chain: its filter data through
 FeatureProcessing; salting_trigger, salting_trigger_host,
 salting_trigger_unsalted: phase k's first calls of the trigger shell with
 the device injector, the host injector and none; salting_feature: its
-first call of the salted feature shell), whose sum is ``launches``, and
-the SM clocks of its phases from phase (d).
+first call of the salted feature shell; trigger_shell_dynamic,
+trigger_shell_subtile: phase l's first calls of each mode), whose sum is
+``launches``, and the SM clocks of its phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -401,6 +430,14 @@ SALT_PULL_SKIP = 0.75    # … away from the threshold, in σ
 SALT_RECOVERY_MIN = 6.5  # energy recovery checked from this many σ
 SALT_SCATTER = (0.6, 1.4)
 SALT_BIAS_FLOOR = 0.02
+# phase (l): the trigger modes on (h)'s configuration
+MODES_EVENTS = 64
+MODES_PAIRS = 8           # pulse pairs on chan2 an event
+MODES_PAIR_HALF = 400     # a pair's triggers: within this of its pulses
+                          # (their main lobes reach ±301 samples)
+MODES_SUB_EVENTS = 16     # window 0: each above-threshold sample is a row
+MODES_SUB_CAPACITY = 32768
+MODES_ALIGN_SHIFTS = (37, -101)
 
 KERNEL_INFO = {
     "rfft": {"source": "detprocess_tpu_torch/csrc/rfft.cu",
@@ -1742,14 +1779,11 @@ def tshell_expected(pulses, res):
     return out
 
 
-def check_tshell_pulses(table, pulses, res, per_file):
-    """Every injected pulse in its channel's suffixed columns (merged rows
-    carry the other channels there) within TRIG_INDEX_TOL samples and
-    TRIG_AMP_TOL resolutions; each coincident group's rows: the group's
-    four triggers on one row, or, where a channel triggered once more
-    inside the coincidence window, on no more rows than such extra
-    triggers allow (the reference's greedy split of a window holding a
-    channel twice). Returns the share of groups that ended as one row."""
+def tshell_found(table, pulses, res, per_file, what="trigger shell"):
+    """Every injected pulse but the pairs in its channel's suffixed columns
+    (merged rows carry the other channels there) within TRIG_INDEX_TOL
+    samples and TRIG_AMP_TOL resolutions: (worst index offset, worst
+    amplitude error in resolutions)."""
     ev = event_of(table, per_file)
     nev = pulses["coincident"].shape[0]
     worst_i, worst_a = 0, 0.0
@@ -1763,15 +1797,28 @@ def check_tshell_pulses(table, pulses, res, per_file):
             for t, a in zip(at[e], amp[e]):
                 d = np.abs(got_i - t)
                 if np.all(np.isnan(d)):
-                    raise RuntimeError(f"trigger shell: no {chan} trigger "
-                                       f"in event {e}")
+                    raise RuntimeError(f"{what}: no {chan} trigger in event "
+                                       f"{e}")
                 k = int(np.nanargmin(d))
                 worst_i = max(worst_i, d[k])
                 worst_a = max(worst_a, abs(got_a[k] - a) / res[c])
     if worst_i > TRIG_INDEX_TOL or worst_a > TRIG_AMP_TOL:
-        raise RuntimeError(f"trigger shell: injected pulse not recovered "
-                           f"(worst index offset {worst_i:g}, amplitude "
-                           f"error {worst_a:.3f} σ)")
+        raise RuntimeError(f"{what}: injected pulse not recovered (worst "
+                           f"index offset {worst_i:g}, amplitude error "
+                           f"{worst_a:.3f} σ)")
+    return worst_i, worst_a
+
+
+def check_tshell_pulses(table, pulses, res, per_file):
+    """Every injected pulse found (:func:`tshell_found`); each coincident
+    group's rows: the group's four triggers on one row, or, where a
+    channel triggered once more inside the coincidence window, on no more
+    rows than such extra triggers allow (the reference's greedy split of a
+    window holding a channel twice). Returns the share of groups that
+    ended as one row."""
+    worst_i, worst_a = tshell_found(table, pulses, res, per_file)
+    ev = event_of(table, per_file)
+    nev = pulses["coincident"].shape[0]
     base = np.asarray(table["trigger_index"])
     idx_cols = np.stack([np.asarray(table[f"trigger_index_{c}"], np.float64)
                          for c in tentry.SHELL_CHANNELS])
@@ -1798,7 +1845,7 @@ def check_tshell_pulses(table, pulses, res, per_file):
     return share
 
 
-def compare_tshell_event(got, ref, threshold, what):
+def compare_tshell_event(got, ref, threshold, what, phase="h"):
     """One event's rows of the card's trigger table against the float64
     CPU run: the same (channel, index) triggers in every channel's columns
     but for those whose Δχ² is within TRIG_NEAR_THRESHOLD of the
@@ -1844,7 +1891,7 @@ def compare_tshell_event(got, ref, threshold, what):
             same = [a == b or (a != a and b != b) for a, b in zip(gv, rv)]
             if not all(same):
                 raise RuntimeError(f"{what}: {col} differs")
-    log(f"[h] {what}: {len(ref['trigger_index'])} rows in the CPU run, "
+    log(f"[{phase}] {what}: {len(ref['trigger_index'])} rows in the CPU run, "
         f"{len(got['trigger_index'])} on the card, {len(pairs)} matched; "
         f"{len(set(tg) ^ set(tr))} triggers near the threshold in one run "
         f"only; Δχ² and amplitudes within {worst:.3e} (tol {TRIG_RTOL:g})")
@@ -3021,6 +3068,215 @@ def _phase_k(device, card, errs, tmp):
             "salting_feature": flaunch}
 
 
+def pair_triggers(table, pulses, per_file, nev):
+    """For each injected pair, the triggers of its channel within
+    MODES_PAIR_HALF samples of its pulses: [E, channels, pairs]."""
+    ev = event_of(table, per_file)
+    out = np.zeros(pulses["pairs"][:nev].shape[:3], np.int64)
+    for k, c in enumerate(tentry.TSHELL_PAIR_CHANNELS):
+        chan = tentry.SHELL_CHANNELS[c]
+        idx = np.asarray(table[f"trigger_index_{chan}"], np.float64)
+        for e in range(nev):
+            mine = idx[ev == e]
+            for p, (a, b) in enumerate(pulses["pairs"][e, k]):
+                out[e, k, p] = np.sum((mine >= a - MODES_PAIR_HALF)
+                                      & (mine <= b + MODES_PAIR_HALF))
+    return out
+
+
+def run_tshell_quiet(shell, what, card, **kw):
+    """:func:`run_tshell` with the shell's own printing captured: (table,
+    seconds, the shell's warnings)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        table, sec, _ = run_tshell(shell, what, card, "l", **kw)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    return table, sec, [ln for ln in text.splitlines() if "WARNING" in ln]
+
+
+def phase_l(device, card, errs):
+    """The trigger modes: dynamic windows and sub-tile windows through the
+    TriggerProcessing shell, and template alignment, on the card; returns
+    each path's launches."""
+    tmp = tempfile.mkdtemp(prefix="detprocess_smoke_modes_")
+    try:
+        return _phase_l(device, card, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_l(device, card, errs, tmp):
+    t_phase = t = time.perf_counter()
+    chans = list(tentry.SHELL_CHANNELS)
+    paths, pulses = tentry.write_trigger_dumps(
+        tmp, torch.Generator().manual_seed(SEED + 1), MODES_EVENTS,
+        TSHELL_FILES, device, npairs=MODES_PAIRS)
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    log(f"[l] wrote {MODES_EVENTS} continuous events of {len(chans)} x "
+        f"{tentry.TRIGGER_L} int16 samples, {nbytes / 2**20:.1f} MiB, in "
+        f"{TSHELL_FILES} flat dumps, (h)'s pulses and {MODES_PAIRS} pairs "
+        f"of {tentry.TSHELL_PAIR_SIGMA:g}σ pulses {tentry.TSHELL_PAIR_SEP} "
+        f"samples apart on chan2 an event, in "
+        f"{time.perf_counter() - t:.1f} s (set-up, not timed)")
+    per_file = MODES_EVENTS // TSHELL_FILES
+    index = tentry.trigger_shell_index(paths)
+    fd = tentry.shell_filter_data(tentry.TRIGGER_NT, tentry.TRIGGER_PRETRIG)
+    res = tentry.trigger_shell_resolutions()
+    config = tentry.trigger_shell_config()
+    sub_config = tentry.trigger_shell_config(
+        pileup_windows=tentry.TSHELL_SUBTILE_WINDOWS)
+
+    def dynamic_shell(idx, dev_):
+        shell = TriggerProcessing(idx, config, fd, verbose=False,
+                                  device=dev_)
+        for c in chans:
+            shell.set_dynamic_threshold(c, tentry.trigger_shell_window_fn)
+        return shell
+
+    static = TriggerProcessing(index, config, fd, verbose=False,
+                               device=device)
+    shells = {"dynamic": dynamic_shell(index, device),
+              "subtile": TriggerProcessing(index, sub_config, fd,
+                                           verbose=False, device=device)}
+    kws = {"dynamic": dict(event_batch=TSHELL_BATCH,
+                           capacity=TSHELL_CAPACITY, nreaders=TSHELL_READERS),
+           # window 0 makes every above-threshold sample a row: 16 events,
+           # a capacity that holds them, and no coincidence merge
+           "subtile": dict(event_batch=TSHELL_BATCH, nevents=MODES_SUB_EVENTS,
+                           capacity=MODES_SUB_CAPACITY,
+                           coincident_window_msec=0.0)}
+    nevs = {"dynamic": MODES_EVENTS, "subtile": MODES_SUB_EVENTS}
+
+    # (h)'s static windows on these files: each pair gives two rows
+    stable, _, warned = run_tshell_quiet(
+        static, "(h)'s static windows", card, **kws["dynamic"])
+    pairs = {"static": pair_triggers(stable, pulses, per_file, MODES_EVENTS)}
+
+    launches, secs, walks, tables = {}, {}, {}, {}
+    for what, shell in shells.items():
+        nbatch = -(-nevs[what] // TSHELL_BATCH)
+        _kernels.reset_launch_counts()
+        trigger.reset_walk_counts()
+        tables[what], _, w = run_tshell_quiet(shell, f"{what}, first call",
+                                              card, **kws[what])
+        launches[what] = _kernels.launch_counts()
+        library = _kernels.library_counts()
+        walks[what] = trigger.walk_counts()
+        warned += w
+        want = {"rfft": (len(chans) + 1) * nbatch, "fused_nodelay_of": 0,
+                "cufft_rfft": nbatch}
+        log(f"[l] {what}: launches {launches[what]}, library route {library}"
+            f" ({nbatch} batches); dynamic walk {walks[what]}")
+        if {**launches[what], **library} != want:
+            raise RuntimeError(f"trigger modes, {what}: launches "
+                               f"{launches[what]}, library {library}, "
+                               f"expected {want}")
+        sub = {k: (v[:nevs[what]] if v is not None else None)
+               for k, v in pulses.items()}
+        worst_i, worst_a = tshell_found(tables[what], sub, res, per_file,
+                                        f"trigger modes, {what}")
+        pairs[what] = pair_triggers(tables[what], pulses, per_file,
+                                    nevs[what])
+        log(f"[l] {what}: every injected 10σ pulse found (worst index "
+            f"offset {worst_i:g} samples, amplitude error {worst_a:.3f} σ); "
+            f"{len(tables[what]['trigger_index'])} rows")
+        _, secs[what], w = run_tshell_quiet(shell, f"{what}, second call",
+                                            card, **kws[what])
+        warned += w
+    if warned:
+        raise RuntimeError(f"trigger modes: the shell warned: {warned[:3]}")
+    walk = walks["dynamic"]
+    log(f"[l] dynamic walk of the first call: {walk['merges']} merges "
+        f"(4 channels and chan1's residual pass a batch), {walk['steps']} "
+        f"steps ({walk['steps'] / max(walk['merges'], 1):.1f} a merge), "
+        f"{walk['syncs']} host reads (one a merge); sub-tile run "
+        f"{walks['subtile']}")
+    if walk["syncs"] != walk["merges"] or walks["subtile"]["merges"]:
+        raise RuntimeError(f"trigger modes: walk counts {walks}")
+    log(f"[l] chan2's triggers within {MODES_PAIR_HALF} samples of each "
+        "pulse pair: " + ", ".join(f"{k} {np.bincount(v.ravel()).tolist()}"
+                               for k, v in pairs.items())
+        + " (count of pairs with 0, 1, 2, … triggers)")
+    if not ((pairs["static"] == 2).all() and (pairs["dynamic"] == 1).all()
+            and (pairs["subtile"] >= 2).all()):
+        raise RuntimeError("trigger modes: a pair did not give two rows "
+                           "with the static window and one with the "
+                           "dynamic window")
+
+    # event 1 against the float64 CPU run of the same configuration
+    first = index.subset(index.order[:1])
+    refs = {"dynamic": dynamic_shell(first, "cpu"),
+            "subtile": TriggerProcessing(first, sub_config, fd,
+                                         verbose=False, device="cpu")}
+    for what, ref_shell in refs.items():
+        kw = {k: v for k, v in kws[what].items()
+              if k not in ("nreaders", "nevents")}
+        kw["event_batch"] = 1
+        ref = ref_shell.process(dtype=np.float64, **kw)
+        mine = np.flatnonzero(event_of(tables[what], per_file) == 0)
+        got = {k: np.asarray(v)[mine] for k, v in tables[what].items()}
+        compare_tshell_event(got, ref, static.channels[0].chi2_threshold,
+                             f"{what}: event 1 vs the float64 CPU run", "l")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, prof_s, _ = run_tshell_quiet(shells["dynamic"], "dynamic, third "
+                                        "call, under torch.profiler", card,
+                                        **kws["dynamic"])
+    busy, kern, copy = device_intervals(prof)
+    share = busy / (1e3 * prof_s)
+    log(f"[l] dynamic: device busy {busy:.3f} ms of the profiled "
+        f"{1e3 * prof_s:.3f} ms call ({100 * share:.1f}% busy, "
+        f"{100 * (1 - share):.1f}% idle); kernels {kern:.3f} ms, copies "
+        f"{copy:.3f} ms; on {card}")
+    log("[l] second call, continuous events/s: " + ", ".join(
+        f"{k} {nevs[k] / v:.3f} ({nevs[k]} events)" for k, v in secs.items())
+        + f" (host clock); on {card}")
+
+    # one batch's merges by layer: the dynamic step beside (h)'s tiled one
+    reader = RawReader(index)
+    rows = index.order[:TSHELL_BATCH]
+    evs = [reader.read_row(int(r), dtype=None, adctoamp=False)
+           for r in rows]
+    reader.close()
+    x = adc_convert(torch.as_tensor(np.stack([e for e, _ in evs]),
+                                    device=device),
+                    torch.as_tensor(np.stack([a["adc_conv"] for _, a in evs]),
+                                    device=device))
+    merges = {}
+    for what, shell in (("dynamic", shells["dynamic"]), ("tiled", static)):
+        step = shell.trigger_steps(TSHELL_CAPACITY)[0]
+        layers, _ = trigger_layer_times(step, x[:, :1])
+        merges[what] = {k: layers[k] for k in ("tiled merge", "second merge")}
+    log(f"[l] chan1's merges on one batch [{TSHELL_BATCH}, 1, "
+        f"{tentry.TRIGGER_L}], (CUDA-event ms, device ms): dynamic "
+        f"{merges['dynamic']}, (h)'s tiled {merges['tiled']}; on {card}")
+    step = shells["dynamic"].trigger_steps(TSHELL_CAPACITY)[0]
+    kernel_d, _ = step.device_kernels()
+    compare_rfft(trigger.fir_segments(x[:, :1], kernel_d).reshape(
+        -1, kernel_d.fft_size), errs, "l")
+    del x
+
+    # template alignment on the card against the float64 CPU run
+    tmpl = tentry.shell_templates(tentry.TRIGGER_NT, tentry.TRIGGER_PRETRIG)[0]
+    psd, _ = fd.get_psd(chans[0])
+    rolled = [np.roll(tmpl, s) for s in MODES_ALIGN_SHIFTS]
+    _, card_shifts = trigger.shift_templates_to_match_chi2(
+        FS, tmpl, rolled, psd, device=device)
+    _, cpu_shifts = trigger.shift_templates_to_match_chi2(
+        FS, tmpl, rolled, psd, device="cpu")
+    log(f"[l] shift_templates_to_match_chi2 of chan1's template rolled by "
+        f"{MODES_ALIGN_SHIFTS}: card {card_shifts.tolist()}, float64 CPU "
+        f"{cpu_shifts.tolist()}")
+    if not np.array_equal(card_shifts, cpu_shifts):
+        raise RuntimeError("template alignment: the card's shifts differ")
+    log(f"[l] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"trigger_shell_dynamic": launches["dynamic"],
+            "trigger_shell_subtile": launches["subtile"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=os.path.abspath, default=None,
@@ -3044,6 +3300,7 @@ def main(argv=None):
     cov_launches = phase_i(device, card, errs)
     fg_launches = phase_j(device, card, errs)
     salt_launches = phase_k(device, card, errs)
+    mode_launches = phase_l(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
@@ -3055,7 +3312,9 @@ def main(argv=None):
                     **{path: counts[name]
                        for path, counts in fg_launches.items()},
                     **{path: counts[name]
-                       for path, counts in salt_launches.items()}}
+                       for path, counts in salt_launches.items()},
+                    **{path: counts[name]
+                       for path, counts in mode_launches.items()}}
         rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",

@@ -339,20 +339,45 @@ TSHELL_PULSE_SIGMA = 10.0         # their amplitude, in resolutions
 TSHELL_SPREAD = 20                # coincident channel offsets, ± samples
 TSHELL_SAT_PULSE = 8e-6           # the saturating pulse on chan1 (A)
 TSHELL_MARGIN = 5000              # a 10σ pulse's clearance in its slot
+TSHELL_WINDOW = int(TSHELL_WINDOW_MSEC * FS / 1000)   # in samples
+# the trigger modes: pulse pairs on chan2 whose above-threshold spans
+# (±301 samples at 20σ) lie further apart than the static window and
+# closer than the dynamic one, which widens above a Δχ² cut; at this
+# spacing each pulse's Δχ² sidelobes fall under the other's main lobe
+TSHELL_PAIR_SIGMA = 20.0          # the pairs' amplitude, in resolutions
+TSHELL_PAIR_SEP = 1050            # samples between a pair's trigger points
+TSHELL_PAIR_CHANNELS = (1,)       # chan2
+TSHELL_DYNAMIC_CUT = 150.0        # Δχ² above which the window widens
+TSHELL_DYNAMIC_WINDOW = 2000.0    # samples
+TSHELL_SUBTILE_WINDOWS = (6, 1, 0, 3)   # samples: tiles of 4, 2, 1 and 4
 
 
-def trigger_shell_config(coincident_window_msec=TSHELL_COINCIDENT_MSEC):
+def trigger_shell_config(coincident_window_msec=TSHELL_COINCIDENT_MSEC,
+                         pileup_windows=None):
     """The trigger config (the dict a YAML file would load to): every
-    channel 5σ with a 0.1 ms pileup window; chan1 also in residual mode,
-    with the saturation veto and edge exclusion."""
+    channel 5σ with a 0.1 ms pileup window, or ``pileup_windows`` samples
+    a channel; chan1 also in residual mode, with the saturation veto and
+    edge exclusion."""
+    if pileup_windows is None:
+        windows = [{"pileup_window_msec": TSHELL_WINDOW_MSEC}] * len(
+            SHELL_CHANNELS)
+    else:
+        windows = [{"pileup_window_samples": int(w)} for w in pileup_windows]
     chans = {c: {"run": True, "template_tag": "default",
-                 "threshold_sigma": TSHELL_SIGMA,
-                 "pileup_window_msec": TSHELL_WINDOW_MSEC}
-             for c in SHELL_CHANNELS}
+                 "threshold_sigma": TSHELL_SIGMA, **w}
+             for c, w in zip(SHELL_CHANNELS, windows)}
     chans["chan1"].update(run_residual=True, saturation_amplitudes=[TSHELL_SAT],
                           edge_exclusion_msec=TSHELL_EDGE_MSEC)
     return {"trigger": {"coincident_window_msec": coincident_window_msec,
                         **chans}}
+
+
+def trigger_shell_window_fn(m: torch.Tensor) -> torch.Tensor:
+    """The dynamic pileup window of the trigger modes: the static window
+    up to a group maximum of TSHELL_DYNAMIC_CUT in Δχ², TSHELL_DYNAMIC_WINDOW
+    samples above (monotonic, so the default pre-merge is exact)."""
+    return torch.where(m > TSHELL_DYNAMIC_CUT, TSHELL_DYNAMIC_WINDOW,
+                       float(TSHELL_WINDOW))
 
 
 def trigger_shell_resolutions(fs: float = FS) -> np.ndarray:
@@ -371,7 +396,7 @@ def trigger_shell_pulses(gen: torch.Generator, nevents: int,
                          length: int = TRIGGER_L,
                          ncoincident: int = TSHELL_COINCIDENT,
                          nsingles: int = TSHELL_SINGLES,
-                         saturating: bool = True) -> dict:
+                         saturating: bool = True, npairs: int = 0) -> dict:
     """Pulse indices (trigger points) of ``nevents`` continuous events:
     ``coincident`` [E, P, 4] (one index a pulse, each channel offset
     within ±TSHELL_SPREAD), ``single`` [E, 3, S] on chan2–chan4, one
@@ -380,8 +405,10 @@ def trigger_shell_pulses(gen: torch.Generator, nevents: int,
     1–5 µA and ``sat`` [E] the TSHELL_SAT_PULSE pulse (None without
     ``saturating``), at L − 210000, − 140000 (S = 2) and − 70000
     (± 1000), clear of every 10σ pulse by more than an FIR segment and
-    two templates."""
-    nslot = ncoincident + 3 * nsingles
+    two templates; ``pairs`` [E, 1, npairs, 2] on chan2, two
+    TSHELL_PAIR_SIGMA pulses TSHELL_PAIR_SEP apart around the middle of
+    a slot of their own."""
+    nslot = ncoincident + 3 * nsingles + len(TSHELL_PAIR_CHANNELS) * npairs
     lo, hi = 20000, length - 250000
     slot = (hi - lo) // max(nslot, 1)
     if nslot and slot <= 2 * TSHELL_MARGIN:
@@ -396,9 +423,14 @@ def trigger_shell_pulses(gen: torch.Generator, nevents: int,
     big_at = length - torch.tensor([210000, 140000, 70000])
     jitter = torch.randint(-1000, 1001, (nevents, 3), generator=gen)
     big = (big_at + jitter)[:, :nsingles]
+    nlone = ncoincident + 3 * nsingles
+    centre = pos[:, nlone:].reshape(nevents, len(TSHELL_PAIR_CHANNELS),
+                                    npairs, 1)
+    half = TSHELL_PAIR_SEP // 2
     return {"coincident": (pos[:, :ncoincident, None] + spread).numpy(),
-            "single": pos[:, ncoincident:].reshape(
+            "single": pos[:, ncoincident:nlone].reshape(
                 nevents, 3, nsingles).numpy(),
+            "pairs": (centre + torch.tensor([-half, half])).numpy(),
             "big": big.numpy(),
             "big_amp": torch.empty(big.shape).uniform_(
                 1e-6, 5e-6, generator=gen).numpy(),
@@ -411,7 +443,8 @@ def trigger_shell_events(gen: torch.Generator, pulses: dict, first: int,
                          fs: float = FS) -> torch.Tensor:
     """Events ``first`` … ``first + count − 1`` of ``pulses`` as int16
     codes [count, 4, L] on ``device``: each channel's PSD-matched noise
-    plus its pulses (10σ of its resolution; chan1's large ones)."""
+    plus its pulses (10σ of its resolution; chan1's large ones; the
+    pairs)."""
     c = len(SHELL_CHANNELS)
     nh = length // 2 + 1
     scale = torch.as_tensor(np.sqrt(shell_psds(length, fs)[:, :nh] * fs
@@ -441,6 +474,11 @@ def trigger_shell_events(gen: torch.Generator, pulses: dict, first: int,
             else:
                 at.append(pulses["single"][e, ch - 1])
                 amps.append(np.full(at[-1].shape, amp10[ch]))
+            if ch in TSHELL_PAIR_CHANNELS:
+                at.append(pulses["pairs"][
+                    e, TSHELL_PAIR_CHANNELS.index(ch)].reshape(-1))
+                amps.append(np.full(at[-1].shape, TSHELL_PAIR_SIGMA
+                                    * amp10[ch] / TSHELL_PULSE_SIGMA))
             at = torch.as_tensor(np.concatenate(at), device=device)
             amp = torch.as_tensor(np.concatenate(amps), dtype=torch.float32,
                                   device=device)

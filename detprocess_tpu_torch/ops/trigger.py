@@ -27,8 +27,15 @@ numpy, as in the JAX package. The time alignment is the JAX package's: a
 pulse whose trigger point (template pretrigger sample) sits at index T
 puts the Δχ² maximum at index T.
 
-The sub-tile merge (``find_triggers_blocks``/``find_triggers_kernel``) and
-the dynamic-threshold mode are not ported yet.
+Pileup windows below 7 samples run the same tiled merge at G = 1, 2 or
+4 (:func:`find_triggers_blocks`, :func:`find_triggers_kernel`). The
+dynamic-threshold mode (:func:`find_triggers_dynamic_batched`) compacts
+the above-threshold samples, or runs of them that provably merge, into
+candidate units and walks them in time order on the device, one small
+step of [E]-shaped ops a unit, with one host read of the unit count a
+merge. :func:`find_triggers_dynamic` is the host loop of the reference
+for any Python callable, and :func:`shift_templates_to_match_chi2` aligns
+templates on the trigger's Δχ² peak.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from detprocess_tpu_torch.ops import fft
+from detprocess_tpu_torch import device as dev
+from detprocess_tpu_torch.ops import fft, filterbank
 from detprocess_tpu_torch.ops.filterbank import OFNxMBank
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
@@ -282,6 +290,12 @@ class TriggerSet(NamedTuple):
     count: torch.Tensor        # [...] valid entries (≤ K)
     count_total: torch.Tensor  # [...] merged groups found; > count when
                                # the capacity truncated the list
+    n_above: Optional[torch.Tensor] = None
+                               # [...] dynamic merge only: candidate units
+                               # found (above-threshold samples, or
+                               # pre-merged runs of them); above the
+                               # candidate capacity, later units were
+                               # dropped and the winners may be wrong
 
 
 def _tile_size(pileup_window: int, cap: int = 2048) -> int:
@@ -377,6 +391,374 @@ def find_triggers_tiled(dchi2: torch.Tensor, amps: torch.Tensor,
         count=torch.clamp(count_total, max=capacity).reshape(batch),
         count_total=count_total.reshape(batch),
     )
+
+
+def find_triggers_blocks(dchi2: torch.Tensor, amps: torch.Tensor,
+                         threshold: float, pileup_window: int,
+                         capacity: int) -> TriggerSet:
+    """Threshold + pileup merge on block-layout inputs dchi2 [..., R, B],
+    amps [..., M, R, B] (JAX ``find_triggers_blocks`` :558). The JAX
+    package sends windows below 7 samples to flat segmented scans over
+    256-sample rows; :func:`find_triggers_tiled` is exact for every tile
+    G with G − 1 ≤ window, so it runs here at G = 1, 2 or 4 as well."""
+    return find_triggers_tiled(dchi2, amps, threshold, pileup_window,
+                               capacity)
+
+
+def find_triggers_kernel(dchi2: torch.Tensor, amps: torch.Tensor,
+                         threshold: float, pileup_window: int,
+                         capacity: int) -> TriggerSet:
+    """Flat inputs dchi2 [..., L], amps [..., M, L] (JAX
+    ``find_triggers_kernel`` :623, which pads to whole blocks with −inf,
+    as :func:`find_triggers_tiled` pads to whole tiles)."""
+    return find_triggers_tiled(dchi2[..., None, :], amps[..., None, :],
+                               threshold, pileup_window, capacity)
+
+
+# ---------------------------------------------------------------------------
+# dynamic-window merge
+# ---------------------------------------------------------------------------
+
+_WALK = {"merges": 0, "steps": 0, "syncs": 0}
+
+
+def reset_walk_counts() -> None:
+    """Set the dynamic walk's counters to 0."""
+    for key in _WALK:
+        _WALK[key] = 0
+
+
+def walk_counts() -> dict:
+    """The dynamic merges run since the last reset: merges, walk steps
+    (one a candidate unit of the batch's fullest event) and host reads."""
+    return dict(_WALK)
+
+
+WINDOW_FN_CONTRACT = (
+    "window_fn must map a tensor of running group maxima of Δχ² to a "
+    "tensor of merge windows (samples) of the same shape, with torch ops "
+    "that torch.func.vmap can run per lane (no Python branch on a value, "
+    "no numpy)")
+
+
+def _per_lane_window_fn(window_fn, dtype):
+    """``window_fn`` lifted per lane of an [E] probe with
+    ``torch.func.vmap`` (JAX ``_per_lane_window_fn`` :1133); the
+    ``+ 0·s`` term makes a function that returns a constant batch too."""
+    def lane(s):
+        w = window_fn(s)
+        if not isinstance(w, torch.Tensor):
+            w = torch.tensor(w, dtype=dtype, device=s.device)
+        return w.to(dtype) + 0 * s
+    return torch.func.vmap(lane)
+
+
+def check_window_fn(window_fn) -> None:
+    """Raise ``ValueError`` naming the contract when ``window_fn`` does not
+    run per lane on a 2-element tensor (a Python branch on a value, which
+    JAX writes as ``lax.cond``, cannot)."""
+    probe = torch.tensor([25.0, 1e4], dtype=torch.float64)
+    try:
+        w = _per_lane_window_fn(window_fn, torch.float64)(probe)
+    except Exception as exc:  # any failure of the caller's function
+        raise ValueError(f"{WINDOW_FN_CONTRACT}; on a 2-element tensor it "
+                         f"raised {type(exc).__name__}: {exc}") from exc
+    if w.shape != probe.shape:
+        raise ValueError(f"{WINDOW_FN_CONTRACT}; on a 2-element tensor it "
+                         f"returned shape {tuple(w.shape)}")
+
+
+def _compact_above(dchi2: torch.Tensor, threshold: float,
+                   candidate_capacity: int):
+    """The first K above-threshold samples of each event [E, L] in time
+    order (JAX ``_compact_above`` :870): (indices [E, K] with sentinel L,
+    values [E, K] with sentinel −inf, valid [E, K], n_above [E]). One
+    cumulative count of the above mask and one scatter of the sample
+    indices to their ranks; no host read."""
+    e, l = dchi2.shape
+    k = candidate_capacity
+    above = dchi2 > threshold
+    rank = torch.cumsum(above, dim=-1)                    # inclusive
+    n_above = rank[:, -1]
+    slot = torch.where(above & (rank <= k), rank - 1, k)  # k: dropped
+    idx = torch.full((e, k + 1), l, dtype=torch.int64, device=dchi2.device)
+    idx.scatter_(-1, slot, torch.arange(l, device=dchi2.device).expand(e, l))
+    idx = idx[:, :k]
+    valid = torch.arange(k, device=dchi2.device) < n_above[:, None]
+    val = torch.where(valid, dchi2.gather(-1, idx.clamp(max=l - 1)),
+                      -math.inf)
+    return idx, val, valid, n_above
+
+
+def _static_premerge_window(window_fn, threshold) -> int:
+    """floor(window_fn(threshold)), or 0 when that raises (JAX :927)."""
+    try:
+        w = window_fn(torch.tensor(float(threshold), dtype=torch.float64))
+        return int(np.floor(float(w)))
+    except (TypeError, ValueError, RuntimeError, AttributeError):
+        return 0
+
+
+def _premerge_candidates(dchi2: torch.Tensor, threshold: float, w0: int,
+                         kpg: int):
+    """Runs of above-threshold samples with gaps ≤ w0, which always merge
+    under a monotonic non-decreasing window function with
+    window_fn(threshold) ≥ w0 (JAX ``_premerge_candidates`` :962): the
+    static merge of :func:`find_triggers_tiled` at window w0, then per run
+    (first index, last index, first value, maximum, first index reaching
+    the maximum, valid) [E, kpg] in time order with sentinels L and −inf,
+    and the run count [E]; runs past kpg are dropped."""
+    e, l = dchi2.shape
+    dev_ = dchi2.device
+    g = _tile_size(w0)
+    pad = (-l) % g
+    d = (torch.nn.functional.pad(dchi2, (0, pad), value=-math.inf)
+         if pad else dchi2)
+    nt = (l + pad) // g
+    d = d.reshape(e, nt, g)
+    col = torch.arange(g, device=dev_)
+    above = d > threshold
+    d_eff = torch.where(above, d, -math.inf)
+    tile_max, tile_arg = torch.max(d_eff, dim=-1)
+    first_in = torch.where(above, col, g).amin(dim=-1)
+    last_in = torch.where(above, col, -1).amax(dim=-1)
+    has = last_in >= 0
+    first_val = d_eff.gather(-1, first_in.clamp(max=g - 1)[..., None])[..., 0]
+    base = torch.arange(nt, device=dev_) * g
+    first_idx = base + first_in
+    last_idx = torch.where(has, base + last_in, -1)
+    prev_last = torch.nn.functional.pad(
+        torch.cummax(last_idx, dim=-1).values[:, :-1], (1, 0), value=-1)
+    start = has & ((prev_last < 0) | (first_idx - prev_last > w0))
+    gid = torch.cumsum(start, dim=-1) - 1
+    n_runs = start.sum(dim=-1)
+    ok = has & (gid >= 0) & (gid < kpg)
+    seg = torch.where(ok, gid, kpg)                       # kpg: dropped
+    tile = torch.arange(nt, device=dev_).expand(e, nt)
+
+    def reduce(fill, src, how):
+        out = torch.full((e, kpg + 1), fill, dtype=src.dtype, device=dev_)
+        return out.scatter_reduce(-1, seg, src, how)
+
+    run_max = reduce(-math.inf, tile_max, "amax")
+    reach = ok & (tile_max == run_max.gather(-1, seg))
+    wt = reduce(nt, torch.where(reach, tile, nt), "amin")[:, :kpg]
+    ft = reduce(nt, torch.where(ok, tile, nt), "amin")[:, :kpg]
+    run_last = reduce(-1, torch.where(ok, last_idx, -1), "amax")[:, :kpg]
+    valid = torch.arange(kpg, device=dev_) < n_runs[:, None]
+    wt, ft = wt.clamp(max=nt - 1), ft.clamp(max=nt - 1)
+    win = wt * g + tile_arg.gather(-1, wt)
+    first = ft * g + first_in.gather(-1, ft)
+    fval = first_val.gather(-1, ft)
+    return (torch.where(valid, first, l), torch.where(valid, run_last, l),
+            torch.where(valid, fval, -math.inf),
+            torch.where(valid, run_max[:, :kpg], -math.inf),
+            torch.where(valid, win, l), valid, n_runs)
+
+
+def _dynamic_candidates(dchi2: torch.Tensor, threshold: float, w0: int,
+                        candidate_capacity: int):
+    """Candidate units of dchi2 [E, L] (pre-merged runs for w0 ≥ 8, else
+    above-threshold samples) with the gap of each unit's first sample to
+    the previous unit's last (JAX ``_dynamic_candidates`` :1112):
+    (gaps, first values, maxima, valid, winner indices, n_above)."""
+    if w0 >= 8:
+        first_i, last_i, first_v, max_v, win_idx, valid, n_above = \
+            _premerge_candidates(dchi2, threshold, w0, candidate_capacity)
+    else:
+        first_i, max_v, valid, n_above = _compact_above(
+            dchi2, threshold, candidate_capacity)
+        last_i = win_idx = first_i
+        first_v = max_v
+    # the first unit's gap is one no window covers: it always starts a group
+    prev = torch.nn.functional.pad(last_i[:, :-1], (1, 0), value=-(1 << 30))
+    gaps = (first_i - prev).to(dchi2.dtype)
+    return gaps, first_v, max_v, valid, win_idx, n_above
+
+
+def _dynamic_walk(window_fn, gaps, first_v, max_v, valid, n_above):
+    """Group-start flags [E, K] from the sequential split walk (JAX
+    ``_dynamic_body`` :1152): each unit's boundary is decided at its first
+    sample with the window of the running group maximum including that
+    sample; the unit then lifts the maximum to its own. One step of
+    [E]-shaped ops a unit, up to the largest unit count of the batch,
+    which is read once on the host; units past an event's count carry
+    ok = False and change nothing."""
+    e, k = gaps.shape
+    wf = _per_lane_window_fn(window_fn, gaps.dtype)
+    n_steps = int(torch.clamp(n_above, max=k).max()) if e else 0
+    _WALK["merges"] += 1
+    _WALK["syncs"] += 1
+    _WALK["steps"] += n_steps
+    gmax = torch.full((e,), -math.inf, dtype=gaps.dtype, device=gaps.device)
+    flags = []
+    for i in range(n_steps):
+        ok = valid[:, i]
+        probe = torch.maximum(gmax, first_v[:, i])
+        start = ok & (gaps[:, i] > wf(probe))
+        gmax = torch.where(ok, torch.maximum(
+            torch.where(start, -math.inf, gmax), max_v[:, i]), gmax)
+        flags.append(start)
+    starts = torch.zeros((e, k), dtype=torch.bool, device=gaps.device)
+    if flags:
+        starts[:, :n_steps] = torch.stack(flags, dim=-1)
+    return starts
+
+
+def _dynamic_winners(starts, max_v, valid, win_idx, amps, capacity, l,
+                     amps_transform, n_above) -> TriggerSet:
+    """One trigger a group: the first unit reaching the group's maximum
+    (JAX ``_dynamic_winners`` :1172), compacted to ``capacity``."""
+    e = starts.shape[0]
+    dev_ = starts.device
+    gid = torch.cumsum(starts, dim=-1) - 1
+    ngroups = starts.sum(dim=-1)
+    in_cap = valid & (gid >= 0) & (gid < capacity)
+    seg = torch.where(in_cap, gid, capacity)              # capacity: dropped
+    gmax = torch.full((e, capacity + 1), -math.inf, dtype=max_v.dtype,
+                      device=dev_).scatter_reduce(-1, seg, max_v, "amax")
+    reach = in_cap & (max_v == gmax.gather(-1, seg))
+    big = torch.iinfo(torch.int64).max
+    win = torch.full((e, capacity + 1), big, dtype=torch.int64,
+                     device=dev_).scatter_reduce(
+        -1, seg, torch.where(reach, win_idx, big), "amin")[:, :capacity]
+    has = win < big
+    idx = torch.where(has, win, -1)
+    val = torch.where(has, gmax[:, :capacity], 0.0)
+    m = amps.shape[-2]
+    amp = amps.gather(-1, idx.clamp(0, l - 1)[:, None, :].expand(
+        e, m, capacity))
+    if amps_transform is not None:
+        amp = torch.einsum("ij,ejk->eik", _as(amps_transform, amp), amp)
+    amp = torch.where(idx[:, None, :] >= 0, amp, 0.0)
+    return TriggerSet(indices=idx, dchi2=val, amplitudes=amp,
+                      count=torch.clamp(ngroups, max=capacity),
+                      count_total=ngroups, n_above=n_above)
+
+
+def find_triggers_dynamic_batched(dchi2: torch.Tensor, amps: torch.Tensor,
+                                  threshold: float, window_fn,
+                                  capacity: int,
+                                  candidate_capacity: int = 4096,
+                                  amps_transform=None,
+                                  premerge_window: Optional[int] = None
+                                  ) -> TriggerSet:
+    """Dynamic-window threshold + pileup merge of dchi2 [E, L] with
+    amplitudes amps [E, M', L] (JAX ``find_triggers_dynamic_batched``
+    :1201, the reference's ``dynamic=True``): successive above-threshold
+    samples merge when their gap is at most ``window_fn`` of the running
+    maximum Δχ² of the group, the sample considered included.
+
+    ``window_fn`` maps a tensor to a tensor of the same shape
+    (:data:`WINDOW_FN_CONTRACT`). The candidate units are the first
+    ``candidate_capacity`` above-threshold samples or, for
+    ``premerge_window`` w0 ≥ 8, runs of them with gaps ≤ w0; w0 defaults
+    to floor(window_fn(threshold)), which is exact only for a monotonic
+    non-decreasing ``window_fn``. Pass 0 for sample-level units, exact for
+    any function. ``n_above`` above ``candidate_capacity`` means units
+    were dropped. With ``amps_transform`` [M, M'], ``amps`` is the raw
+    filter output q and the amplitudes are ``amps_transform @ q`` at the
+    winners."""
+    l = dchi2.shape[-1]
+    w0 = (_static_premerge_window(window_fn, threshold)
+          if premerge_window is None else int(premerge_window))
+    gaps, first_v, max_v, valid, win_idx, n_above = _dynamic_candidates(
+        dchi2, threshold, w0, candidate_capacity)
+    starts = _dynamic_walk(window_fn, gaps, first_v, max_v, valid, n_above)
+    return _dynamic_winners(starts, max_v, valid, win_idx, amps, capacity,
+                            l, amps_transform, n_above)
+
+
+def find_triggers_dynamic_kernel(dchi2: torch.Tensor, amps: torch.Tensor,
+                                 threshold: float, window_fn,
+                                 capacity: int,
+                                 candidate_capacity: int = 4096,
+                                 amps_transform=None,
+                                 premerge_window: Optional[int] = None
+                                 ) -> TriggerSet:
+    """One trace: dchi2 [L], amps [M', L] (JAX
+    ``find_triggers_dynamic_kernel`` :1043), the E = 1 case of
+    :func:`find_triggers_dynamic_batched`."""
+    ts = find_triggers_dynamic_batched(
+        dchi2[None], amps[None], threshold, window_fn, capacity,
+        candidate_capacity, amps_transform, premerge_window)
+    return TriggerSet(*(f[0] for f in ts))
+
+
+def find_triggers_dynamic(dchi2: np.ndarray, amps: np.ndarray,
+                          threshold: float, threshold_function,
+                          capacity: Optional[int] = None):
+    """Host loop of the reference's ``dynamic=True`` mode (JAX
+    ``find_triggers_dynamic`` :1290) for any Python callable
+    ``threshold_function``: (indices, Δχ² values, amplitudes [M, K])."""
+    dchi2 = np.asarray(dchi2)
+    amps = np.asarray(amps)
+    above = np.where(dchi2 > threshold)[0]
+    if len(above) == 0:
+        return (np.zeros(0, dtype=np.int64), np.zeros(0),
+                np.zeros((amps.shape[0], 0)))
+    starts = [0]
+    current = 0
+    for i in range(1, len(above)):
+        window = threshold_function(
+            float(np.max(dchi2[above[current: i + 1]])))
+        if above[i] - above[i - 1] > window:
+            starts.append(i)
+            current = i
+    starts.append(len(above))
+    idx_out, d_out = [], []
+    for a, b in zip(starts[:-1], starts[1:]):
+        group = above[a:b]
+        best = group[np.argmax(dchi2[group])]
+        idx_out.append(best)
+        d_out.append(dchi2[best])
+        if capacity is not None and len(idx_out) >= capacity:
+            break
+    idx_out = np.asarray(idx_out, dtype=np.int64)
+    return idx_out, np.asarray(d_out), amps[:, idx_out]
+
+
+def shift_templates_to_match_chi2(fs: float, primary_template,
+                                  secondary_templates, noisecsd,
+                                  relative_amplitudes=None,
+                                  block: int = 16384, device=None,
+                                  dtype: Optional[torch.dtype] = None):
+    """Roll secondary templates so that the primary template's trigger
+    peaks at the same sample on each (JAX
+    ``shift_templates_to_match_chi2`` :1331): each template, weighted by
+    ``relative_amplitudes``, is embedded in a trace of four template
+    lengths and filtered with the primary's trigger kernel on ``device``
+    (None: the GPU) in ``dtype`` (default float64 on the CPU, float32 on
+    the card); the shift is the difference of the Δχ² argmaxima.
+    Returns (shifted templates as numpy arrays, shifts as numpy ints)."""
+    device = dev.require_cuda() if device is None else torch.device(device)
+    if dtype is None:
+        dtype = torch.float64 if device.type == "cpu" else torch.float32
+    primary = filterbank._reshape_template_3d(np.asarray(primary_template))
+    c, m, n = primary.shape
+    if relative_amplitudes is None:
+        relative_amplitudes = np.ones(m)
+    bank = filterbank.make_ofnxm_bank(primary, np.asarray(noisecsd), fs,
+                                      n // 2)
+    kernel = make_trigger_kernel(
+        bank, block=block,
+        real_dtype=np.float64 if dtype == torch.float64 else np.float32)
+
+    def peak_time(template_3d):
+        trace = np.einsum("cmn,m->cn", template_3d, relative_amplitudes)
+        pad = np.zeros((c, 4 * n))
+        pad[:, int(1.5 * n):int(2.5 * n)] = trace
+        q = of_fir(torch.as_tensor(pad, dtype=dtype, device=device), kernel)
+        d, _ = delta_chi2(q, kernel.iw_matrix)
+        return int(torch.argmax(d))
+
+    t_primary = peak_time(primary)
+    shifted, shifts = [], np.zeros(len(secondary_templates), dtype=int)
+    for i, sec in enumerate(secondary_templates):
+        sec3 = filterbank._reshape_template_3d(np.asarray(sec))
+        shifts[i] = t_primary - peak_time(sec3)
+        shifted.append(np.roll(sec3, shifts[i], axis=-1))
+    return shifted, shifts
 
 
 # ---------------------------------------------------------------------------
@@ -475,9 +857,10 @@ def combine_trigger_sets(first: TriggerSet,
     entries are all kept; entries of the second whose index is not
     already present are appended in order. The capacity is the sum of
     both; ``count_total`` adds the new groups and the second pass's
-    truncated ones to the first pass's total."""
+    truncated ones to the first pass's total; ``n_above`` is the sum of
+    the passes' (None when neither has one)."""
     host = {name: [_host(getattr(ts, name)) for ts in (first, second)]
-            for name in TriggerSet._fields}
+            for name in TriggerSet._fields if name != "n_above"}
     (idx1, idx2), (d1, d2), (a1, a2) = (host["indices"], host["dchi2"],
                                         host["amplitudes"])
     n1, n2 = (int(c) for c in host["count"])
@@ -501,8 +884,11 @@ def combine_trigger_sets(first: TriggerSet,
     # indices: count them as new, so the truncation stays visible
     trunc2 = int(host["count_total"][1]) - n2
     total = int(host["count_total"][0]) + n_new + max(trunc2, 0)
+    above = [ts.n_above for ts in (first, second) if ts.n_above is not None]
     return TriggerSet(indices=indices, dchi2=dchi2, amplitudes=amps,
-                      count=np.int64(n1 + n_new), count_total=np.int64(total))
+                      count=np.int64(n1 + n_new), count_total=np.int64(total),
+                      n_above=(np.int64(sum(int(a) for a in above))
+                               if above else None))
 
 
 def _host(a) -> np.ndarray:
@@ -512,4 +898,5 @@ def _host(a) -> np.ndarray:
 
 def event_set(ts: TriggerSet, e: int) -> TriggerSet:
     """Event ``e`` of a batched trigger set, as host numpy arrays."""
-    return TriggerSet(*(_host(field[e]) for field in ts))
+    return TriggerSet(*(None if field is None else _host(field[e])
+                        for field in ts))

@@ -15,7 +15,8 @@ kernel puts the filter's peak on the trigger point.
 
 ``get_trigger_data_df`` returns a table (a dict of numpy columns;
 ``io.tables.to_dataframe`` makes a DataFrame of it). The dynamic-window
-mode is refused by name.
+mode (``dynamic=True``) groups with the host loop
+``ops/trigger.find_triggers_dynamic``, which takes any Python callable.
 """
 
 from __future__ import annotations
@@ -219,14 +220,15 @@ class OptimumFilterTrigger:
                            dynamic: bool = False,
                            dynamic_threshold_function=None):
         """One threshold + pileup merge pass over the stored Δχ²: one
-        trigger a merged group, at its largest Δχ²."""
+        trigger a merged group, at its largest Δχ². With ``dynamic``, the
+        merge window is ``dynamic_threshold_function`` of the group's
+        running maximum Δχ² (any Python callable)."""
         if self._delta_chi2_trace is None:
             raise ValueError('ERROR: Filtered trace not available. '
                              'Use "update_trace" first!')
-        if dynamic:
-            raise NotImplementedError(
-                "the dynamic-threshold mode is not ported yet (ROADMAP.md "
-                "§1 item 4)")
+        if dynamic and dynamic_threshold_function is None:
+            raise ValueError("dynamic=True requires "
+                             "dynamic_threshold_function")
         pileup_window = 0
         if pileup_window_msec is not None:
             pileup_window = int(pileup_window_msec * self._fs / 1000)
@@ -236,9 +238,16 @@ class OptimumFilterTrigger:
                                                       self._m_amplitudes)
 
         dchi2 = self._delta_chi2_trace
-        above = np.where(dchi2 > self.chi2_threshold)[0]
-        winners = [int(above[st:en][np.argmax(dchi2[above[st:en]])])
-                   for st, en in _group_ranges_static(above, pileup_window)]
+        if dynamic:
+            winners, _, _ = trig_ops.find_triggers_dynamic(
+                dchi2, self._filtered_trace, self.chi2_threshold,
+                dynamic_threshold_function)
+            winners = [int(w) for w in winners]
+        else:
+            above = np.where(dchi2 > self.chi2_threshold)[0]
+            winners = [int(above[st:en][np.argmax(dchi2[above[st:en]])])
+                       for st, en in _group_ranges_static(above,
+                                                          pileup_window)]
 
         data: dict = {
             "trigger_delta_chi2": [], "trigger_time": [],

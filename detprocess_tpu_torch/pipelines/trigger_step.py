@@ -16,8 +16,11 @@ builds (``run_one`` :632-655), batched over events. Per batch [E, C, L]:
    the residual basis) and a second merge on the residual Δχ².
 
 The χ² threshold is ``chi2_threshold(threshold_sigma, M)``
-(triggers.py:523). Pileup windows below one 8-sample tile, which the JAX
-package merges on a sub-tile path, are refused.
+(triggers.py:523). Pileup windows below 7 samples run the same tiled
+merge at tiles of 1, 2 or 4 samples, where the JAX package runs its
+sub-tile branch (:656-672). With a ``window_fn`` both merges are the
+dynamic-window merge (``find_triggers_dynamic_batched``) on the flat
+[E, L] Δχ², as JAX's ``run_batch_dynamic`` (:674-714) runs them.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from detprocess_tpu_torch.ops import spectral, trigger
 SATURATION_LPF_HZ = 50e3      # the veto's low-pass cut (triggers.py:627)
 DEFAULT_CAPACITY = 4096       # triggers.py:533
 # the layers of TriggerStep.forward, in order (the last three in residual
-# mode only)
+# mode only; with a window_fn both merges are the dynamic merge)
 LAYERS = ("FIR segments + rFFT kernel", "FIR mix", "FIR irfft + valid",
           "Δχ²", "tiled merge", "LPF + saturation", "residual convolution",
           "second merge")
@@ -55,6 +58,11 @@ class TriggerStep(nn.Module):
         (None: no saturation veto).
     positive_pulses : pulses go up (False: down).
     device, dtype : where and in what precision the step runs.
+    window_fn : the dynamic mode's merge window as a function of the
+        group's running maximum Δχ² (``ops/trigger.WINDOW_FN_CONTRACT``);
+        None: the static ``pileup_window``.
+    candidate_capacity, premerge_window : the dynamic merge's candidate
+        units and pre-merge window (``find_triggers_dynamic_batched``).
     """
 
     def __init__(self, kernel: trigger.TriggerKernel,
@@ -64,12 +72,12 @@ class TriggerStep(nn.Module):
                  run_residual: bool = False,
                  sat_amps: Optional[Sequence[float]] = None,
                  positive_pulses: bool = True, *, device,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, window_fn=None,
+                 candidate_capacity: int = DEFAULT_CAPACITY,
+                 premerge_window: Optional[int] = None):
         super().__init__()
-        if trigger._tile_size(pileup_window) < 8:
-            raise ValueError(f"pileup window {pileup_window} is below one "
-                             "8-sample tile: the sub-tile merge is not "
-                             "ported")
+        if window_fn is not None:
+            trigger.check_window_fn(window_fn)
         if run_residual and basis is None:
             raise ValueError("run_residual needs the residual basis")
         device = torch.device(device)
@@ -83,6 +91,9 @@ class TriggerStep(nn.Module):
         self.capacity = int(capacity)
         self.run_residual = bool(run_residual)
         self.positive_pulses = bool(positive_pulses)
+        self.window_fn = window_fn
+        self.candidate_capacity = int(candidate_capacity)
+        self.premerge_window = premerge_window
         cdtype = trigger._COMPLEX[dtype]
 
         def put(name, a, dt):
@@ -117,12 +128,21 @@ class TriggerStep(nn.Module):
                                        self.kernel.nt // 4,
                                        self.positive_pulses)
 
-    def merge(self, dchi2: torch.Tensor, q_blocks: torch.Tensor):
-        """The tiled threshold + pileup merge of Δχ² [E, R, B] with the
-        amplitudes W⁻¹q at the winners."""
-        return trigger.find_triggers_tiled(
-            dchi2, q_blocks, self.threshold, self.pileup_window,
-            self.capacity, amps_transform=self.iw_matrix)
+    def merge(self, dchi2: torch.Tensor, q_blocks: torch.Tensor,
+              length: int):
+        """The threshold + pileup merge of Δχ² [E, R, B] of traces of
+        ``length`` samples with the amplitudes W⁻¹q at the winners: tiled,
+        or with a ``window_fn`` dynamic on the flat [E, L] series."""
+        if self.window_fn is None:
+            return trigger.find_triggers_tiled(
+                dchi2, q_blocks, self.threshold, self.pileup_window,
+                self.capacity, amps_transform=self.iw_matrix)
+        return trigger.find_triggers_dynamic_batched(
+            dchi2.flatten(-2)[..., :length],
+            q_blocks.flatten(-2)[..., :length], self.threshold,
+            self.window_fn, self.capacity, self.candidate_capacity,
+            amps_transform=self.iw_matrix,
+            premerge_window=self.premerge_window)
 
     def forward(self, traces: torch.Tensor, run_layer=None):
         """``traces`` [E, C, L] → (first-pass TriggerSet, residual-pass
@@ -139,13 +159,14 @@ class TriggerStep(nn.Module):
                           traces.shape[-1])
         dchi2 = run(LAYERS[3], trigger.delta_chi2_from_q, q_blocks,
                     self.iw_matrix)
-        ts = run(LAYERS[4], self.merge, dchi2, q_blocks)
+        ts = run(LAYERS[4], self.merge, dchi2, q_blocks, traces.shape[-1])
         if not self.run_residual:
             return ts, None
         sat = run(LAYERS[5], self.saturation, traces)
         resid = run(LAYERS[6], trigger.residual_subtract_conv, dchi2, ts,
                     kernel, basis, sat)
-        return ts, run(LAYERS[7], self.merge, resid, q_blocks)
+        return ts, run(LAYERS[7], self.merge, resid, q_blocks,
+                       traces.shape[-1])
 
 
 def _call(name, fn, *args):

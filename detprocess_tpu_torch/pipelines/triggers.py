@@ -43,9 +43,13 @@ for the batch's events is added on the device right after the conversion
 (JAX :1528-1536). Both map the salts' channels by name onto the channels
 read.
 
+Dynamic thresholds (:meth:`TriggerProcessing.set_dynamic_threshold`,
+JAX :429): a channel's merge window becomes a function of its groups'
+running maximum Δχ², merged on the device by
+``ops/trigger.find_triggers_dynamic_batched`` in both passes.
+
 ``device=None`` means the GPU (``device.require_cuda``); the CPU runs
-only when the caller passes ``"cpu"``. The dynamic-threshold mode, the
-mesh and pileup windows below one 8-sample tile are refused by name.
+only when the caller passes ``"cpu"``. The mesh is refused by name.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ import os
 import time
 from contextlib import nullcontext
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -393,6 +397,9 @@ class TriggerChannel:
     sat_amps: Optional[list] = None
     edge_exclusion_msec: Optional[float] = None
     positive_pulses: bool = True
+    dynamic_threshold_function: Optional[Callable] = None
+    dynamic_candidate_capacity: int = 4096
+    dynamic_premerge_window: Optional[int] = None
     _kernels: dict = field(default_factory=dict, repr=False)
 
     @property
@@ -416,7 +423,10 @@ class TriggerChannel:
         return TriggerStep(kernel, basis, self.threshold_sigma,
                            self.pileup_window, capacity, self.run_residual,
                            self.sat_amps, self.positive_pulses,
-                           device=device, dtype=dtype)
+                           device=device, dtype=dtype,
+                           window_fn=self.dynamic_threshold_function,
+                           candidate_capacity=self.dynamic_candidate_capacity,
+                           premerge_window=self.dynamic_premerge_window)
 
 
 def build_channels(trigger_config: dict, filter_data: FilterData,
@@ -458,11 +468,6 @@ def build_channels(trigger_config: dict, filter_data: FilterData,
         pileup_msec = tcfg.get("pileup_window_msec")
         pileup = (int(pileup_msec * fs / 1000) if pileup_msec is not None
                   else int(tcfg.get("pileup_window_samples", 0)))
-        if trig_ops._tile_size(pileup) < 8:
-            raise NotImplementedError(
-                f"trigger channel '{trig_name}': pileup window of {pileup} "
-                "samples is below one 8-sample tile; the sub-tile merge is "
-                "not ported yet (ROADMAP.md §1 item 4)")
         missing = [c for c in chans if c not in available_channels]
         if missing:
             raise ValueError(
@@ -524,13 +529,23 @@ def _chan_cols(tc, m: int) -> List[str]:
 def trigger_set_arrays(tc, ts: trig_ops.TriggerSet):
     """(indices, Δχ², amplitudes [M, k]) of one event's host trigger set,
     or (None, None, None) when empty; warns when the capacity truncated
-    it (triggers.py:733-756)."""
+    it or, in the dynamic mode, dropped candidate units
+    (triggers.py:733-756)."""
     count = int(ts.count)
     total = int(ts.count_total)
     if total > count:
         print(f"WARNING: trigger capacity truncated {tc.name}: {total} "
               f"merged groups found, {count} kept — raise "
               f"process(capacity=...)")
+    if (ts.n_above is not None
+            and int(ts.n_above) > tc.dynamic_candidate_capacity):
+        print(f"WARNING: dynamic-trigger candidate capacity exceeded "
+              f"on {tc.name}: {int(ts.n_above)} candidate units "
+              f"(above-threshold samples, or pre-merged runs when "
+              f"the pre-merge engages) > "
+              f"{tc.dynamic_candidate_capacity} — triggers after the "
+              f"cap are unreliable; raise "
+              f"set_dynamic_threshold(candidate_capacity=...)")
     if count == 0:
         return None, None, None
     return (np.asarray(ts.indices)[:count], np.asarray(ts.dchi2)[:count],
@@ -540,7 +555,7 @@ def trigger_set_arrays(tc, ts: trig_ops.TriggerSet):
 def _event_view(ts: Optional[trig_ops.TriggerSet], e: int):
     if ts is None:
         return None
-    return trig_ops.TriggerSet(*(f[e] for f in ts))
+    return trig_ops.TriggerSet(*(None if f is None else f[e] for f in ts))
 
 
 def drain_batch(channels, sets: dict, admins: List[dict], nb_samples: int,
@@ -746,7 +761,7 @@ def _suffixed(base_vals: np.ndarray, p: np.ndarray, n: int) -> np.ndarray:
 # the shell
 # ---------------------------------------------------------------------------
 
-INT_FIELDS = ("indices", "count", "count_total")
+INT_FIELDS = ("indices", "count", "count_total", "n_above")
 
 
 class TriggerProcessing:
@@ -813,15 +828,36 @@ class TriggerProcessing:
     def set_dynamic_threshold(self, channel: str, window_fn,
                               candidate_capacity: int = 4096,
                               premerge_window: Optional[int] = None):
-        raise NotImplementedError(
-            "the dynamic-threshold mode is not ported yet (ROADMAP.md §1 "
-            "item 4)")
+        """Merge the trigger channel named ``channel`` (its trigger name or
+        raw channel name) with a dynamic pileup window (JAX :429-453, the
+        reference's ``dynamic=True``): ``window_fn`` maps a tensor of the
+        groups' running maximum Δχ² to a tensor of windows in samples, in
+        torch ops that ``torch.func.vmap`` runs per lane
+        (``ops/trigger.WINDOW_FN_CONTRACT``; a function that does not is
+        refused here with a ``ValueError``). The candidate units are
+        pre-merged runs of above-threshold samples by default, which is
+        exact only for a monotonic non-decreasing ``window_fn``; pass
+        ``premerge_window=0`` for sample-level units, exact for any
+        function. Above ``candidate_capacity`` units an event's later
+        triggers are unreliable, and the drain warns."""
+        trig_ops.check_window_fn(window_fn)
+        for tc in self._channels:
+            if tc.name == channel or tc.channel_name == channel:
+                tc.dynamic_threshold_function = window_fn
+                tc.dynamic_candidate_capacity = candidate_capacity
+                tc.dynamic_premerge_window = premerge_window
+                return
+        raise ValueError(f"no trigger channel named {channel}")
 
     def trigger_steps(self, capacity: int = DEFAULT_CAPACITY,
                       dtype=torch.float32) -> List[TriggerStep]:
         """Each channel's :class:`TriggerStep` on the shell's device,
-        built once per capacity and dtype."""
-        key = (capacity, dtype)
+        built once per capacity, dtype and dynamic settings (the key holds
+        the window function itself, so a later ``set_dynamic_threshold``
+        never reuses a step of an earlier one)."""
+        key = (capacity, dtype) + tuple(
+            (tc.dynamic_threshold_function, tc.dynamic_candidate_capacity,
+             tc.dynamic_premerge_window) for tc in self._channels)
         if key not in self._steps:
             self._steps[key] = [tc.step(capacity, self._device, dtype)
                                 for tc in self._channels]
@@ -1102,6 +1138,8 @@ def _pack_sets(batch_sets: dict, dtype: torch.dtype):
             if ts is None:
                 continue
             for fname, arr in zip(trig_ops.TriggerSet._fields, ts):
+                if arr is None:                # n_above of a static merge
+                    continue
                 is_int = fname in INT_FIELDS
                 (ints if is_int else floats).append(
                     arr.reshape(-1).to(torch.int64 if is_int else dtype))

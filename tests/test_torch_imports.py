@@ -15,7 +15,9 @@ algorithm, two events) and the filter generation of
 16 randoms of 4096 samples) chained into the feature shell, and the
 salting chain of ``salting_chain_entry`` (two continuous events of
 400,000 samples, one salt at each amplitude) through both shells with the
-device injector; a second one runs ``chip_smoke.py``, which must fail
+device injector, and the trigger modes (the trigger shell with a dynamic
+window on one channel, a step at pileup window 0, template alignment and
+the host loop of the dynamic mode); a second one runs ``chip_smoke.py``, which must fail
 without a GPU and print no result. The filter-generation and salting
 entry points refuse to run without a GPU when no device is given.
 """
@@ -80,7 +82,24 @@ RUN_STEP = textwrap.dedent("""
         "cpu", SALT_DIR, nevents=2, length=400000, nsalt=1)
     stable = sshell.process(event_batch=2)
     sfeats = sfshell.process(batch_size=8, dtype=np.float32)
+    from detprocess_tpu_torch.ops import trigger as T
+    from detprocess_tpu_torch.models.pulse import make_template
+    from detprocess_tpu_torch.pipelines.trigger_step import TriggerStep
+    tshell.set_dynamic_threshold("chan3", E.trigger_shell_window_fn)
+    dtable = tshell.process(event_batch=2)
+    sts, _ = TriggerStep(tstep.kernel, None, 5.0, 0, device="cpu",
+                         dtype=torch.float64)(tx[:1, :, :200000])
+    tm = make_template(E.FS, 1024, 256, A=1.0, tau_r=20e-6, tau_f1=200e-6)
+    _, shifts = T.shift_templates_to_match_chi2(
+        E.FS, tm, [np.roll(tm, 11)], np.full(1024, 1e-20, complex),
+        block=4096, device="cpu")
+    hidx, _, _ = T.find_triggers_dynamic(
+        np.array([0.0, 30.0, 0.0, 0.0, 40.0]), np.ones((1, 5)), 10.0,
+        lambda m: 3 if m > 35 else 1)
     print(json.dumps({
+        "modes": [len(dtable["trigger_index"]) >= 2 * 13,
+                  list(sts.indices.shape),
+                  shifts.tolist(), hidx.tolist()],
         "salting": [len(sindex), sorted(os.listdir(SALT_DIR)),
                     len(sal.get_dataframe()["salt_id"]),
                     len(stable["trigger_index"]) >= 4,
@@ -189,6 +208,9 @@ def test_port_imports_and_runs_without_jax_h5py_pandas_yaml(tmp_path):
     # 17 segments of 12288 samples in tiles of 64: 3264 slots (< 4096)
     assert res["trigger"] == [[1, 3264], [1, 3264], "cpu",
                               [8, 1, 1250000], True]
+    # dynamic windows in the shell, a sub-tile step, template alignment
+    # and the host loop of the dynamic mode
+    assert res["modes"] == [True, [1, 4096], [-12], [4]]
     assert res["leaked"] == []
     assert res["finite"] and res["shapes"] == [[16]]
     assert res["columns"] == sorted(

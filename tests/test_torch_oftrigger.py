@@ -205,6 +205,38 @@ def test_trigger_dicts_exact(jax64, case, kw):
     assert list(table) == list(jobj.get_trigger_data_df().columns)
 
 
+@pytest.mark.parametrize("window_fn,kw,ntrig", [
+    (lambda d: 1e9, {}, 1),
+    (lambda d: 2000.0, {}, 3),
+    (lambda d: 20000.0 if d > 1e4 else 400.0, {}, 3),
+    (lambda d: 20000.0 if d > 1e4 else 400.0,
+     dict(residual=True, saturation_amplitudes_LPF_50kHz=[10e-6]), 3),
+])
+def test_dynamic_triggers_match_jax(jax64, window_fn, kw, ntrig):
+    """``dynamic=True`` with Python window functions, as
+    tests/test_oftrigger_object.py:162 drives it: the trigger dicts from
+    identical filtered traces exactly equal, and from the trace itself
+    the same indices with values at 1e-9."""
+    jobj, tobj, trace = _pair(jax64, "1x1")
+    jobj.update_trace(trace=trace)
+    filt = jobj.get_filtered_trace()
+    for filtered in (filt, None):
+        out = []
+        for obj in (jobj, tobj):
+            obj.update_trace(trace=trace, filtered_trace=filtered)
+            obj.find_triggers(5.0, pileup_window_msec=0.5, dynamic=True,
+                              dynamic_threshold_function=window_fn, **kw)
+            out.append(obj.get_trigger_data()["chan1"])
+        want, got = out
+        if filtered is not None:
+            assert got == want
+            continue
+        assert got["trigger_index"] == want["trigger_index"]
+        for key in ("trigger_delta_chi2", "trigger_amplitude"):
+            _close(np.asarray(got[key]), want[key], key)
+    assert len(want["trigger_index"]) == ntrig
+
+
 def test_residual_pass_finds_the_hidden_pulse(jax64):
     """A 5 µA pulse 150 samples after a 60 µA one: one first-pass
     trigger, and the residual pass reveals the second."""
@@ -264,9 +296,8 @@ def test_empty_result_refusals_and_shapes(jax64):
     tobj.find_triggers(5.0, pileup_window_msec=0.1)
     table = tobj.get_trigger_data_df()
     assert len(table["trigger_index"]) == 0 and "trigger_channel" in table
-    with pytest.raises(NotImplementedError, match="dynamic"):
-        tobj.find_triggers(5.0, dynamic=True,
-                           dynamic_threshold_function=lambda d: 100.0)
+    with pytest.raises(ValueError, match="dynamic_threshold_function"):
+        tobj.find_triggers(5.0, dynamic=True)
     with pytest.raises(ValueError, match="required"):
         tobj.update_trace()
     with pytest.raises(ValueError, match="channel"):

@@ -289,7 +289,8 @@ def test_salted_trigger_resume_gives_the_uncut_table(data, tmp_path):
 @pytest.mark.parametrize("what,error,match", [
     ("feature mesh", NotImplementedError, "item 7"),
     ("trigger mesh", NotImplementedError, "item 7"),
-    ("trigger dynamic", NotImplementedError, "item 4"),
+    ("trigger dynamic unknown channel", ValueError,
+     "no trigger channel named"),
     ("feature readers with resume", ValueError, "without resume"),
 ])
 def test_refusals_name_their_roadmap_item(data, tmp_path, what, error,
@@ -298,8 +299,8 @@ def test_refusals_name_their_roadmap_item(data, tmp_path, what, error,
         "feature mesh": lambda: _fshell(data, "full").process(
             mesh=object()),
         "trigger mesh": lambda: _tshell(data).process(mesh=object()),
-        "trigger dynamic": lambda: _tshell(data).set_dynamic_threshold(
-            "chan1", lambda m: 100.0),
+        "trigger dynamic unknown channel": lambda: _tshell(
+            data).set_dynamic_threshold("chan9", lambda m: 100.0),
         "feature readers with resume": lambda: _fshell(data, "full").process(
             nreaders=2, resume=True, lgc_save=True,
             output_path=str(tmp_path)),

@@ -78,7 +78,10 @@ def _events(case, bank, sign):
     return x
 
 
-def _cmp(got, ref, e):
+def _cmp(got, ref, e, elementwise=True):
+    """Event ``e`` of the port's set against JAX's: indices and counts
+    exactly, Δχ² and amplitudes within 1e-9 of their largest value and,
+    with ``elementwise``, each within 1e-9 of itself."""
     got = ttrig.event_set(got, e)
     assert int(got.count) == int(ref.count)
     assert int(got.count_total) == int(ref.count_total)
@@ -88,6 +91,8 @@ def _cmp(got, ref, e):
         np.testing.assert_allclose(getattr(got, name), r, rtol=0,
                                    atol=RTOL * np.max(np.abs(r)),
                                    err_msg=name)
+        if not elementwise:
+            continue
         n = int(ref.count)
         np.testing.assert_allclose(getattr(got, name)[..., :n],
                                    r[..., :n], rtol=RTOL, err_msg=name)
@@ -160,11 +165,140 @@ def test_trigger_step_run_layer_hook_sees_every_layer(run_residual):
 
 
 def test_trigger_step_refuses_what_it_does_not_run():
+    """A 6-sample window builds (the tiled merge at tiles of 4 samples);
+    residual mode without its basis is refused."""
     tk = ttrig.make_trigger_kernel(tfb.make_ofnxm_bank(
         cases.templates(NT, PRETRIG, "1x1"), cases.csd(NT, "1x1"), FS,
         PRETRIG), real_dtype=np.float64)
-    with pytest.raises(ValueError, match="sub-tile"):
-        TriggerStep(tk, None, SIGMA, 6, device="cpu", dtype=torch.float64)
+    step = TriggerStep(tk, None, SIGMA, 6, device="cpu", dtype=torch.float64)
+    assert step.pileup_window == 6 and ttrig._tile_size(6) == 4
     with pytest.raises(ValueError, match="residual basis"):
         TriggerStep(tk, None, SIGMA, WINDOW, run_residual=True,
                     device="cpu", dtype=torch.float64)
+
+
+# ---------------------------------------------------------------------------
+# the sub-tile windows and the dynamic window
+# ---------------------------------------------------------------------------
+
+SUBTILE_CAP = 8192      # every above-threshold sample triggers at window 0
+
+
+def jax_run_one_subtile(kernel, basis, thr, window, cap, sat_amps,
+                        run_residual):
+    """The sub-tile branch of run_one (pipelines/triggers.py:656-672) as
+    one jitted function of a trace [C, L]."""
+    iw = jnp.asarray(kernel.iw_matrix)
+
+    def run(trace):
+        l = trace.shape[-1]
+        q_blocks, _ = jtrig.of_fir_blocks(trace, kernel)
+        dchi2_b, amps_b = jtrig.delta_chi2_blocks(q_blocks, iw)
+        dchi2 = dchi2_b.reshape(-1)[:l]
+        amps = amps_b.reshape(amps_b.shape[0], -1)[:, :l]
+        ts = jtrig.find_triggers_blocks(dchi2_b, amps_b, thr, window, cap)
+        if not run_residual:
+            return ts, None
+        lpf = jspec.lowpass_filter(trace, 50e3, kernel.fs)
+        sat = jtrig.saturation_mask(lpf, sat_amps, kernel.nt // 4)
+        resid = jtrig.residual_subtract_conv(dchi2, ts, kernel, basis, sat)
+        return ts, jtrig.find_triggers_kernel(resid, amps, thr, window, cap)
+
+    return jax.jit(run)
+
+
+def jax_run_batch_dynamic(kernel, basis, thr, window_fn, cap, sat_amps,
+                          run_residual, premerge):
+    """run_batch_dynamic (pipelines/triggers.py:674-714) as one jitted
+    function of a batch [E, C, L]."""
+    iw = jnp.asarray(kernel.iw_matrix)
+    kw = dict(candidate_capacity=4096, amps_transform=iw,
+              premerge_window=premerge)
+
+    def pre(trace):
+        l = trace.shape[-1]
+        q_blocks, _ = jtrig.of_fir_blocks(trace, kernel)
+        dchi2 = jtrig.delta_chi2_from_q(q_blocks, iw).reshape(-1)[:l]
+        q_flat = q_blocks.reshape(q_blocks.shape[0], -1)[:, :l]
+        lpf = jspec.lowpass_filter(trace, 50e3, kernel.fs)
+        return dchi2, q_flat, jtrig.saturation_mask(lpf, sat_amps,
+                                                    kernel.nt // 4)
+
+    def run(traces):
+        dchi2, q_flat, sat = jax.vmap(pre)(traces)
+        ts = jtrig.find_triggers_dynamic_batched(dchi2, q_flat, thr,
+                                                 window_fn, cap, **kw)
+        if not run_residual:
+            return ts, None
+        resid = jax.vmap(lambda d, t_, s: jtrig.residual_subtract_conv(
+            d, t_, kernel, basis, s))(dchi2, ts, sat)
+        return ts, jtrig.find_triggers_dynamic_batched(
+            resid, q_flat, thr, window_fn, cap, **kw)
+
+    return jax.jit(run)
+
+
+def _kernels_1x1():
+    jbank = cases.bank(NT, PRETRIG, "1x1")
+    jk = jtrig.make_trigger_kernel(jbank, real_dtype=np.float64)
+    tk = ttrig.make_trigger_kernel(tfb.bank_nxm_from_jax(jbank),
+                                   real_dtype=np.float64)
+    sat = [300 * float(jbank.resolution[0]) * float(np.max(
+        cases.templates(NT, PRETRIG, "1x1")))]
+    return (jbank, jk, jtrig.make_residual_basis(jk), tk,
+            ttrig.make_residual_basis(tk), sat)
+
+
+@pytest.mark.parametrize("window", [0, 3, 6])
+@pytest.mark.parametrize("run_residual", [False, True])
+def test_trigger_step_subtile_matches_jax(window, run_residual):
+    """Pileup windows below 7 samples: the tiled merge at tiles of 1 and 4
+    samples against JAX's sub-tile branch. At window 0 every
+    above-threshold sample is a trigger and the residual pass subtracts
+    thousands of responses, so its Δχ² is a difference of sums up to 1e6
+    times its smaller values: there it is held within 1e-9 of its largest
+    value only."""
+    jbank, jk, jb, tk, tb, sat = _kernels_1x1()
+    x = _events("1x1", jbank, 1.0)
+    thr = jtrig.chi2_threshold(SIGMA, 1)
+    run = jax_run_one_subtile(jk, jb, thr, window, SUBTILE_CAP, sat,
+                              run_residual)
+    step = TriggerStep(tk, tb, SIGMA, window, capacity=SUBTILE_CAP,
+                       run_residual=run_residual, sat_amps=sat,
+                       device="cpu", dtype=torch.float64)
+    ts, ts2 = step(torch.as_tensor(x))
+    for e in range(E):
+        ref, ref2 = run(jnp.asarray(x[e]))
+        assert int(ref.count) == int(ref.count_total) > 11
+        _cmp(ts, ref, e)
+        if run_residual:
+            _cmp(ts2, ref2, e, elementwise=window > 0)
+
+
+@pytest.mark.parametrize("premerge", [None, 0])
+@pytest.mark.parametrize("run_residual", [False, True])
+def test_trigger_step_dynamic_matches_jax(premerge, run_residual):
+    """A window of 100 samples up to Δχ² 1000 and of 2000 above: the
+    dynamic merge of both passes against JAX's run_batch_dynamic."""
+    jbank, jk, jb, tk, tb, sat = _kernels_1x1()
+    x = _events("1x1", jbank, 1.0)
+    thr = jtrig.chi2_threshold(SIGMA, 1)
+    run = jax_run_batch_dynamic(
+        jk, jb, thr, lambda m: jnp.where(m > 1000.0, 2000.0, 100.0), CAP,
+        sat, run_residual, premerge)
+    step = TriggerStep(tk, tb, SIGMA, WINDOW, capacity=CAP,
+                       run_residual=run_residual, sat_amps=sat,
+                       device="cpu", dtype=torch.float64,
+                       window_fn=lambda m: torch.where(m > 1000.0, 2000.0,
+                                                       100.0),
+                       premerge_window=premerge)
+    ts, ts2 = step(torch.as_tensor(x))
+    ref, ref2 = run(jnp.asarray(x))
+    for e in range(E):
+        r = jax.tree.map(lambda a: a[e], ref)
+        _cmp(ts, r, e)
+        assert int(ts.n_above[e]) == int(r.n_above) > 0
+        if run_residual:
+            r2 = jax.tree.map(lambda a: a[e], ref2)
+            _cmp(ts2, r2, e)
+            assert int(ts2.n_above[e]) == int(r2.n_above)

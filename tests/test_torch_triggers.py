@@ -31,6 +31,7 @@ import os
 from types import SimpleNamespace
 
 import jax  # noqa: F401
+import jax.numpy as jnp
 import numpy as np
 import pandas as pd
 import pytest
@@ -268,8 +269,8 @@ def test_refusals_and_device(coinc, tmp_path):
         lambda chan, tag: (np.ones(4), 1), ["chan1"])
     shell.set_salting(device)
     assert split_injector(shell._injector) == (None, device)
-    with pytest.raises(NotImplementedError, match="dynamic"):
-        shell.set_dynamic_threshold("chan1", lambda m: 100.0)
+    with pytest.raises(ValueError, match="no trigger channel named"):
+        shell.set_dynamic_threshold("chan9", lambda m: 100.0)
     with pytest.raises(NotImplementedError, match="mesh"):
         shell.process(mesh=object())
     with pytest.raises(ValueError, match="nreaders"):
@@ -278,10 +279,10 @@ def test_refusals_and_device(coinc, tmp_path):
     cfg["trigger"]["chan2"]["pileup_window_msec"] = 0.004     # 5 samples
     cpath = str(tmp_path / "small.yaml")
     yaml.safe_dump(cfg, open(cpath, "w"))
-    with pytest.raises(NotImplementedError, match="sub-tile"):
-        ttp.TriggerProcessing(coinc["files"], cpath,
-                              filter_data=coinc["fpath"],
-                              verbose=False, device="cpu")
+    small = ttp.TriggerProcessing(coinc["files"], cpath,
+                                  filter_data=coinc["fpath"],
+                                  verbose=False, device="cpu")
+    assert [tc.pileup_window for tc in small.channels][1] == 5
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttp.TriggerProcessing(coinc["files"], coinc["cfgs"]["plain"],
                               filter_data=coinc["fpath"],
@@ -295,6 +296,151 @@ def test_refusals_and_device(coinc, tmp_path):
     with pytest.raises(ValueError, match="not consistent"):
         ttp.TriggerProcessing(coinc["files"], coinc["cfgs"]["plain"],
                               filter_data=fd, verbose=False, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the trigger modes: dynamic windows and sub-tile windows
+# ---------------------------------------------------------------------------
+
+PAIR_NT, PAIR_PRE, PAIR_L = 1024, 256, 200_000
+
+
+@pytest.fixture(scope="module")
+def pair_data(tmp_path_factory):
+    """The data of tests/test_trigger_pipeline.py:278: one channel, two
+    40 µA pulses 4000 samples apart, whose above-threshold spans stay
+    apart under the static 0.5 ms window and merge under the dynamic
+    one."""
+    root = tmp_path_factory.mktemp("pairs")
+    rng = np.random.default_rng(9)
+    tmpl = pulse.make_template(FS, PAIR_NT, PAIR_PRE, A=1.0, tau_r=20e-6,
+                               tau_f1=200e-6)
+    sigma = 2e-6
+    traces = rng.standard_normal((1, 1, PAIR_L)) * sigma
+    for pos in (60_000, 64_000):
+        traces[0, 0, pos - PAIR_PRE:pos - PAIR_PRE + PAIR_NT] += 40e-6 * tmpl
+    RawWriter(str(root / "raw"), "I1_D20260816_T300000", FS,
+              ["chan1"]).write_dump(traces, dump_num=1)
+    fd = JaxFilterData(verbose=False)
+    fd.set_psd("chan1", np.full(PAIR_NT, sigma ** 2 / FS), FS)
+    fd.set_template("chan1", tmpl, FS, pretrigger_length_samples=PAIR_PRE)
+    fpath = str(root / "filter.h5")
+    fd.save_hdf5(fpath)
+    cpath = str(root / "cfg.yaml")
+    yaml.safe_dump({"trigger": {"chan1": {
+        "run": True, "template_tag": "default", "threshold_sigma": 8.0,
+        "pileup_window_msec": 0.5}}}, open(cpath, "w"))
+    files = sorted(str(p) for p in (root / "raw").glob("*.hdf5"))
+    return dict(files=files, fd=fd, fpath=fpath, cpath=cpath)
+
+
+def _near_pair(table):
+    idx = np.asarray(table["trigger_index"])
+    return int(((idx > 55_000) & (idx < 65_000)).sum())
+
+
+def test_dynamic_threshold_shell_matches_jax(pair_data):
+    """Static window: two rows at the pair; dynamic window: one; the
+    port's tables equal JAX's in both runs."""
+    d = pair_data
+    runs = {}
+    for mode in ("static", "dynamic"):
+        jshell = jtp.TriggerProcessing(d["files"], d["cpath"],
+                                       filter_data=d["fd"], verbose=False)
+        tshell = ttp.TriggerProcessing(d["files"], d["cpath"],
+                                       filter_data=d["fpath"],
+                                       verbose=False, device="cpu")
+        if mode == "dynamic":
+            jshell.set_dynamic_threshold(
+                "chan1", lambda m: jnp.where(m > 1000.0, 6000.0, 200.0))
+            tshell.set_dynamic_threshold(
+                "chan1", lambda m: torch.where(m > 1000.0, 6000.0, 200.0))
+        want = jshell.process()
+        got = tshell.process(dtype=np.float64)
+        assert_shell_equal(got, want, mode)
+        runs[mode] = got
+    assert _near_pair(runs["static"]) == 2
+    assert _near_pair(runs["dynamic"]) == 1
+
+
+def test_dynamic_threshold_set_after_process_takes_effect(pair_data):
+    """A step built for the static run is not reused after
+    set_dynamic_threshold, nor the first function's after a second."""
+    d = pair_data
+    shell = ttp.TriggerProcessing(d["files"], d["cpath"],
+                                  filter_data=d["fpath"], verbose=False,
+                                  device="cpu")
+    assert _near_pair(shell.process(dtype=np.float64)) == 2
+    shell.set_dynamic_threshold(
+        "chan1", lambda m: torch.where(m > 1000.0, 6000.0, 200.0))
+    assert _near_pair(shell.process(dtype=np.float64)) == 1
+    shell.set_dynamic_threshold("chan1", lambda m: 200.0)
+    assert _near_pair(shell.process(dtype=np.float64)) == 2
+    assert shell.trigger_steps(dtype=torch.float64)[0].window_fn(0.0) == 200.0
+
+
+@pytest.mark.parametrize("premerge", [None, 0])
+def test_dynamic_residual_shell_matches_jax(coinc, premerge):
+    """Dynamic windows on every channel of the coincidence data in
+    residual mode (both passes merge with the dynamic window)."""
+    jshell = jtp.TriggerProcessing(coinc["files"], coinc["cfgs"]["residual"],
+                                   filter_data=coinc["fd"], verbose=False)
+    tshell = _port(coinc, "residual")
+    for c in CHANNELS:
+        jshell.set_dynamic_threshold(
+            c, lambda m: jnp.where(m > 60.0, 2500.0, 50.0),
+            premerge_window=premerge)
+        tshell.set_dynamic_threshold(
+            c, lambda m: torch.where(m > 60.0, 2500.0, 50.0),
+            premerge_window=premerge)
+    want = jshell.process(capacity=64, event_batch=3,
+                          coincident_window_msec=0.16)
+    got = tshell.process(capacity=64, event_batch=2, dtype=np.float64,
+                         coincident_window_msec=0.16)
+    assert_shell_equal(got, want, "dynamic residual")
+    static = _jax_run(coinc, "residual", coincident_window_msec=0.16)
+    assert len(want) < len(static)       # the wider windows merged pulses
+
+
+def test_subtile_window_shell_matches_jax(coinc, tmp_path):
+    """The 5-sample pileup window on chan2 (tiles of 4 samples)."""
+    cfg = yaml.safe_load(open(coinc["cfgs"]["residual"]))
+    cfg["trigger"]["chan2"]["pileup_window_msec"] = 0.004     # 5 samples
+    cpath = str(tmp_path / "small.yaml")
+    yaml.safe_dump(cfg, open(cpath, "w"))
+    want = jtp.TriggerProcessing(coinc["files"], cpath,
+                                 filter_data=coinc["fd"],
+                                 verbose=False).process(
+        capacity=64, event_batch=3, coincident_window_msec=0.16)
+    shell = ttp.TriggerProcessing(coinc["files"], cpath,
+                                  filter_data=coinc["fpath"],
+                                  verbose=False, device="cpu")
+    assert shell.channels[1].pileup_window == 5
+    got = shell.process(capacity=64, event_batch=2, dtype=np.float64,
+                        coincident_window_msec=0.16)
+    assert_shell_equal(got, want, "5-sample window")
+
+
+def test_candidate_capacity_warning_matches_jax(coinc, capsys):
+    """Sample-level units past a candidate capacity of 8: the drain's
+    warning, word for word as JAX's."""
+    lines = []
+    for make, fn in (
+            (lambda: jtp.TriggerProcessing(
+                coinc["files"], coinc["cfgs"]["plain"],
+                filter_data=coinc["fd"], verbose=False),
+             lambda m: jnp.where(m > 110.0, 400.0, 50.0)),
+            (lambda: _port(coinc, "plain"),
+             lambda m: torch.where(m > 110.0, 400.0, 50.0))):
+        shell = make()
+        shell.set_dynamic_threshold("chan1", fn, candidate_capacity=8,
+                                    premerge_window=0)
+        capsys.readouterr()
+        shell.process(capacity=64, event_batch=3)
+        lines.append([ln for ln in capsys.readouterr().out.splitlines()
+                      if "candidate capacity exceeded" in ln])
+    assert lines[0] and lines[1] == lines[0]
+    assert "set_dynamic_threshold(candidate_capacity=...)" in lines[1][0]
 
 
 # ---------------------------------------------------------------------------
