@@ -3,8 +3,8 @@
 continuous-data trigger step, the FeatureProcessing shell, the
 TriggerProcessing shell chained into it, every feature algorithm
 through FeatureProcessing, filter generation chained into it, salting
-through both shells, and the dynamic and sub-tile trigger modes, on one
-card.
+through both shells, the dynamic and sub-tile trigger modes, and the
+IV/dIdV sweep with the dIdV branch of filter generation, on one card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -219,6 +219,35 @@ l. the trigger modes (h)'s configuration does not use: 64 continuous
    torch.profiler, chan1's dynamic merges beside (h)'s tiled ones on one
    batch (CUDA-event and device ms), the phase's seconds, and holds the
    rFFT kernel against its twin on the path's FIR segments.
+m. the IV/dIdV sweep (entry.ivsweep_entry and entry.run_ivsweep, the
+   configuration of examples/iv_didv/ivsweep_analysis.py at a sweep's
+   size): 32 bias points of chan1 (8 normal, 16 in the transition with R0
+   from 0.25 to 0.03 Ω at loop gain 10 and β 2, 8 SC), each 128 noise
+   traces of 32768 samples and 32 dIdV traces of 8 periods of the 100 Hz
+   square wave, made on the card and written as int16 codes (about 450
+   MiB in 64 flat dumps in a temporary directory, deleted at the end);
+   one channel where a detector records four. IVSweepProcessing on the
+   card (reads; the upload, cuts, float32 PSD through the rFFT kernel,
+   float64 offsets and lock-in on the card), then on the CPU in float64
+   IBIS, the state-aware 1/2/3-pole dIdV fits, the noise model and σ_E.
+   It fails unless the rFFT kernel launches once a bias point (32) with
+   cuFFT and the fused kernel at 0; the state tags are the truth's; Rn,
+   Rp and every transition R0 are within 5 %, β within 0.5 and the loop
+   gain within 30 % on at least 12 transition points, σ_E finite and
+   positive on every one; and the same sweep processed and analysed on
+   the CPU in float64 gives the same tags, IBIS within 1e-6, offsets,
+   average traces and dIdV data within 1e-9, PSD bins k ≥ 1 within
+   IV_PSD_RTOL (the float32 kernel on traces whose DC level is hundreds
+   of σ of their noise), and the fits' identified parameters and costs
+   within 1e-6 (at 3 poles A and τ₂: the one-block working points leave
+   C → 0 and τ₃ free). Then the dIdV branch of filter generation on 4
+   dIdV series at one operating point (entry.didv_filtergen_entry; no
+   counted route may run), its didv_results_* against the CPU run within
+   1e-6, β and l near truth, and FilterBuilder on one series against the
+   filter file's row. It prints the sweep's seconds (reads, device work,
+   CPU fits), the CPU run's, the card's busy share of process(), and the
+   rFFT kernel beside torch.fft.rfft on a bias point's [128, 32768] batch,
+   held against its twin there.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
@@ -233,8 +262,9 @@ FeatureProcessing; salting_trigger, salting_trigger_host,
 salting_trigger_unsalted: phase k's first calls of the trigger shell with
 the device injector, the host injector and none; salting_feature: its
 first call of the salted feature shell; trigger_shell_dynamic,
-trigger_shell_subtile: phase l's first calls of each mode), whose sum is
-``launches``, and the SM clocks of its phases from phase (d).
+trigger_shell_subtile: phase l's first calls of each mode; ivsweep:
+phase m's sweep, filtergen_didv: its dIdV branch of filter generation),
+whose sum is ``launches``, and the SM clocks of its phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
 
@@ -286,6 +316,14 @@ from detprocess_tpu_torch.pipelines import triggers  # noqa: E402
 from detprocess_tpu_torch.pipelines.triggers import (  # noqa: E402
     TriggerProcessing)
 from detprocess_tpu_torch.utils.logging import StageTimer  # noqa: E402
+from detprocess_tpu_torch.io.upload import (  # noqa: E402
+    channel_to_device, read_channel)
+from detprocess_tpu_torch.models.didv import DIDVFit  # noqa: E402
+from detprocess_tpu_torch.pipelines.filtergen import (  # noqa: E402
+    FilterDataProcessing)
+from detprocess_tpu_torch.pipelines.ivsweep import (  # noqa: E402
+    IVSweepProcessing)
+from detprocess_tpu_torch.pipelines.template import FilterBuilder  # noqa: E402
 
 FS = 1.25e6
 N = 32768
@@ -438,6 +476,20 @@ MODES_PAIR_HALF = 400     # a pair's triggers: within this of its pulses
 MODES_SUB_EVENTS = 16     # window 0: each above-threshold sample is a row
 MODES_SUB_CAPACITY = 32768
 MODES_ALIGN_SHIFTS = (37, -101)
+
+# phase (m): the sweep of entry.ivsweep_points at its full size
+IV_NTRACES = tentry.IV_NOISE_TRACES   # noise traces a bias point
+IV_N = tentry.IV_N                    # their length
+IV_NDIDV = tentry.IV_DIDV_TRACES      # dIdV traces a bias point
+IV_PERIODS = tentry.IV_PERIODS        # their square-wave periods
+IV_DATA_RTOL = 1e-9      # offsets, average traces, dIdV data vs float64
+IV_IBIS_RTOL = 1e-6
+IV_FIT_RTOL = 1e-6       # fits' identified parameters and costs
+IV_PSD_RTOL = 2e-3       # PSD bins k >= 1, float32 kernel vs float64: 2.5x
+                         # the worst bin measured on an H100 (8.0e-4,
+                         # PERF.md §6)
+IV_MIN_GOOD = 12         # transition points with β and l near truth
+FGD_SERIES = 4           # dIdV series of the filter-generation run
 
 KERNEL_INFO = {
     "rfft": {"source": "detprocess_tpu_torch/csrc/rfft.cu",
@@ -3277,6 +3329,302 @@ def _phase_l(device, card, errs, tmp):
             "trigger_shell_subtile": launches["subtile"]}
 
 
+# -- phase (m): the IV/dIdV sweep and the dIdV branch of filter generation --
+
+def sweep_fit_rows(ana):
+    """{(row, poles): DIDVFit} of an IVSweepAnalysis's sweep table."""
+    out = {}
+    for i, fits in enumerate(ana._sweep_df[tentry.CHANNEL]["didv_fits"]):
+        for key, fit in (fits or {}).items():
+            if key.startswith("fit_"):
+                out[(i, fit.poles)] = fit
+    return out
+
+
+def held_params(fit):
+    """The parameters of a fit that the data identify: all of them below
+    3 poles; A and τ₂ at 3 poles, where the sweep's one-block working
+    points leave C → 0 and τ₃ (and τ₁ along with it) free."""
+    return fit.params[[0, 4]] if fit.poles == 3 else fit.params
+
+
+def max_rel(got, ref):
+    """max |got − ref| / max |ref| over arrays (NaN where both are)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    scale = float(np.nanmax(np.abs(ref))) if ref.size else 0.0
+    if scale == 0.0:
+        return float(np.nanmax(np.abs(got))) if got.size else 0.0
+    return float(np.nanmax(np.abs(got - ref)) / scale)
+
+
+def compare_sweep(card, cpu, ana_card, ana_cpu):
+    """The card's sweep table and analysis against the float64 CPU run:
+    {what: worst relative difference}; raises past the tolerances."""
+    chan = tentry.CHANNEL
+    worst = {}
+    if list(card["state"]) != list(cpu["state"]):
+        raise RuntimeError("sweep: the state tags differ from the CPU run")
+    ib_c, ib_r = ana_card.get_ibis(chan), ana_cpu.get_ibis(chan)
+    worst["ibis"] = max(max_rel(getattr(ib_c, f), getattr(ib_r, f))
+                        for f in ib_r._fields)
+    for col in ("offset_noise", "offset_noise_err", "avgtrace_noise",
+                "offset_didv", "offset_didv_err", "didv", "didv_weights"):
+        worst[col] = max(max_rel(a, b) for a, b in zip(card[col], cpu[col]))
+    psd_max, psd_med = [], []
+    for a, b in zip(card["psd"], cpu["psd"]):
+        rel = np.abs(a[1:] - b[1:]) / b[1:]
+        psd_max.append(float(rel.max()))
+        psd_med.append(float(np.median(rel)))
+    worst["psd"] = max(psd_max)
+    fc, fr = sweep_fit_rows(ana_card), sweep_fit_rows(ana_cpu)
+    if set(fc) != set(fr):
+        raise RuntimeError("sweep: the card and CPU runs fitted other "
+                           "points")
+    for poles in (1, 2, 3):
+        keys = [k for k in fr if k[1] == poles]
+        if keys:
+            worst[f"fit_{poles}poles"] = max(
+                max(max_rel(held_params(fc[k]), held_params(fr[k])),
+                    abs(fc[k].cost / fr[k].cost - 1)) for k in keys)
+    limits = {"ibis": IV_IBIS_RTOL, "psd": IV_PSD_RTOL,
+              **{k: IV_FIT_RTOL for k in worst if k.startswith("fit_")}}
+    for key, value in worst.items():
+        limit = limits.get(key, IV_DATA_RTOL)
+        if not value <= limit:
+            raise RuntimeError(f"sweep: {key} differs from the float64 CPU "
+                               f"run by {value:.3e} (tolerance {limit:g})")
+    return worst, float(np.median(psd_med))
+
+
+def sweep_physics(table, ana, points, noise):
+    """The sweep's physics against the truth it was made from; raises
+    unless Rn, Rp and each transition R0 are within 5 %, β within 0.5 and
+    the loop gain within 30 % on IV_MIN_GOOD transition points, and σ_E
+    is finite and positive on every transition point."""
+    chan = tentry.CHANNEL
+    ibis = ana.get_ibis(chan)
+    df = ana._sweep_df[chan]
+    states = np.asarray(df["state"]).astype(str)
+    truth = {p["tes_bias"]: p for p in points}
+    trans = states == "transition"
+    r0_true = np.array([truth[b]["params"].r0 for b in df["tes_bias"]])
+    r0_err = np.abs(df["r0"][trans] / r0_true[trans] - 1)
+    beta = df["didv_2poles_beta"][trans]
+    loop = df["didv_2poles_l"][trans]
+    good = (np.abs(beta - tentry.IV_BETA) < 0.5) & (
+        np.abs(loop / tentry.IV_LOOPGAIN - 1) < 0.3)
+    sigma = df["energy_resolution"][trans]
+    log(f"[m] physics: Rn {ibis.rn:.6f} Ω (truth {tentry.IV_RN}), Rp "
+        f"{ibis.rp:.6e} Ω (truth {tentry.IV_RP}), ioffset "
+        f"{ibis.ioffset:.6e} A (truth {tentry.IV_IOFFSET}); transition R0 "
+        f"worst {r0_err.max():.3e} relative; 2-pole β "
+        f"[{beta.min():.4f}, {beta.max():.4f}], l [{loop.min():.4f}, "
+        f"{loop.max():.4f}] (truth {tentry.IV_BETA}, {tentry.IV_LOOPGAIN}):"
+        f" {int(good.sum())} of {int(trans.sum())} points within 0.5 and "
+        f"30 %; σ_E [{np.nanmin(sigma):.4e}, {np.nanmax(sigma):.4e}] J; "
+        f"Tload {noise['tload']:.5f} K (truth {tentry.IV_TLOAD})")
+    if list(states) != [p["state"] for p in points]:
+        raise RuntimeError(f"sweep: state tags {list(states)}")
+    if not (abs(ibis.rn / tentry.IV_RN - 1) < 0.05
+            and abs(ibis.rp / tentry.IV_RP - 1) < 0.05
+            and (r0_err < 0.05).all()):
+        raise RuntimeError("sweep: Rn, Rp or a transition R0 is off truth")
+    if good.sum() < IV_MIN_GOOD:
+        raise RuntimeError(f"sweep: β and l near truth on only "
+                           f"{int(good.sum())} transition points")
+    if not (np.isfinite(sigma).all() and (sigma > 0).all()):
+        raise RuntimeError("sweep: σ_E not finite and positive on every "
+                           "transition point")
+
+
+def compare_didv_store(card_fd, cpu_fd):
+    """The filter store's didv_results_* against the float64 CPU run:
+    {name: worst relative difference} (held parameters of the fits; the
+    small-signal values of 2-pole fits, their errors apart)."""
+    chan = tentry.CHANNEL
+    worst = {}
+    for name, (value, _, _) in card_fd.data[chan].items():
+        if not name.startswith("didv_results_"):
+            continue
+        ref = cpu_fd.data[chan][name][0]
+        if name.endswith("_fit_default"):
+            fit_c = DIDVFit(value["params"], value["cov"], value["cost"],
+                            value["poles"])
+            fit_r = DIDVFit(ref["params"], ref["cov"], ref["cost"],
+                            ref["poles"])
+            worst[name] = max(max_rel(held_params(fit_c),
+                                      held_params(fit_r)),
+                              abs(value["cost"] / ref["cost"] - 1))
+        elif "3poles" not in name:
+            worst[name] = max(max_rel(value[k], ref[k]) for k in ref
+                              if not k.endswith("_err"))
+    for name, value in worst.items():
+        if not value <= IV_FIT_RTOL:
+            raise RuntimeError(f"filter-generation dIdV: {name} differs "
+                               f"from the CPU run by {value:.3e}")
+    return worst
+
+
+def phase_m(device, card, errs):
+    """The IV/dIdV sweep (entry.ivsweep_entry, run_ivsweep) and the dIdV
+    branch of filter generation with FilterBuilder on the card; returns
+    each path's launches."""
+    tmp = tempfile.mkdtemp(prefix="detprocess_smoke_ivsweep_")
+    try:
+        return _phase_m(device, card, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_m(device, card, errs, tmp):
+    t_phase = t = time.perf_counter()
+    chan = tentry.CHANNEL
+    points = tentry.ivsweep_points()
+    sizes = dict(points=points, ntraces=IV_NTRACES, n=IV_N, ndidv=IV_NDIDV,
+                 nper=IV_PERIODS)
+    sweep_dir = os.path.join(tmp, "sweep")
+    proc, bps = tentry.ivsweep_entry(device, sweep_dir, seed=SEED, **sizes)
+    nbytes = sum(os.path.getsize(os.path.join(sweep_dir, f))
+                 for f in os.listdir(sweep_dir))
+    log(f"[m] wrote a sweep of {len(points)} bias points ({chan}: "
+        f"{sum(p['state'] == 'normal' for p in points)} normal, "
+        f"{sum(p['state'] == 'transition' for p in points)} transition, "
+        f"{sum(p['state'] == 'sc' for p in points)} SC), each {IV_NTRACES} "
+        f"noise traces of {IV_N} and {IV_NDIDV} dIdV traces of "
+        f"{IV_PERIODS} periods, {nbytes / 2**20:.1f} MiB of int16 codes in "
+        f"{2 * len(points)} flat dumps, in {time.perf_counter() - t:.1f} s "
+        "(set-up, not timed)")
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    timer = StageTimer()
+    t = time.perf_counter()
+    table, ana, noise = tentry.run_ivsweep(proc, bps, timer=timer)
+    run_s = time.perf_counter() - t
+    launches, library = _kernels.launch_counts(), _kernels.library_counts()
+    stages = {k: v["seconds"] for k, v in timer.report(log=False).items()}
+    fit_stages = ("ibis", "didv fits", "noise model", "energy resolution")
+    npoints = sum(b.get("noise_files") is not None for b in bps)
+    log(f"[m] sweep on the card: {run_s:.3f} s: reads "
+        f"{stages.get('read', 0.0):.3f} s, device work (upload, cuts, PSDs, "
+        f"offsets, lock-in, results to the host) "
+        f"{stages.get('device', 0.0):.3f} s, CPU fits "
+        f"{sum(stages.get(k, 0.0) for k in fit_stages):.3f} s ("
+        + ", ".join(f"{k} {stages.get(k, 0.0):.3f} s" for k in fit_stages)
+        + f"); launches {launches}, library route {library}")
+    want = {"rfft": npoints, "fused_nodelay_of": 0, "cufft_rfft": 0}
+    if {**launches, **library} != want:
+        raise RuntimeError(f"sweep: launches {launches}, library {library},"
+                           f" expected {want}")
+    sweep_physics(table, ana, points, noise)
+
+    # the same sweep in float64 on the CPU
+    t = time.perf_counter()
+    cpu_table, cpu_ana, _ = tentry.run_ivsweep(
+        IVSweepProcessing(verbose=False, device="cpu"), bps)
+    cpu_s = time.perf_counter() - t
+    worst, psd_median = compare_sweep(table, cpu_table, ana, cpu_ana)
+    log(f"[m] card against the float64 CPU run ({cpu_s:.3f} s): the same "
+        f"state tags; worst relative differences " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; PSD bins k ≥ 1: median {psd_median:.3e}, worst "
+        f"{worst['psd']:.3e} (tolerance {IV_PSD_RTOL:g}: the rFFT kernel is "
+        f"float32 on traces whose DC level is up to ~650 σ of the noise, "
+        f"and its rounding scales with that level)")
+
+    # the card's busy share over the trace work (a second process() call)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        proc.process(chan, bps, sgfreq=tentry.IV_SGFREQ,
+                     sgamp=tentry.IV_SGAMP, rsh=tentry.IV_RSH)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t
+    busy, kern, copy = device_intervals(prof)
+    share = busy / (1e3 * prof_s)
+    log(f"[m] process() under torch.profiler: device busy {busy:.3f} ms of "
+        f"{1e3 * prof_s:.3f} ms ({100 * share:.1f}% busy, "
+        f"{100 * (1 - share):.1f}% idle); kernels {kern:.3f} ms, copies "
+        f"{copy:.3f} ms; on {card}")
+
+    # the kernel against its twin and cuFFT on a bias point's noise batch
+    host, conv = read_channel(bps[0]["noise_files"], chan,
+                              pin=torch.device(device).type == "cuda")
+    x = channel_to_device(host, conv, device).float()
+    compare_rfft(x, errs, "m")
+    k_ms, p_ms = time_pair(lambda: cuda_fft.rfft_kernel(x),
+                           lambda: torch.fft.rfft(x, dim=-1))
+    b_ms, b_by = bound("rfft", x.shape[-1], x.shape[0])
+    log(f"[m] rfft at [{x.shape[0]}, {x.shape[-1]}] (a bias point's noise "
+        f"batch): kernel {k_ms:.4f} ms, torch.fft.rfft (cuFFT) {p_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}); on {card}")
+    del x
+
+    # the dIdV branch of filter generation, and FilterBuilder, on dIdV
+    # series of the sweep's configuration at one operating point
+    t = time.perf_counter()
+    fg, series, point = tentry.didv_filtergen_entry(
+        device, os.path.join(tmp, "didv"), seed=SEED + 1, nseries=FGD_SERIES,
+        ndidv=IV_NDIDV, nper=IV_PERIODS)
+    log(f"[m] wrote {FGD_SERIES} dIdV series at R0 = {point['params'].r0} Ω"
+        f" in {time.perf_counter() - t:.1f} s (set-up, not timed)")
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    fg_timer = StageTimer()
+    t = time.perf_counter()
+    fd = fg.proces_didv(timer=fg_timer)
+    fg_s = time.perf_counter() - t
+    fg_launches = _kernels.launch_counts()
+    fg_library = _kernels.library_counts()
+    log(f"[m] filter generation's dIdV branch: {fg_s:.3f} s (" + ", ".join(
+        f"{k} {v['seconds']:.3f} s"
+        for k, v in fg_timer.report(log=False).items())
+        + f"); launches {fg_launches}, library route {fg_library} (no "
+        "kernel is on this path: the lock-in's spectra are float64 "
+        "torch.fft, as the JAX branch's are np.fft)")
+    if any(fg_launches.values()) or any(fg_library.values()):
+        raise RuntimeError("filter-generation dIdV: a counted route ran")
+    ssp = fd.get_didv_results(chan, 2, tag="smallsignalparams_default")
+    rows = fd.get_didv_dataframe(chan)
+    log(f"[m] filter file: {sorted(k for k in fd.data[chan] if 'didv' in k)}"
+        f"; combined 2-pole β {ssp['beta']:.4f} ± {ssp['beta_err']:.4f}, "
+        f"l {ssp['l']:.4f} ± {ssp['l_err']:.4f}; per series l "
+        f"{np.round(rows['l_2poles_fit'], 4).tolist()}")
+    if not (abs(ssp["beta"] - tentry.IV_BETA) < 0.5
+            and abs(ssp["l"] / tentry.IV_LOOPGAIN - 1) < 0.3
+            and len(rows["series_name"]) == FGD_SERIES):
+        raise RuntimeError("filter-generation dIdV: β or l off truth")
+    iv = tentry.ivsweep_results_of(point)
+    cpu_fd = FilterDataProcessing(
+        didv_files=series, config=tentry.didv_filtergen_config(iv),
+        verbose=False, device="cpu").proces_didv()
+    fg_worst = compare_didv_store(fd, cpu_fd)
+    log("[m] filter file against the float64 CPU run: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in fg_worst.items()))
+
+    fb = FilterBuilder(verbose=False, device=device)
+    first = sorted(series)[0]
+    fb.didv.process_raw_data(chan, series[first], tentry.IV_SGFREQ,
+                             tentry.IV_SGAMP, tentry.IV_RSH)
+    fb.didv.dofit(chan, poles=2)
+    fb.didv.set_ivsweep_results(chan, iv)
+    fb.didv.calc_smallsignal_params(chan, poles=2)
+    l_fb = fb.didv.get_smallsignal_params(chan, 2)["l"]
+    l_fg = float(rows["l_2poles_fit"][0])
+    log(f"[m] FilterBuilder on series {first}: l {l_fb:.6f} (the filter "
+        f"file's row: {l_fg:.6f}); one store under Noise, Template and "
+        f"DIDVAnalysis: {fb.didv._filter_data is fb.noise._filter_data}")
+    if not (abs(l_fb / l_fg - 1) < IV_DATA_RTOL
+            and fb.didv._filter_data is fb.template._filter_data):
+        raise RuntimeError("FilterBuilder: differs from the filter file")
+    log(f"[m] phase took {time.perf_counter() - t_phase:.1f} s (the sweep "
+        f"{run_s:.1f} s on the card, its float64 CPU run {cpu_s:.1f} s)")
+    return {"ivsweep": launches, "filtergen_didv": fg_launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=os.path.abspath, default=None,
@@ -3301,6 +3649,7 @@ def main(argv=None):
     fg_launches = phase_j(device, card, errs)
     salt_launches = phase_k(device, card, errs)
     mode_launches = phase_l(device, card, errs)
+    sweep_launches = phase_m(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
@@ -3314,7 +3663,9 @@ def main(argv=None):
                     **{path: counts[name]
                        for path, counts in salt_launches.items()},
                     **{path: counts[name]
-                       for path, counts in mode_launches.items()}}
+                       for path, counts in mode_launches.items()},
+                    **{path: counts[name]
+                       for path, counts in sweep_launches.items()}}
         rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",

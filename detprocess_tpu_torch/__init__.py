@@ -14,7 +14,14 @@ Ported so far:
   :class:`detprocess_tpu_torch.pipelines.features.FeatureProcessing` and
   :class:`detprocess_tpu_torch.pipelines.triggers.TriggerProcessing`
   (continuous files to a coincidence-merged trigger table, with the
-  ``EventBuilder`` and the ``OptimumFilterTrigger`` object API).
+  ``EventBuilder`` and the ``OptimumFilterTrigger`` object API);
+- filter generation, noise, randoms, templates and salting
+  (``FilterDataProcessing``, ``Noise``, ``Randoms``, ``Template``,
+  ``Salting``);
+- the dIdV, IV-sweep and noise-model fits (``DIDVAnalysis``,
+  ``IVSweepProcessing``, ``IVSweepAnalysis``, ``NoiseModel``,
+  ``FilterBuilder``): the trace work (cuts, PSDs, offsets, lock-in) on
+  the GPU, the fits on the CPU in float64, as the JAX package pins them.
 
 The two hand-written CUDA kernels (``csrc/``) are the batched real FFT
 (``ops/cuda_fft.py``, also the trigger FIR's segment transform) and the
@@ -25,3 +32,32 @@ where it takes their shape, else to cuFFT (``ops/fft.py``).
 The package imports torch and numpy only: not JAX, not the JAX package,
 not h5py, pandas or yaml.
 """
+
+_EXPORTS = {
+    "FeatureProcessing": "detprocess_tpu_torch.pipelines.features",
+    "TriggerProcessing": "detprocess_tpu_torch.pipelines.triggers",
+    "EventBuilder": "detprocess_tpu_torch.pipelines.triggers",
+    "OptimumFilterTrigger": "detprocess_tpu_torch.pipelines.oftrigger",
+    "Randoms": "detprocess_tpu_torch.pipelines.randoms",
+    "Salting": "detprocess_tpu_torch.pipelines.salting",
+    "Noise": "detprocess_tpu_torch.pipelines.noise",
+    "NoiseModel": "detprocess_tpu_torch.pipelines.noisemodel",
+    "DIDVAnalysis": "detprocess_tpu_torch.pipelines.didv",
+    "IVSweepProcessing": "detprocess_tpu_torch.pipelines.ivsweep",
+    "IVSweepAnalysis": "detprocess_tpu_torch.pipelines.ivsweep",
+    "Template": "detprocess_tpu_torch.pipelines.template",
+    "FilterBuilder": "detprocess_tpu_torch.pipelines.template",
+    "FilterDataProcessing": "detprocess_tpu_torch.pipelines.filtergen",
+    "FilterData": "detprocess_tpu_torch.io.filterdata",
+    "RawData": "detprocess_tpu_torch.io.rawdata",
+}
+
+
+def __getattr__(name):
+    """The user-facing classes, imported when first asked for (the JAX
+    package's top-level names)."""
+    if name in _EXPORTS:
+        import importlib
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(
+        f"module 'detprocess_tpu_torch' has no attribute {name!r}")

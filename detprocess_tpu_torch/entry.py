@@ -67,6 +67,16 @@ step on one device.
   injected indices, a feature shell of of1x1 no-delay fits at Nt = 4096,
   both with the device injector. The GPU smoke run uses its parts too
   (:func:`salting_feature_config`, :func:`salting_truth_table`).
+- :func:`ivsweep_entry` is an IV/dIdV sweep of one channel as
+  examples/iv_didv/ivsweep_analysis.py and tests/test_ivsweep_pipeline.py
+  configure it (fs 1.25 MHz, square wave 100 Hz and 2e-8 A, Rsh 5 mΩ,
+  Rp 4 mΩ, Rn 300 mΩ, Tc 40 mK, Tbath 20 mK) at a sweep's size: 32 bias
+  points (8 normal, 16 in the transition with R0 from 0.25 to 0.03 Ω at
+  loop gain 10 and β 2, 8 superconducting), each with 128 noise traces of
+  32768 samples and 32 dIdV traces of 8 periods, written as flat int16
+  dumps (:func:`write_ivsweep_dumps`); :func:`run_ivsweep` processes
+  and analyses it. :func:`didv_filtergen_entry` is the dIdV branch of
+  filter generation on dIdV series of that configuration.
 """
 
 from __future__ import annotations
@@ -80,7 +90,7 @@ import torch
 from detprocess_tpu_torch import device as dev
 from detprocess_tpu_torch.io.filterdata import FilterData
 from detprocess_tpu_torch.io.rawdata import RawIndex, write_flat_dump
-from detprocess_tpu_torch.models import pulse
+from detprocess_tpu_torch.models import pulse, tesnoise
 from detprocess_tpu_torch.ops import filterbank, trigger
 from detprocess_tpu_torch.pipelines.feature_step import FeatureStep
 from detprocess_tpu_torch.pipelines.features import FeatureProcessing
@@ -1022,3 +1032,268 @@ def salting_chain_entry(device=None, directory: str | None = None,
         device=device)
     fshell.set_salting(injector)
     return salting, tshell, fshell, index
+
+
+# the IV/dIdV sweep (examples/iv_didv/ivsweep_analysis.py and
+# tests/test_ivsweep_pipeline.py at a sweep's real size): one channel,
+# 32 bias points from the normal branch through the transition to the SC
+# branch, each with its noise series and its dIdV series
+IV_SERIES = "I1_D20260102_T{:06d}"
+IV_RSH = 5e-3                      # shunt (Ω)
+IV_RP = 4e-3                       # parasitic resistance (Ω)
+IV_RN = 0.30                       # normal resistance (Ω)
+IV_TC, IV_TBATH, IV_TLOAD = 0.040, 0.020, 0.030    # K
+IV_SGFREQ, IV_SGAMP = 100.0, 2e-8  # square wave (Hz, A)
+IV_IOFFSET = -1.3e-6               # SQUID current offset (A)
+IV_P0 = 1e-12                      # bias power in the transition (W)
+IV_BETA, IV_LOOPGAIN = 2.0, 10.0
+IV_L = 4e-7                        # inductance (H)
+IV_TAU0 = 1e-3                     # C/G (s)
+IV_SQUID = 1e-11                   # SQUID noise (A/√Hz)
+IV_DIDV_NOISE = 2e-10              # white noise of the dIdV traces (A)
+IV_NORMAL = tuple(np.linspace(400e-6, 260e-6, 8))        # bias (A)
+IV_TRANSITION_R0 = tuple(np.linspace(0.25, 0.03, 16))    # Ω
+IV_SC = tuple(np.linspace(8e-6, 1e-6, 8))                # bias (A)
+IV_NOISE_TRACES, IV_N = 128, 32768
+IV_DIDV_TRACES, IV_PERIODS = 32, 8
+IV_ADC_HEADROOM = 1.25             # full scale over the largest current
+
+
+def ivsweep_points(normal=IV_NORMAL, transition_r0=IV_TRANSITION_R0,
+                   sc=IV_SC) -> list:
+    """The sweep's bias points from the largest bias: dicts of
+    ``tes_bias``, ``state`` and the ``models/tesnoise.TESParams`` of the
+    working point (normal and SC points have no electro-thermal
+    feedback; the transition holds the bias power at :data:`IV_P0`)."""
+    rl = IV_RSH + IV_RP
+    g = 5.0 * IV_P0 / (IV_TC * (1.0 - (IV_TBATH / IV_TC) ** 5))
+
+    def params(r0, i0, beta, loop, tau0):
+        return tesnoise.TESParams(
+            r0=r0, rl=rl, beta=beta, l=loop, L=IV_L, tau0=tau0, G=g,
+            tc=IV_TC, tload=IV_TLOAD, tb=IV_TBATH, i0=i0,
+            squiddc=IV_SQUID)
+
+    points = []
+    for ib in normal:
+        points.append({"tes_bias": float(ib), "state": "normal",
+                       "params": params(IV_RN, ib * IV_RSH / (IV_RN + rl),
+                                        0.0, 0.0, 1e-6)})
+    for r0 in transition_r0:
+        i0 = float(np.sqrt(IV_P0 / r0))
+        points.append({"tes_bias": i0 * (r0 + rl) / IV_RSH,
+                       "state": "transition",
+                       "params": params(float(r0), i0, IV_BETA,
+                                        IV_LOOPGAIN, IV_TAU0)})
+    for ib in sc:
+        points.append({"tes_bias": float(ib), "state": "sc",
+                       "params": params(0.0, ib * IV_RSH / rl, 0.0, 0.0,
+                                        1e-6)})
+    return points
+
+
+def ivsweep_adc_cal(points) -> float:
+    """Amps per ADC code: full scale at :data:`IV_ADC_HEADROOM` times the
+    normal branch's largest current."""
+    largest = max(abs(p["params"].i0 + IV_IOFFSET) for p in points
+                  if p["state"] == "normal")
+    return IV_ADC_HEADROOM * largest / 32767.0
+
+
+def ivsweep_noise(gen: torch.Generator, p, nev: int, n: int, device,
+                  fs: float = FS) -> torch.Tensor:
+    """Noise traces [nev, n] float64 of working point ``p``: Gaussian
+    noise of the (one-sided) ``tesnoise.s_itot`` spectrum, plus i0 and
+    the SQUID offset."""
+    f = np.fft.fftfreq(n, 1.0 / fs)
+    psd = tesnoise.s_itot(p, np.where(f == 0, f[1], f))
+    scale = torch.as_tensor(np.sqrt(psd / 2.0 * fs * n), device=device)
+    white = torch.fft.fft(torch.randn((nev, n), generator=gen,
+                                      dtype=torch.float64, device=device),
+                          dim=-1) / np.sqrt(n)
+    return (torch.fft.ifft(white * scale, dim=-1).real
+            + (p.i0 + IV_IOFFSET))
+
+
+def ivsweep_didv(gen: torch.Generator, p, nev: int, nper: int, device,
+                 fs: float = FS) -> torch.Tensor:
+    """dIdV traces [nev, nper·fs/sgfreq] float64: the response of working
+    point ``p`` to the square wave of :data:`IV_SGAMP` through the shunt
+    (``tesnoise.didv``), white noise of :data:`IV_DIDV_NOISE`, i0 and the
+    offset."""
+    period = int(round(fs / IV_SGFREQ))
+    n = period * nper
+    t = np.arange(n)
+    square_v = np.where((t % period) < period // 2, 0.5, -0.5) * (
+        IV_SGAMP * IV_RSH)
+    f = np.fft.fftfreq(n, 1.0 / fs)
+    resp = tesnoise.didv(p, np.where(f == 0, f[1], f))
+    resp_t = np.real(np.fft.ifft(resp * np.fft.fft(square_v)))
+    noise = torch.randn((nev, n), generator=gen, dtype=torch.float64,
+                        device=device) * IV_DIDV_NOISE
+    return (torch.as_tensor(resp_t, device=device)[None, :] + noise
+            + (p.i0 + IV_IOFFSET))
+
+
+def ivsweep_index(path: str, nb_samples: int, series: str, cal: float,
+                  tes_bias: float, data_type: str,
+                  fs: float = FS) -> RawIndex:
+    """The raw index of one flat int16 sweep dump of channel
+    :data:`CHANNEL` (its ``tes_bias`` in the detector config)."""
+    return RawIndex.from_flat(
+        [path], [CHANNEL], nb_samples, fs, series, dtype=np.int16,
+        adc_conversion_factor=cal,
+        detector_config={CHANNEL: {"tes_bias": tes_bias,
+                                   "close_loop_norm": 1.0}},
+        data_type=data_type)
+
+
+def write_ivsweep_dumps(directory: str, gen: torch.Generator, device,
+                        points=None, ntraces: int = IV_NOISE_TRACES,
+                        n: int = IV_N, ndidv: int = IV_DIDV_TRACES,
+                        nper: int = IV_PERIODS) -> list:
+    """Write each bias point's noise (``ntraces`` × ``n``) and dIdV
+    (``ndidv`` × ``nper`` periods) traces, made on ``device`` and stored
+    as int16 codes, as one flat dump each in ``directory``; returns the
+    bias points (:func:`ivsweep_points` by default) with their
+    ``noise_files`` and ``didv_files`` as raw indexes, the input of
+    ``IVSweepProcessing.process``."""
+    points = ivsweep_points() if points is None else points
+    cal = ivsweep_adc_cal(points)
+    period = int(round(FS / IV_SGFREQ))
+    out = []
+    for k, pt in enumerate(points):
+        bp = dict(pt)
+        for kind, make, width in (
+                ("noise", lambda: ivsweep_noise(gen, pt["params"], ntraces,
+                                                n, device), n),
+                ("didv", lambda: ivsweep_didv(gen, pt["params"], ndidv,
+                                              nper, device),
+                 period * nper)):
+            series = IV_SERIES.format((1 if kind == "noise" else 2) * 10000
+                                      + k)
+            codes = torch.round(make() / cal).clamp(-32768, 32767).to(
+                torch.int16)
+            path = os.path.join(directory, f"{kind}_{series}_F0001.bin")
+            write_flat_dump(path, codes[:, None, :].cpu().numpy())
+            bp[f"{kind}_files"] = ivsweep_index(
+                path, width, series, cal, pt["tes_bias"],
+                "noise" if kind == "noise" else "didv")
+        out.append(bp)
+    return out
+
+
+def ivsweep_entry(device=None, directory: str | None = None, seed: int = 0,
+                  points=None, ntraces: int = IV_NOISE_TRACES,
+                  n: int = IV_N, ndidv: int = IV_DIDV_TRACES,
+                  nper: int = IV_PERIODS):
+    """Return ``(processing, bias_points)``: the
+    ``pipelines/ivsweep.IVSweepProcessing`` on ``device`` and the bias
+    points of the sweep that :func:`write_ivsweep_dumps` writes into
+    ``directory`` (a new temporary directory by default). Run it with
+    :func:`run_ivsweep`. ``device=None`` means the GPU."""
+    from detprocess_tpu_torch.pipelines.ivsweep import IVSweepProcessing
+
+    device = _device(device)
+    if directory is None:
+        directory = tempfile.mkdtemp(prefix="detprocess_ivsweep_")
+    os.makedirs(directory, exist_ok=True)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bias_points = write_ivsweep_dumps(directory, gen, device, points,
+                                      ntraces, n, ndidv, nper)
+    return IVSweepProcessing(verbose=False, device=device), bias_points
+
+
+def ivsweep_template(n: int = IV_N, fs: float = FS) -> np.ndarray:
+    """The unit-peak current template of the sweep's energy resolution
+    (20 µs rise, 200 µs fall, pretrigger n/2)."""
+    return pulse.make_template(fs, n, n // 2, A=1.0, tau_r=20e-6,
+                               tau_f1=200e-6)
+
+
+def run_ivsweep(processing, bias_points, poles=(2, 3), timer=None):
+    """Process the sweep (module ``pipelines/ivsweep``) and analyse it:
+    IBIS, the state-aware dIdV fits (transition points within 5–95 % of
+    Rn), the noise model and σ_E of each transition point with
+    :func:`ivsweep_template`. Returns ``(table, analysis, noise)``;
+    ``timer`` takes the reads and the device work, and the CPU fits by
+    step: "ibis", "didv fits", "noise model", "energy resolution"."""
+    from contextlib import nullcontext
+
+    from detprocess_tpu_torch.pipelines.ivsweep import IVSweepAnalysis
+
+    def stage(name):
+        return timer.stage(name) if timer is not None else nullcontext()
+
+    table = processing.process(CHANNEL, bias_points, sgfreq=IV_SGFREQ,
+                               sgamp=IV_SGAMP, rsh=IV_RSH, timer=timer)
+    ana = IVSweepAnalysis(verbose=False)
+    ana.set_data_from_dataframe(CHANNEL, table, rsh=IV_RSH)
+    with stage("ibis"):
+        ana.analyze_sweep(CHANNEL)
+    with stage("didv fits"):
+        ana.analyze_didv(CHANNEL, poles=poles,
+                         transition_percent_rn_max=95.0)
+    with stage("noise model"):
+        noise = ana.analyze_noise(CHANNEL, tc=IV_TC, tbath=IV_TBATH,
+                                  tload_guess=IV_TLOAD, poles=min(poles))
+    with stage("energy resolution"):
+        fs = float(np.asarray(table["fs"])[0])
+        n = len(next(v for v in table["psd"] if v is not None))
+        ana.calc_energy_resolution(CHANNEL, ivsweep_template(n, fs), fs,
+                                   poles=min(poles))
+    return table, ana, noise
+
+
+def didv_filtergen_config(ivsweep_results: dict, poles=(2, 3)) -> dict:
+    """The ``didv`` section of a filter-generation config for
+    :data:`CHANNEL` (docs/CONFIG.md's didv block): the square wave, the
+    shunt, the pole counts and the IV-sweep bias point."""
+    return {"didv": {CHANNEL: {
+        "sgfreq": IV_SGFREQ, "sgamp": IV_SGAMP, "rshunt": IV_RSH,
+        "poles": list(poles), "ivsweep_results": dict(ivsweep_results)}}}
+
+
+def didv_filtergen_entry(device=None, directory: str | None = None,
+                         seed: int = 0, nseries: int = 4, r0: float = 0.1,
+                         ndidv: int = IV_DIDV_TRACES,
+                         nper: int = IV_PERIODS, poles=(2, 3)):
+    """Return ``(processing, series, point)``: the dIdV branch of filter
+    generation (``FilterDataProcessing`` with :func:`didv_filtergen_config`)
+    over ``nseries`` dIdV series of the sweep's configuration taken at the
+    transition point of resistance ``r0`` (flat int16 dumps written into
+    ``directory``), with the IV bias point of that point (its true i0, r0
+    and the sweep's Rp and Rshunt). ``series`` maps each series name to
+    its raw index. Run it with ``processing.proces_didv()``.
+    ``device=None`` means the GPU."""
+    device = _device(device)
+    if directory is None:
+        directory = tempfile.mkdtemp(prefix="detprocess_didv_")
+    os.makedirs(directory, exist_ok=True)
+    point = ivsweep_points(normal=(), transition_r0=(r0,), sc=())[0]
+    cal = ivsweep_adc_cal(ivsweep_points())
+    gen = torch.Generator(device=device).manual_seed(seed)
+    period = int(round(FS / IV_SGFREQ))
+    series = {}
+    for k in range(nseries):
+        name = IV_SERIES.format(30000 + k)
+        codes = torch.round(ivsweep_didv(gen, point["params"], ndidv, nper,
+                                         device) / cal).clamp(
+            -32768, 32767).to(torch.int16)
+        path = os.path.join(directory, f"didv_{name}_F0001.bin")
+        write_flat_dump(path, codes[:, None, :].cpu().numpy())
+        series[name] = ivsweep_index(path, period * nper, name, cal,
+                                     point["tes_bias"], "didv")
+    proc = FilterDataProcessing(
+        didv_files=series,
+        config=didv_filtergen_config(ivsweep_results_of(point), poles),
+        verbose=False, device=device)
+    return proc, series, point
+
+
+def ivsweep_results_of(point) -> dict:
+    """The IV-sweep results of a bias point of :func:`ivsweep_points`:
+    its true i0, r0 and p0, the sweep's Rp and Rshunt, and its bias."""
+    p = point["params"]
+    return {"i0": p.i0, "r0": p.r0, "rp": IV_RP, "rshunt": IV_RSH,
+            "ibias": point["tes_bias"], "p0": p.i0 ** 2 * p.r0}

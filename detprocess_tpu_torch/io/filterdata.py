@@ -87,6 +87,36 @@ def as_table(table) -> Table:
                      "DataFrame)!")
 
 
+def records_table(rows) -> Table:
+    """The :class:`Table` of a list of row dicts, as ``pd.DataFrame(rows)``
+    lays it out: the columns in order of first appearance; a column of
+    scalars becomes a numpy array (NaN where a row lacks it, a str column
+    an object array, None where missing), a column with an array or dict
+    cell a list (None where missing)."""
+    cols: list = []
+    for r in rows:
+        for k in r:
+            if k not in cols:
+                cols.append(k)
+    table = Table()
+    for c in cols:
+        cells = [r.get(c) for r in rows]
+        present = [v for v in cells if v is not None]
+        if any(isinstance(v, (np.ndarray, dict, list, tuple))
+               for v in present):
+            table[c] = cells
+        elif any(isinstance(v, str) for v in present):
+            table[c] = np.array(cells, dtype=object)
+        elif present and all(isinstance(v, (int, np.integer))
+                             and not isinstance(v, (bool, np.bool_))
+                             for v in present) and len(present) == len(cells):
+            table[c] = np.array(cells, dtype=np.int64)
+        else:
+            table[c] = np.array([np.nan if v is None else v for v in cells],
+                                dtype=float)
+    return table
+
+
 class FilterData:
     """Tagged filter store: ``{channel: {param_tag: (value, index,
     metadata)}}``."""

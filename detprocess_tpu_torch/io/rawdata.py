@@ -184,6 +184,21 @@ class RawIndex:
 
     # -- builders ----------------------------------------------------------
     @classmethod
+    def concat(cls, indexes: Sequence["RawIndex"]) -> "RawIndex":
+        """One index over the files of ``indexes``, its events in their
+        reading orders one index after the other."""
+        files, events = [], {k: [] for k in cls.EVENT_KEYS + ("datasets",)}
+        for idx in indexes:
+            base = len(files)
+            files.extend(idx.files)
+            for r in idx.order:
+                events["datasets"].append(idx.datasets[r])
+                events["file"].append(base + int(idx.file[r]))
+                for k in cls.EVENT_KEYS[1:]:
+                    events[k].append(getattr(idx, k)[r])
+        return cls(files, events)
+
+    @classmethod
     def from_flat(cls, paths: Sequence[str], channels: Sequence[str],
                   nb_samples: int, sample_rate: float,
                   series_name: str, dtype=np.int16,

@@ -15,6 +15,12 @@ Shared by the ``FeatureProcessing`` and ``TriggerProcessing`` shells
 
 On the CPU a batch stays where it is: the "upload" is the host tensor
 itself, and only the conversion runs.
+
+:func:`read_channel` and :func:`channel_to_device` serve the IV-sweep and
+dIdV paths, which take one channel of every event of a few files at once:
+the channel's rows are read as stored (int16 codes for pytesdaq data)
+into one pinned buffer, copied up once, and converted to amps on the
+device in the asked dtype with each event's float64 factor.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from detprocess_tpu_torch.io.fastio import FastReader
 from detprocess_tpu_torch.ops.adc import adc_convert
 
 
@@ -108,3 +115,42 @@ class Uploader:
         if conv_d is not None:
             x = adc_convert(x, conv_d, dtype)
         return x, copied
+
+
+
+def read_channel(index, channel: str, nevents: Optional[int] = None,
+                 pin: bool = False):
+    """(stored values [B, N] as a host tensor, pinned with ``pin``; each
+    event's float64 conversion factor [B]) of ``channel`` for the first
+    ``nevents`` events of the ``io/rawdata.RawIndex`` ``index`` in
+    reading order."""
+    rows = index.order if nevents is None else index.order[:nevents]
+    if len(rows) == 0:
+        raise ValueError(f"no events to read for channel {channel}")
+    first = index.datasets[int(rows[0])]
+    stored = torch.from_numpy(np.empty(0, first.dtype)).dtype
+    host = torch.empty((len(rows), first.shape[-1]), dtype=stored,
+                       pin_memory=pin)
+    buf = host.numpy()
+    conv = np.empty(len(rows), np.float64)
+    fast = FastReader()
+    try:
+        for i, row in enumerate(rows):
+            f = index.files[int(index.file[row])]
+            ci = f.channels.index(channel)
+            fast.read(index.datasets[int(row)], rows=[ci],
+                      out=buf[i:i + 1])
+            conv[i] = f.conv[ci]
+    finally:
+        fast.close()
+    return host, conv
+
+
+def channel_to_device(host: torch.Tensor, conv: np.ndarray, device,
+                      dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """The amps [B, N] in ``dtype`` on ``device`` of :func:`read_channel`'s
+    stored values: one copy up, then stored · conv on the device (float64
+    factors, as the reader's amps are)."""
+    x = host.to(device, non_blocking=True)
+    conv_d = torch.from_numpy(conv).to(device)
+    return x.to(dtype) * conv_d.to(dtype)[:, None]

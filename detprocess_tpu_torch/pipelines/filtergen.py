@@ -1,5 +1,5 @@
-"""Filter-file generation: noise PSDs and CSDs from randoms, and templates
-from the config, into one filter store.
+"""Filter-file generation: noise PSDs and CSDs from randoms, templates from
+the config, and dIdV fits, into one filter store.
 
 Port of ``detprocess_tpu/pipelines/filtergen.py::FilterDataProcessing``
 (:27; the reference's detprocess/process/filterprocess.py): the
@@ -17,12 +17,17 @@ beginning-of-run workload that feeds triggering and feature extraction.
   single-template block), and ``save_hdf5`` with ``lgc_save``.
 - ``check_config`` validates the ``noise``, ``template`` and ``didv``
   sections up front.
+- The dIdV branch (``proces_didv``, ``_process_didv``) runs when there
+  are dIdV files and ``didv`` channels: each dIdV series through
+  ``pipelines/didv.DIDVAnalysis`` (cuts and lock-in on the device, the
+  fits on the CPU in float64) into the channel's ``didv_processing``
+  table, and the fit of all series together into the store as
+  ``didv_results_*``. ``didv_files`` are pytesdaq paths, an
+  ``io/rawdata.RawIndex`` (one series), or ``{series: paths or
+  RawIndex}``.
 
-The dIdV fits are not ported yet (ROADMAP §1 item 6): the dIdV branch is
-skipped, as in the JAX class, when there are no dIdV files or no ``didv``
-channels, and raises ``NotImplementedError`` otherwise. ``jaxcache`` is a
-TPU matter and is not ported. ``device=None`` means the GPU
-(``device.require_cuda``).
+``jaxcache`` is a TPU matter and is not ported. ``device=None`` means the
+GPU (``device.require_cuda``).
 """
 
 from __future__ import annotations
@@ -31,12 +36,15 @@ import os
 from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from detprocess_tpu_torch import device as dev
 from detprocess_tpu_torch.config.yamlconfig import load_yaml, normalize_config
-from detprocess_tpu_torch.io.filterdata import FilterData
+from detprocess_tpu_torch.io.filterdata import FilterData, records_table
 from detprocess_tpu_torch.io.rawdata import RawData, RawIndex, RawReader
+from detprocess_tpu_torch.models import didv as didv_models
+from detprocess_tpu_torch.pipelines.didv import DIDVAnalysis, raw_index
 from detprocess_tpu_torch.pipelines.noise import Noise
 from detprocess_tpu_torch.pipelines.template import Template
 from detprocess_tpu_torch.utils.misc import create_series_name
@@ -70,20 +78,27 @@ class FilterDataProcessing:
         else:
             self._noise_series_map = (
                 {"series": noise_files} if noise_files else {})
-            self._didv_series_map = (
-                {"series": list(didv_files)} if didv_files else {})
+            if isinstance(didv_files, dict):
+                self._didv_series_map = dict(didv_files)
+                didv_files = self._combined(didv_files)
+            else:
+                self._didv_series_map = (
+                    {"series": didv_files
+                     if isinstance(didv_files, RawIndex)
+                     else list(didv_files)} if didv_files else {})
             self._is_continuous = True
         if isinstance(noise_files, RawIndex):
             self._noise = noise_files
         else:
             self._noise = (RawIndex.from_pytesdaq(list(noise_files))
                            if noise_files else None)
-        self._didv_files = list(didv_files or [])
+        self._didv_files = (didv_files if isinstance(didv_files, RawIndex)
+                            else list(didv_files or []))
 
         if self._noise is not None:
             probe = self._noise
         elif self._didv_files:
-            probe = RawIndex.from_pytesdaq(self._didv_files)
+            probe = raw_index(self._didv_files)
         else:
             raise ValueError("no raw files found for filter generation")
         self._available_channels = probe.channels
@@ -99,6 +114,15 @@ class FilterDataProcessing:
     @staticmethod
     def _flatten(series_map: Dict[str, List[str]]) -> List[str]:
         return sorted(f for files in series_map.values() for f in files)
+
+    @staticmethod
+    def _combined(series_map: dict):
+        """All dIdV series of ``{series: paths or RawIndex}``: the sorted
+        paths, or one index over every series in series order."""
+        if all(not isinstance(v, RawIndex) for v in series_map.values()):
+            return FilterDataProcessing._flatten(series_map)
+        return RawIndex.concat([raw_index(series_map[k])
+                                for k in sorted(series_map)])
 
     @property
     def filter_data(self) -> FilterData:
@@ -237,7 +261,8 @@ class FilterDataProcessing:
         """Run the enabled branches; returns the filter store. ``timer``:
         a ``utils.logging.StageTimer`` for the host seconds of the
         randoms table, the reads, the upload, the cuts, the offsets, the
-        spectra and the templates."""
+        spectra and the templates, and of the dIdV branch's reads
+        ("read") and device work ("device")."""
         channels = list(channels or self._available_channels)
         noise_cfg = self._section("noise")
         tmpl_cfg = self._section("template")
@@ -286,10 +311,7 @@ class FilterDataProcessing:
         if enable_didv and self._didv_files and didv_cfg.get("channels"):
             if self._config is not None:
                 self.check_config("didv")
-            raise NotImplementedError(
-                "the dIdV fits of filter generation are ROADMAP §1 item 6 "
-                "(not ported yet): run with enable_didv=False, or without "
-                "dIdV files or a didv section")
+            self._process_didv(didv_cfg, timer)
 
         if lgc_save:
             output_path = output_path or "."
@@ -391,3 +413,118 @@ class FilterDataProcessing:
         pre = tcfg.get("pretrigger_length_samples") or n // 2
         template.calc_average_pulses(chan, tr[:, :n], self._fs,
                                      pretrigger_length_samples=pre, tag=tag)
+
+    # ------------------------------------------------------------------
+    def _process_didv(self, didv_cfg: dict, timer=None) -> None:
+        """Each channel's dIdV fits (the reference's
+        filterprocess.py:797-1047 ``_process_didv``): every dIdV series is
+        processed and fitted apart, one row a series (offsets, bias
+        parameters, the 2/3-pole small-signal parameters with errors, χ²,
+        falltimes, the infinite-loop-gain bias point) into the channel's
+        ``didv_processing`` table (``set_didv_dataframe``); the fit of all
+        series together goes into the store as ``didv_results_*``, the
+        filter file's dIdV results."""
+        overall = didv_cfg.get("overall", {}) or {}
+        for chan, ccfg in didv_cfg["channels"].items():
+            if not isinstance(ccfg, dict):
+                continue
+            sgfreq = ccfg.get("sgfreq", overall.get("sgfreq"))
+            sgamp = ccfg.get("sgamp", overall.get("sgamp"))
+            rsh = ccfg.get("rshunt", overall.get("rshunt", 5e-3))
+            poles_req = ccfg.get("poles", [2, 3])
+            iv_results = ccfg.get("ivsweep_results",
+                                  ccfg.get("ivsweep_data"))
+            iv_file = ccfg.get("ivsweep_file")
+            iv_type = ccfg.get("ivsweep_result_type", "noise")
+
+            def attach(didv):
+                if iv_file:
+                    didv.set_ivsweep_results_from_file(chan, iv_file,
+                                                       iv_type=iv_type)
+                elif iv_results:
+                    didv.set_ivsweep_results(chan, iv_results,
+                                             iv_type=iv_type)
+
+            rows = []
+            for sname, sfiles in sorted(self._didv_series_map.items()):
+                didv_s = DIDVAnalysis(verbose=False, device=self._device)
+                try:
+                    didv_s.process_raw_data(
+                        chan, sfiles if isinstance(sfiles, RawIndex)
+                        else sorted(sfiles), sgfreq, sgamp, rsh,
+                        timer=timer)
+                except (ValueError, KeyError) as err:
+                    if self._verbose:
+                        print(f"INFO: skipping dIdV series {sname} for "
+                              f"{chan}: {err}")
+                    continue
+                didv_s.dofit(chan, poles=poles_req)
+                attach(didv_s)
+                didv_s.calc_smallsignal_params(chan, poles=poles_req)
+                rows.append(self._didv_series_row(didv_s, chan, sname,
+                                                  poles_req))
+            if rows:
+                self._filter_data.set_didv_dataframe(
+                    chan, records_table(rows),
+                    metadata={"sgfreq": sgfreq, "sgamp": sgamp,
+                              "rshunt": rsh})
+                if self._verbose:
+                    print(f"INFO: {chan}: {len(rows)} dIdV series fitted "
+                          "→ didv_processing dataframe")
+
+            # the fit of all series together (the filter file's results)
+            didv = DIDVAnalysis(verbose=self._verbose, device=self._device)
+            didv._filter_data = self._filter_data.data
+            didv.process_raw_data(chan, self._didv_files, sgfreq, sgamp,
+                                  rsh, timer=timer)
+            didv.dofit(chan, poles=poles_req)
+            attach(didv)
+            if iv_file or iv_results:
+                didv.calc_smallsignal_params(chan, poles=poles_req)
+                didv.calc_bias_params_infinite_loop_gain(chan)
+
+    @staticmethod
+    def _didv_series_row(didv: DIDVAnalysis, chan: str, sname: str,
+                         poles_req) -> dict:
+        """One series' row of the ``didv_processing`` table (the
+        reference's filterprocess.py:860-1047 output, flattened)."""
+        data = didv.get_didv_data(chan)
+        row = {
+            "series_name": sname,
+            "offset_didv": data.offset,
+            "offset_err_didv": data.offset_err,
+            "fs": data.fs,
+            "sgfreq": data.sgfreq,
+            "sgamp": data.sgamp,
+        }
+        bias = didv._bias_params.get(chan, {})
+        for key in ("rp", "rn", "rshunt", "i0", "i0_err", "r0", "r0_err",
+                    "p0", "p0_err", "ibias"):
+            row[key] = bias.get(key, np.nan)
+        poles_list = ([poles_req] if isinstance(poles_req, int)
+                      else list(poles_req))
+        for p in poles_list:
+            try:
+                fit = didv.get_fit(chan, p)
+            except KeyError:
+                continue
+            row[f"chi2_{p}poles_fit"] = fit.cost
+            taus = didv_models.didv_falltimes(fit)
+            row[f"tau+_{p}poles_fit"] = taus[0]
+            row[f"tau-_{p}poles_fit"] = taus[1]
+            row[f"tau3_{p}poles_fit"] = taus[2]
+            ssp = didv._ssp.get(chan, {}).get(p)
+            if ssp:
+                for par in ("l", "L", "tau0", "beta", "gratio"):
+                    if par in ssp:
+                        row[f"{par}_{p}poles_fit"] = ssp[par]
+                        row[f"{par}_err_{p}poles_fit"] = ssp.get(
+                            f"{par}_err", np.nan)
+            if bias.get("ibias") is not None and "rshunt" in bias:
+                ilg = didv_models.biasparams_ilg(
+                    fit.params, bias.get("rshunt", 0.0)
+                    + bias.get("rp", 0.0), bias.get("rshunt", 0.0),
+                    bias.get("ibias", 0.0), poles=p)
+                for par in ("i0", "r0", "p0"):
+                    row[f"{par}_{p}poles_infinite_lgain"] = ilg[par]
+        return row

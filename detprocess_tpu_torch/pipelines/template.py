@@ -11,8 +11,8 @@ float64, as in the JAX package; ``fit_templates`` runs the port's
 Levenberg–Marquardt (``ops/lm``) in float64 on the host CPU, a fit of
 three parameters.
 
-``FilterBuilder`` bundles the dIdV analysis, which is not ported yet: it
-raises ``NotImplementedError`` until ROADMAP §1 item 6.
+``FilterBuilder`` (:270-308) puts ``Noise``, ``Template`` and the dIdV
+analysis (``pipelines/didv.DIDVAnalysis``) over one filter store.
 """
 
 from __future__ import annotations
@@ -263,10 +263,40 @@ class Template(FilterData):
 
 
 class FilterBuilder:
-    """Noise + Template + the dIdV analysis over one store. The dIdV
-    analysis is not ported yet (ROADMAP §1 item 6)."""
+    """``Noise`` + ``Template`` + ``DIDVAnalysis`` sharing one filter
+    store (the reference's core/filterbuilder.py:7-82). ``device=None``
+    means the GPU for the noise and dIdV trace work."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FilterBuilder bundles the dIdV analysis, which is ROADMAP §1 "
-            "item 6 (not ported yet): use Noise and Template")
+    def __init__(self, raw_files=None, verbose: bool = True, device=None):
+        from detprocess_tpu_torch.pipelines.didv import DIDVAnalysis
+        from detprocess_tpu_torch.pipelines.noise import Noise
+
+        self.noise = Noise(raw_files, verbose=verbose, device=device)
+        self.template = Template(verbose=verbose)
+        self.didv = DIDVAnalysis(verbose=verbose, device=device)
+        shared = self.noise._filter_data
+        self.template._filter_data = shared
+        self.didv._filter_data = shared
+        self._filter_data = shared
+
+    def clear(self, channels=None, tag=None, clear_noise_state: bool = True,
+              clear_template_state: bool = False,
+              clear_didv_state: bool = True):
+        """Clear the shared store, and the processors' state as asked."""
+        self.noise.clear_data(channels=channels, tag=tag)
+        if clear_noise_state:
+            self.noise.clear_randoms()
+        if clear_template_state:
+            self.template.clear(channels=channels, tag=tag)
+        if clear_didv_state:
+            self.didv.clear(channels=channels)
+
+    def save_hdf5(self, path: str, overwrite: bool = True):
+        self.noise.save_hdf5(path, overwrite=overwrite)
+
+    def load_hdf5(self, path: str, overwrite: bool = False):
+        self.noise.load_hdf5(path, overwrite=overwrite)
+        return self
+
+    def describe(self):
+        self.noise.describe()

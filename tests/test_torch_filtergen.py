@@ -15,8 +15,8 @@
   branch; ``check_config``; the saved file;
 - the chain: port filter generation → port ``FeatureProcessing`` gives
   the table of JAX filter generation → JAX ``FeatureProcessing``;
-- the refusals by name: the dIdV branch with dIdV data, ``mesh=``,
-  ``FilterBuilder``.
+- the dIdV branch (per-series table and the combined fit's results) and
+  ``FilterBuilder`` against the JAX classes on the same files.
 
 Float64 on the CPU; values within 1e-9 relative (of the largest |value|
 for arrays); the fit's cost, at the rounding level of a noiseless
@@ -449,30 +449,114 @@ def test_check_config_matches_jax(group):
                              device="cpu")
 
 
-def test_refusals_name_their_roadmap_item(group, tmp_path):
+def _close_tree(got, want, rtol, what):
+    """``got`` (the port's value) within ``rtol`` of ``want`` (the JAX
+    value): dicts key by key, tables column by column, numbers relative
+    to an array's largest |value|, strings exactly."""
+    if isinstance(want, pd.Series):
+        want = want.to_numpy()
+    if isinstance(want, pd.DataFrame):
+        assert list(got) == list(want.columns), what
+        for col in want.columns:
+            _close_tree(got[col], want[col].to_numpy(), rtol, f"{what}.{col}")
+        return
+    if isinstance(want, dict):
+        assert set(got) == set(want), what
+        for k in want:
+            _close_tree(got[k], want[k], rtol, f"{what}.{k}")
+        return
+    w, g = np.asarray(want), np.asarray(got)
+    if w.dtype.kind in "OUS":
+        assert g.astype(str).tolist() == w.astype(str).tolist(), what
+        return
+    assert g.shape == w.shape, what
+    scale = max(float(np.nanmax(np.abs(w))) if w.size else 0.0, 1e-300)
+    np.testing.assert_allclose(g.astype(w.dtype), w, rtol=0,
+                               atol=rtol * scale, equal_nan=True,
+                               err_msg=what)
+
+
+DIDV_CFG = {"didv": {"chan1": {
+    "sgfreq": 100.0, "sgamp": 2e-8, "rshunt": 5e-3, "poles": [2],
+    "ivsweep_results": {"i0": 3.16e-6, "r0": 0.1, "rp": 4e-3,
+                        "rshunt": 5e-3, "ibias": 97.8e-6}}}}
+
+
+def _didv_group(tmp_path):
+    """A raw group of one continuous series and two dIdV series (6 traces
+    of 2 periods of a transition point's response, chan2 at half)."""
+    from detprocess_tpu_torch import entry
+
     raw = tmp_path / "raw"
     rng = np.random.default_rng(0)
     RawWriter(str(raw), "I1_D20260818_T110000", FS, CHANNELS,
               prefix="cont").write_dump(rng.standard_normal((2, 2, 8192)))
-    RawWriter(str(raw), "I1_D20260818_T111000", FS, CHANNELS,
-              prefix="didv", data_type="didv").write_dump(
-        rng.standard_normal((2, 2, 8192)))
-    didv = {"didv": {"chan1": {"sgfreq": 100.0, "sgamp": 2e-8,
-                               "ivsweep_results": {"i0": 1e-6, "r0": 0.1,
-                                                   "rp": 1e-3,
-                                                   "rshunt": 5e-3}}}}
-    proc = FilterDataProcessing(raw_path=str(raw), config=didv,
+    gen = torch.Generator().manual_seed(3)
+    point = entry.ivsweep_points(normal=(), transition_r0=(0.1,), sc=())[0]
+    for k in range(2):
+        x = entry.ivsweep_didv(gen, point["params"], 6, 2, "cpu").numpy()
+        RawWriter(str(raw), f"I1_D20260818_T11{k + 1}000", FS, CHANNELS,
+                  prefix="didv", data_type="didv",
+                  adc_conversion_factor=1e-10).write_dump(
+            np.stack([x, 0.5 * x], axis=1))
+    return raw
+
+
+def test_refusals_name_their_roadmap_item(group, tmp_path):
+    """The dIdV branch and FilterBuilder, once refused (ROADMAP §1 item
+    6), match the JAX classes on the same files: every stored dIdV
+    result (fits at 1e-6, their small-signal errors at 1e-5: they come
+    from the inverse of the fits' JᵀJ, condition number up to 1e9) and
+    the per-series table."""
+    raw = _didv_group(tmp_path)
+    cpath = _write_cfg(tmp_path, DIDV_CFG, "didv.yaml")
+    want = JaxFDP(raw_path=str(raw), config=cpath,
+                  verbose=False).proces_didv()
+    proc = FilterDataProcessing(raw_path=str(raw), config=DIDV_CFG,
                                 verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        proc.process(enable_noise=False)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        proc.proces_didv()
-    # without a didv section the branch is skipped, as in JAX
+    got = proc.proces_didv()
+    names = {k for k in want.data["chan1"] if not k.endswith("_metadata")}
+    assert set(got.data["chan1"]) == names
+    assert "didv_processing_default" in names
+    for name in sorted(names):
+        value, _, md = got.data["chan1"][name]
+        assert md == want.data["chan1"][name + "_metadata"], name
+        rtol = 1e-5 if "smallsignal" in name else 1e-6
+        _close_tree(value, want.data["chan1"][name], rtol, name)
+    table = got.get_didv_dataframe("chan1")
+    assert list(table["series_name"]) == ["I1_D20260818_T111000",
+                                          "I1_D20260818_T112000"]
+    assert 5 < table["l_2poles_fit"][0] < 15
+    # the same branch through process(), and skipped without a didv section
+    proc.process(enable_noise=False)
     FilterDataProcessing(raw_path=str(raw), config={"noise": {}},
                          verbose=False, device="cpu").process(
         enable_noise=False)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        FilterBuilder()
+
+    # FilterBuilder: one store under Noise, Template and DIDVAnalysis
+    from detprocess_tpu.pipelines.template import FilterBuilder as JaxFB
+
+    files = sorted(str(f) for f in raw.glob("didv_*.hdf5"))
+    builders = (FilterBuilder(verbose=False, device="cpu"),
+                JaxFB(verbose=False))
+    for fb in builders:
+        assert fb.didv._filter_data is fb.template._filter_data \
+            is fb.noise._filter_data
+        fb.didv.process_raw_data("chan1", files, 100.0, 2e-8, 5e-3)
+        fb.didv.dofit("chan1", poles=2)
+        fb.template.create_template("chan1", FS, trace_length_samples=NT,
+                                    pretrigger_length_samples=PRE,
+                                    tau_r=20e-6, tau_f1=200e-6)
+    fbt, fbj = builders
+    for name in ("didv_results_2poles_fit_default", "template_default"):
+        _close_tree(fbt._filter_data["chan1"][name][0],
+                    fbj._filter_data["chan1"][name], 1e-6, name)
+    fbt.save_hdf5(str(tmp_path / "fb.hdf5"))
+    back = FilterBuilder(verbose=False, device="cpu").load_hdf5(
+        str(tmp_path / "fb.hdf5"))
+    assert back.didv.has("chan1", "didv_results_2poles_fit_default")
+    fbt.clear(clear_template_state=True)
+    assert fbt.noise.data == {} and fbt.didv._fits == {}
 
 
 # -- the chain ---------------------------------------------------------------

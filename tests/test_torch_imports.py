@@ -17,9 +17,13 @@ salting chain of ``salting_chain_entry`` (two continuous events of
 400,000 samples, one salt at each amplitude) through both shells with the
 device injector, and the trigger modes (the trigger shell with a dynamic
 window on one channel, a step at pileup window 0, template alignment and
-the host loop of the dynamic mode); a second one runs ``chip_smoke.py``, which must fail
-without a GPU and print no result. The filter-generation and salting
-entry points refuse to run without a GPU when no device is given.
+the host loop of the dynamic mode); another runs the IV/dIdV sweep
+(``ivsweep_entry`` and ``run_ivsweep`` at a cut size), the dIdV branch
+of filter generation and ``FilterBuilder`` with the same modules blocked
+(and checks that scipy is not imported); a third runs ``chip_smoke.py``,
+which must fail without a GPU and print no result. The filter-generation,
+salting, dIdV and sweep entry points and classes refuse to run without a
+GPU when no device is given.
 """
 
 import json
@@ -177,7 +181,10 @@ def test_port_imports_and_runs_without_jax_h5py_pandas_yaml(tmp_path):
                  "pipelines.feature_group", "pipelines.features",
                  "io.upload", "pipelines.triggers", "pipelines.oftrigger",
                  "utils.freq", "ops.psdfeatures", "ops.ofnxm", "ops.lm",
-                 "ops.pulsefit", "ops.saltinject", "pipelines.salting"):
+                 "ops.pulsefit", "ops.saltinject", "pipelines.salting",
+                 "models.tesnoise", "models.ivbias", "ops.lockin",
+                 "pipelines.didv", "pipelines.noisemodel",
+                 "pipelines.ivsweep"):
         assert f"detprocess_tpu_torch.{name}" in res["modules"], name
     chans = ["chan1", "chan2", "chan3", "chan4"]
     # 7 salts (one at each amplitude) on the 4 channels, one window each
@@ -218,6 +225,97 @@ def test_port_imports_and_runs_without_jax_h5py_pandas_yaml(tmp_path):
         + [f"{f}_of1x1_unconstrained_chan1"
            for f in ("amp", "t0", "chi2", "lowchi2")]
         + ["baseline_chan1", "integral_chan1"])
+
+
+RUN_FITS = textwrap.dedent("""
+    import json, os, sys
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import detprocess_tpu_torch as D
+    from detprocess_tpu_torch import entry as E
+    from detprocess_tpu_torch.pipelines.template import FilterBuilder
+    pts = E.ivsweep_points(normal=(400e-6, 350e-6, 300e-6),
+                           transition_r0=(0.15, 0.08),
+                           sc=(4e-6, 2e-6, 1e-6))
+    proc, bps = E.ivsweep_entry("cpu", SWEEP_DIR, points=pts, ntraces=8,
+                                n=2048, ndidv=4, nper=2)
+    table, ana, noise = E.run_ivsweep(proc, bps)
+    sigma = ana._sweep_df["chan1"]["energy_resolution"]
+    fg, series, point = E.didv_filtergen_entry(
+        "cpu", DIDV_DIR, nseries=2, ndidv=4, nper=2, poles=(2,))
+    fd = fg.proces_didv()
+    fb = FilterBuilder(verbose=False, device="cpu")
+    fb.didv.process_raw_data("chan1", series[sorted(series)[0]],
+                             E.IV_SGFREQ, E.IV_SGAMP, E.IV_RSH)
+    fb.didv.dofit("chan1", poles=2)
+    print(json.dumps({
+        "exports": sorted(n for n in ("DIDVAnalysis", "IVSweepProcessing",
+                                      "IVSweepAnalysis", "NoiseModel",
+                                      "FilterBuilder")
+                          if getattr(D, n).__name__ == n),
+        "states": list(table["state"]),
+        "files": len(os.listdir(SWEEP_DIR)),
+        "sigma": int(np.isfinite(sigma).sum()),
+        "tload": bool(np.isfinite(noise["tload"])),
+        "didv": sorted(k for k in fd.data["chan1"] if "didv" in k),
+        "series": len(fd.get_didv_dataframe("chan1")["series_name"]),
+        "builder": fb.didv.has("chan1", "didv_results_2poles_fit_default"),
+        "leaked": sorted(m for m in sys.modules
+                         if m.split(".")[0] in {"jax", "h5py", "pandas",
+                                                "yaml", "triton", "scipy"}
+                         and sys.modules[m] is not None),
+    }))
+""")
+
+
+def test_fits_run_without_jax_h5py_pandas_yaml(tmp_path):
+    """The sweep (ivsweep_entry and run_ivsweep at a cut size), the dIdV
+    branch of filter generation and FilterBuilder, with the four modules
+    blocked; neither they nor scipy are imported."""
+    for sub in ("sweep", "didv"):
+        (tmp_path / sub).mkdir()
+    proc = _run(PRELUDE + f"SWEEP_DIR = {str(tmp_path / 'sweep')!r}\n"
+                + f"DIDV_DIR = {str(tmp_path / 'didv')!r}\n" + RUN_FITS)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["exports"] == ["DIDVAnalysis", "FilterBuilder",
+                              "IVSweepAnalysis", "IVSweepProcessing",
+                              "NoiseModel"]
+    assert res["states"] == ["normal"] * 3 + ["transition"] * 2 + ["sc"] * 3
+    assert res["files"] == 16 and res["sigma"] == 2 and res["tload"]
+    assert res["didv"] == ["didv_processing_default",
+                           "didv_results_2poles_biasparams_default",
+                           "didv_results_2poles_fit_default",
+                           "didv_results_2poles_smallsignalparams_default"]
+    assert res["series"] == 2 and res["builder"]
+    assert res["leaked"] == []
+
+
+@pytest.mark.parametrize("which", ["DIDVAnalysis", "IVSweepProcessing",
+                                   "FilterBuilder", "ivsweep_entry",
+                                   "didv_filtergen_entry"])
+def test_fits_trace_work_needs_the_gpu(tmp_path, which):
+    """With no device given, the classes and entries of the dIdV and
+    sweep path refuse to run without a GPU, before they write anything;
+    the fits themselves run on the CPU by design."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from detprocess_tpu_torch import entry
+    from detprocess_tpu_torch.pipelines.didv import DIDVAnalysis
+    from detprocess_tpu_torch.pipelines.ivsweep import IVSweepProcessing
+    from detprocess_tpu_torch.pipelines.template import FilterBuilder
+
+    make = {"DIDVAnalysis": DIDVAnalysis,
+            "IVSweepProcessing": IVSweepProcessing,
+            "FilterBuilder": FilterBuilder,
+            "ivsweep_entry": lambda: entry.ivsweep_entry(
+                directory=str(tmp_path / "out")),
+            "didv_filtergen_entry": lambda: entry.didv_filtergen_entry(
+                directory=str(tmp_path / "out"))}[which]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    assert not os.path.exists(tmp_path / "out")
 
 
 def test_chip_smoke_fails_without_a_gpu():
