@@ -3,8 +3,9 @@
 continuous-data trigger step, the FeatureProcessing shell, the
 TriggerProcessing shell chained into it, every feature algorithm
 through FeatureProcessing, filter generation chained into it, salting
-through both shells, the dynamic and sub-tile trigger modes, and the
-IV/dIdV sweep with the dIdV branch of filter generation, on one card.
+through both shells, the dynamic and sub-tile trigger modes, the
+IV/dIdV sweep with the dIdV branch of filter generation, and the
+command line over files, on one card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -248,6 +249,30 @@ m. the IV/dIdV sweep (entry.ivsweep_entry and entry.run_ivsweep, the
    CPU fits), the CPU run's, the card's busy share of process(), and the
    rFFT kernel beside torch.fft.rfft on a bias point's [128, 32768] batch,
    held against its twin there.
+n. the command line (python -m detprocess_tpu_torch.cli) over files
+   (entry.cli_chain_entry): (j)'s 64 continuous events written as one
+   flat series with its JSON manifest (610 MiB), the JSON setup of filter
+   generation at Nt = 4096, (h)'s trigger, (k)'s salting and its feature
+   fit, and (m)'s 32-point sweep as a flat group, in a temporary
+   directory deleted at the end. Call A (--calc-filter --enable-rand
+   --nrandoms 2048 --output-format npz), call B (--filter_file A's npz
+   --enable-salting --device-salting --enable-trig --enable-feature) and
+   call C (--enable-ivsweep) through cli.main, counted; then B again as
+   a subprocess into a second output base. It fails unless every call
+   returns 0; the files carry the JAX names (rand_, salting_,
+   threshtrig_, feature_ prefixes, the given series, _F0001…); the
+   launches are A: rFFT 4; B: rFFT 5 a trigger batch and 4 a feature
+   batch, fused 4 a feature batch, cuFFT 1 a trigger batch; C: rFFT 32;
+   and nothing else; each table equals the API run of the same work on
+   the same files, setup, seed and device (the same rows, integer and
+   string columns exactly, float columns within 1e-6), and the
+   subprocess's tables the in-process ones; A's PSDs and CSD agree with
+   FilterDataProcessing.process within (j)'s 1e-4 and its templates are
+   the analytic ones; C's sweep table agrees with IVSweepProcessing's
+   within (m)'s tolerances; the salts clear of the data's own pulses and
+   glitches pass (k)'s efficiency and energy-scale checks; both kernels
+   agree with their twins on B's shapes. It prints each call's host
+   seconds beside the API run's, and the subprocess's wall time.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
@@ -263,8 +288,9 @@ salting_trigger_unsalted: phase k's first calls of the trigger shell with
 the device injector, the host injector and none; salting_feature: its
 first call of the salted feature shell; trigger_shell_dynamic,
 trigger_shell_subtile: phase l's first calls of each mode; ivsweep:
-phase m's sweep, filtergen_didv: its dIdV branch of filter generation),
-whose sum is ``launches``, and the SM clocks of its phases from phase (d).
+phase m's sweep, filtergen_didv: its dIdV branch of filter generation;
+cli_a, cli_b, cli_c: phase n's three command-line calls), whose sum is
+``launches``, and the SM clocks of its phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
 
@@ -324,6 +350,13 @@ from detprocess_tpu_torch.pipelines.filtergen import (  # noqa: E402
 from detprocess_tpu_torch.pipelines.ivsweep import (  # noqa: E402
     IVSweepProcessing)
 from detprocess_tpu_torch.pipelines.template import FilterBuilder  # noqa: E402
+from detprocess_tpu_torch import cli  # noqa: E402
+from detprocess_tpu_torch.config.yamlconfig import load_yaml  # noqa: E402
+from detprocess_tpu_torch.io import tables as table_io  # noqa: E402
+from detprocess_tpu_torch.io.filterdata import FilterData  # noqa: E402
+from detprocess_tpu_torch.pipelines.ivsweep import (  # noqa: E402
+    discover_bias_points)
+from detprocess_tpu_torch.pipelines.salting import Salting  # noqa: E402
 
 FS = 1.25e6
 N = 32768
@@ -490,6 +523,14 @@ IV_PSD_RTOL = 2e-3       # PSD bins k >= 1, float32 kernel vs float64: 2.5x
                          # PERF.md §6)
 IV_MIN_GOOD = 12         # transition points with β and l near truth
 FGD_SERIES = 4           # dIdV series of the filter-generation run
+
+CLI_EVENTS = tentry.FG_EVENTS      # (j)'s continuous events, one flat dump
+CLI_LENGTH = tentry.TRIGGER_L
+CLI_NRANDOMS = tentry.FG_NRANDOMS
+CLI_NSALT = tentry.SALT_PER_POINT  # (k)'s salts at each amplitude
+CLI_BATCH = 256                    # the command line's --batch-size
+CLI_FLOAT_RTOL = 1e-6    # command line against the API run: float columns
+CLI_SUBPROCESS_TIMEOUT = 600
 
 KERNEL_INFO = {
     "rfft": {"source": "detprocess_tpu_torch/csrc/rfft.cu",
@@ -2862,7 +2903,8 @@ def compare_salted_runs(dev_t, host_t, thresholds):
     return only
 
 
-def check_salt_efficiency(salts, table, res, what, closed_form=True):
+def check_salt_efficiency(salts, table, res, what, closed_form=True,
+                          phase="k"):
     """salt_efficiency of chan1's salts against chan1's triggers, bin by
     bin against ε(A) = Φc(n − A/σ) + Φc(n + A/σ) (saltchecks.py:204-230):
     |pull| < SALT_MAX_PULL where A/σ is more than SALT_PULL_SKIP from n.
@@ -2883,7 +2925,7 @@ def check_salt_efficiency(salts, table, res, what, closed_form=True):
             np.sqrt(max(pred * (1 - pred), 1e-9) / eff["n_injected"][i]),
             1e-3)
         pulls.append((eff["efficiency"][i] - pred) / err)
-        log(f"[k] {what}: A = {a:g} σ: {eff['n_recovered'][i]} of "
+        log(f"[{phase}] {what}: A = {a:g} σ: {eff['n_recovered'][i]} of "
             f"{eff['n_injected'][i]} chan1 salts recovered within "
             f"±{window} samples, ε {eff['efficiency'][i]:.4f}, closed form "
             f"{pred:.4f}, pull {pulls[-1]:.2f}")
@@ -2895,7 +2937,7 @@ def check_salt_efficiency(salts, table, res, what, closed_form=True):
     return eff
 
 
-def check_salt_recovery(salts, feats, res):
+def check_salt_recovery(salts, feats, res, phase="k"):
     """The no-delay amplitudes at the injected indices, channel by channel
     and bin by bin: unbiased within saltchecks.py's bound (max(4·the
     bias's error, 2 %)) and with a scatter of 0.6–1.4 σ from
@@ -2922,9 +2964,10 @@ def check_salt_recovery(salts, feats, res):
                                    f"scatter {scat:.3f} σ (bias bound "
                                    f"{bound:.4f})")
             worst[chan] = max(worst.get(chan, 0.0), abs(ratio - 1))
-        log(f"[k] {chan}: <recovered/injected>/scatter in σ by bin: "
+        log(f"[{phase}] {chan}: <recovered/injected>/scatter in σ by bin: "
             + "; ".join(parts))
-    log(f"[k] energy recovery from {SALT_RECOVERY_MIN:g} σ up: worst bias "
+    log(f"[{phase}] energy recovery from {SALT_RECOVERY_MIN:g} σ up: worst "
+        "bias "
         + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
         + f" (bound max(4·err, {SALT_BIAS_FLOOR:g})), scatter within "
         f"{SALT_SCATTER}")
@@ -3625,6 +3668,380 @@ def _phase_m(device, card, errs, tmp):
     return {"ivsweep": launches, "filtergen_didv": fg_launches}
 
 
+def cli_table(directory, prefix):
+    """The table of the dumps ``{prefix}_{CLI_OUT_SERIES}_F0001.npz``, …
+    of an output directory of the command line (every .npz there), and
+    their names."""
+    files = sorted(f for f in os.listdir(directory) if f.endswith(".npz"))
+    want = [f"{prefix}_{tentry.CLI_OUT_SERIES}_F{k:04d}.npz"
+            for k in range(1, len(files) + 1)]
+    if not files or files != want:
+        raise RuntimeError(f"{directory} holds {files}, expected the dumps "
+                           f"{prefix}_{tentry.CLI_OUT_SERIES}_F0001.npz, …")
+    return files, table_io.concat_tables(
+        [table_io.read_table(os.path.join(directory, f)) for f in files])
+
+
+def compare_tables(got, ref, what, rtol=CLI_FLOAT_RTOL):
+    """Two tables with the same columns and rows: integer, boolean and
+    string columns exactly (a missing string as None or NaN), float
+    columns within ``rtol`` of the reference (NaN where it is NaN).
+    Returns the worst relative difference."""
+    if list(got) != list(ref):
+        raise RuntimeError(f"{what}: columns {list(got)} against "
+                           f"{list(ref)}")
+    worst = 0.0
+    for k in ref:
+        a, b = np.asarray(got[k]), np.asarray(ref[k])
+        if a.shape != b.shape:
+            raise RuntimeError(f"{what}: column {k} has {a.shape} rows "
+                               f"against {b.shape}")
+        if b.dtype.kind == "f" or a.dtype.kind == "f":
+            a, b = a.astype(np.float64), b.astype(np.float64)
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise RuntimeError(f"{what}: column {k} differs in NaN")
+            ok = ~np.isnan(b)
+            d = np.abs(a[ok] - b[ok])
+            scale = np.abs(b[ok])
+            rel = float(np.max(d / np.where(scale > 0, scale, 1.0),
+                               initial=0.0))
+            worst = max(worst, rel)
+            if not rel <= rtol:
+                raise RuntimeError(f"{what}: column {k} differs by {rel:.3e}"
+                                   f" (rtol {rtol:g})")
+        elif not np.array_equal(missing_as_none(a), missing_as_none(b)):
+            raise RuntimeError(f"{what}: column {k} differs")
+    return worst
+
+
+def missing_as_none(values):
+    """An object column with its missing values (None, NaN) as None, as
+    a table file gives them back."""
+    if values.dtype != object:
+        return values
+    return np.array([None if v is None or (isinstance(v, float) and v != v)
+                     else v for v in values], dtype=object)
+
+
+def cli_call(argv, what):
+    """``cli.main(argv)`` in this process, counted: (return code, host
+    seconds, launches, library routes)."""
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    launches, library = _kernels.launch_counts(), _kernels.library_counts()
+    log(f"[n] call {what}: rc {rc}, {sec:.3f} s (host clock); launches "
+        f"{launches}, library route {library}")
+    if rc != 0:
+        raise RuntimeError(f"command line, call {what}: rc {rc}")
+    return sec, launches, library
+
+
+def salts_clear_of(salts, art):
+    """The salts (every channel's row) whose Nt-sample feature window
+    around the injection overlaps none of the raw events' own pulses
+    (TRIGGER_NT samples from their onset) and glitches, in any channel
+    (the chain's raw group is one dump: event k is art's row k − 1)."""
+    nch = len(tentry.SHELL_CHANNELS)
+    nt, pre = tentry.TRIGGER_NT, tentry.TRIGGER_PRETRIG
+    keep = []
+    for i in range(0, len(salts["salt_channel"]), nch):
+        ev = int(salts["event_number"][i]) - 1
+        s0 = int(salts["trigger_index"][i]) - pre
+        hit = (((art["pulse"][ev] < s0 + nt) & (art["pulse"][ev] + nt > s0))
+               | ((art["glitch"][ev] < s0 + nt)
+                  & (art["glitch"][ev] + tentry.FG_GLITCH > s0)))
+        if not hit.any():
+            keep.extend(range(i, i + nch))
+    return {c: np.asarray(v)[keep] for c, v in salts.items()}
+
+
+def salts_at_triggers(salts, table, window):
+    """The salts of the first channel that a row of ``table`` (same
+    series and event, ``trigger_index`` within ``window``) holds: (salt
+    rows of every channel of those salts, the matching rows of
+    ``table``)."""
+    nch = len(tentry.SHELL_CHANNELS)
+    first = np.asarray(salts["salt_channel"]).astype(str)[::nch]
+    if not (first == tentry.SHELL_CHANNELS[0]).all():
+        raise RuntimeError("salting table: not one row a channel in order")
+    key = {}
+    for r, (sn, ev, ti) in enumerate(zip(table["series_number"],
+                                         table["event_number"],
+                                         table["trigger_index"])):
+        key.setdefault((int(sn), int(ev)), []).append((int(ti), r))
+    keep, rows = [], []
+    for k in range(len(first)):
+        i = k * nch
+        cands = key.get((int(salts["series_number"][i]),
+                         int(salts["event_number"][i])), [])
+        best = min(cands, key=lambda c: abs(c[0] - int(
+            salts["trigger_index"][i])), default=None)
+        if best is not None and abs(best[0] - int(
+                salts["trigger_index"][i])) <= window:
+            keep.extend(range(i, i + nch))
+            rows.append(best[1])
+    return ({c: np.asarray(v)[keep] for c, v in salts.items()},
+            {c: np.asarray(v)[rows] for c, v in table.items()})
+
+
+def phase_n(device, card, errs):
+    """The command line (python -m detprocess_tpu_torch.cli) over files:
+    filter generation and randoms, salting, trigger and features, the IV
+    sweep; each call against the same work through the Python API, the
+    second call again as a subprocess; returns each call's launches."""
+    tmp = tempfile.mkdtemp(prefix="detprocess_smoke_cli_")
+    try:
+        return _phase_n(device, card, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_n(device, card, errs, tmp):
+    t_phase = t = time.perf_counter()
+    points = tentry.ivsweep_points()
+    chain = tentry.cli_chain_entry(
+        device, tmp, nevents=CLI_EVENTS, seed=SEED, length=CLI_LENGTH,
+        nrandoms=CLI_NRANDOMS, nsalt=CLI_NSALT, points=points,
+        ntraces=IV_NTRACES, n=IV_N, ndidv=IV_NDIDV, nper=IV_PERIODS)
+    raw_files = sorted(os.path.join(chain.raw, f)
+                       for f in os.listdir(chain.raw) if f.endswith(".bin"))
+    nbytes = sum(os.path.getsize(p) for p in raw_files)
+    log(f"[n] wrote a flat raw group of {CLI_EVENTS} continuous events "
+        f"({nbytes / 2**20:.1f} MiB of int16 codes, "
+        f"{[os.path.basename(p) for p in raw_files]} and its manifest), the "
+        f"sweep of {len(points)} bias points as a flat group "
+        f"({len(os.listdir(chain.sweep))} files) and the JSON setups in "
+        f"{time.perf_counter() - t:.1f} s (set-up, not timed)")
+    setup = load_yaml(chain.setup)
+    index = RawIndex.from_files(raw_files)
+    chans = list(tentry.SHELL_CHANNELS)
+    secs, api = {}, {}
+
+    # call A: filter generation and randoms
+    secs["A"], la, liba = cli_call(chain.a, "A (--calc-filter --enable-rand)")
+    want = {"rfft": len(chans), "fused_nodelay_of": 0, "cufft_rfft": 0}
+    if {**la, **liba} != want:
+        raise RuntimeError(f"call A: launches {la}, library {liba}, "
+                           f"expected {want}")
+    fd = FilterData(verbose=False).load(chain.filter_file())
+    rname, rand_cli = cli_table(os.path.join(chain.out, "randoms"),
+                                "rand_randoms")
+    t = time.perf_counter()
+    fd_api = FilterDataProcessing(raw_path=chain.raw, config=setup,
+                                  verbose=False, device=device).process(
+        nrandoms=CLI_NRANDOMS, seed=SEED)
+    rand_api = Randoms(index, verbose=False, device=device).process(
+        nrandoms=CLI_NRANDOMS, seed=SEED)
+    torch.cuda.synchronize()
+    api["A"] = time.perf_counter() - t
+    compare_tables(rand_cli, rand_api, "call A, randoms")
+    worst = {}
+    for chan in chans:
+        got, ref = fd.get_psd(chan)[0], fd_api.get_psd(chan)[0]
+        worst[f"psd_{chan}"] = float(np.max(np.abs(got - ref) / ref))
+    got = fd.get_csd("|".join(chans))[0]
+    ref = fd_api.get_csd("|".join(chans))[0]
+    diag = np.sqrt(np.abs(np.einsum("iik->ik", ref)))
+    worst["csd"] = float(np.max(np.abs(got - ref)
+                                / (diag[:, None] * diag[None, :])))
+    for (chan, tag), tmpl in tentry.filtergen_templates(
+            tentry.TRIGGER_NT, tentry.TRIGGER_PRETRIG, FS).items():
+        worst[f"template_{chan}_{tag}"] = float(np.max(np.abs(
+            fd.get_template(chan, tag)[0] - tmpl)))
+    log(f"[n] call A wrote {os.path.basename(chain.filter_file())} and "
+        f"{rname} ({table_io.table_rows(rand_cli)} randoms, equal to the API "
+        f"run's); against FilterDataProcessing.process on the same files: "
+        f"{json.dumps(worst)} (PSDs and CSD limit {FG_RTOL:g}, templates "
+        f"{FG_TEMPLATE_TOL:g} from the analytic ones)")
+    bad = {k: v for k, v in worst.items()
+           if not v <= (FG_TEMPLATE_TOL if k.startswith("template")
+                        else FG_RTOL)}
+    if bad:
+        raise RuntimeError(f"call A differs from the API run: {bad}")
+
+    # call B: salting (device injector), trigger and features
+    ff = chain.filter_file()
+    secs["B"], lb, libb = cli_call(chain.b(ff), "B (--enable-salting "
+                                   "--device-salting --enable-trig "
+                                   "--enable-feature)")
+    prefixes = {"salting": "salting_salting", "trigger": "threshtrig_trigger",
+                "feature": "feature_features"}
+    names, out_b = {}, {}
+    for sub, prefix in prefixes.items():
+        names[sub], out_b[sub] = cli_table(os.path.join(chain.out, sub),
+                                           prefix)
+    log(f"[n] call B wrote {json.dumps(names)}")
+    salts, trig, feats = out_b["salting"], out_b["trigger"], out_b["feature"]
+    nrow = table_io.table_rows(trig)
+    nbt = -(-CLI_EVENTS // TSHELL_BATCH)
+    nbf = -(-table_io.table_rows(feats) // CLI_BATCH)
+    want = {"rfft": (len(chans) + 1) * nbt + len(chans) * nbf,
+            "fused_nodelay_of": len(chans) * nbf, "cufft_rfft": nbt}
+    if {**lb, **libb} != want:
+        raise RuntimeError(f"call B: launches {lb}, library {libb}, "
+                           f"expected {want} ({nbt} trigger batches, {nbf} "
+                           "feature batches)")
+
+    t = time.perf_counter()
+    sal = Salting(fd, verbose=False)
+    overall = setup["salting"]
+    salts_api = sal.generate_salt(
+        index, chans, energies=overall["energies"], nsalt=overall["nsalt"],
+        seed=SEED, energy_norm_ev_per_amp=overall["energy_norm_ev_per_amp"],
+        min_separation_msec=overall["min_separation_msec"],
+        edge_exclusion_msec=overall["edge_exclusion_msec"])
+    inj = sal.make_device_injector(chans, max_salts_per_event=max(
+        16, cli.most_salts_per_event(salts_api)))
+    tproc = TriggerProcessing(index, setup, fd, verbose=False, device=device)
+    tproc.set_salting(inj)
+    trig_api = tproc.process(series_name=tentry.CLI_OUT_SERIES)
+    fproc = FeatureProcessing(index, setup, fd, trigger_table=trig_api,
+                              verbose=False, device=device)
+    fproc.set_salting(inj)
+    feats_api = fproc.process(batch_size=CLI_BATCH,
+                              series_name=tentry.CLI_OUT_SERIES)
+    torch.cuda.synchronize()
+    api["B"] = time.perf_counter() - t
+    worst_b = {"salting": compare_tables(salts, salts_api, "call B, salts"),
+               "trigger": compare_tables(trig, trig_api, "call B, triggers"),
+               "feature": compare_tables(feats, feats_api,
+                                         "call B, features")}
+    log(f"[n] call B: {table_io.table_rows(salts)} salt rows, {nrow} trigger "
+        f"rows, {table_io.table_rows(feats)} feature rows "
+        f"({fproc.stats['dropped']} windows off the trace in the API run);"
+        f" each equal to the API run's (worst float difference "
+        f"{json.dumps(worst_b)}, rtol {CLI_FLOAT_RTOL:g})")
+
+    # the salts through the command line, as phase (k) checks them: the
+    # setup sized each salt in the analytic trigger resolutions, which
+    # the PSDs of call A's filter file estimate
+    res = tentry.trigger_shell_resolutions()
+    res_fd = tentry.trigger_shell_resolutions(filter_data=fd)
+    log(f"[n] trigger resolutions from call A's filter file "
+        f"{res_fd.tolist()} A, {np.round(res_fd / res - 1, 5).tolist()} "
+        f"relative to the analytic {res.tolist()} A that size the salts")
+    # the raw events' own pulses and glitches would count as salts found
+    # and swamp an amplitude: only the salts clear of them are checked
+    clear = salts_clear_of(salts, chain.artifacts)
+    log(f"[n] {table_io.table_rows(clear) // len(chans)} of "
+        f"{table_io.table_rows(salts) // len(chans)} salts clear of the raw "
+        "events' pulses and glitches")
+    check_salt_efficiency(clear, trig, res, "command line, device injector",
+                          phase="n")
+    # the energy scale: of the salts a feature row holds (same series and
+    # event, its index within the match window), each channel's no-delay
+    # fit at that row against the injected amplitude
+    window = salt_match_window(res[0], tentry.TSHELL_SIGMA)
+    held, rows = salts_at_triggers(clear, feats, window)
+    log(f"[n] {table_io.table_rows(rows)} of "
+        f"{table_io.table_rows(clear) // len(chans)} of those salts held by "
+        f"a feature row (±{window} samples)")
+    check_salt_recovery(held, rows, res, phase="n")
+
+    # call B again, as the real entry point, into a second output base
+    out2 = os.path.join(tmp, "out_subprocess")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "detprocess_tpu_torch.cli", *chain.b(ff, out2)],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=CLI_SUBPROCESS_TIMEOUT)
+    secs["B, subprocess"] = time.perf_counter() - t
+    log(f"[n] call B as `python -m detprocess_tpu_torch.cli`: rc "
+        f"{proc.returncode}, {secs['B, subprocess']:.3f} s wall (start-up, "
+        "imports and loading the built kernels included)")
+    if proc.returncode != 0:
+        raise RuntimeError("call B as a subprocess failed:\n"
+                           + proc.stdout[-2000:] + proc.stderr[-2000:])
+    for sub, prefix in prefixes.items():
+        name, table = cli_table(os.path.join(out2, sub), prefix)
+        if name != names[sub]:
+            raise RuntimeError(f"subprocess files {name}, expected "
+                               f"{names[sub]}")
+        compare_tables(table, out_b[sub], f"subprocess call B, {sub}")
+    log("[n] the subprocess's salting, trigger and feature tables equal the "
+        "in-process call's")
+
+    # call C: the IV sweep
+    secs["C"], lc, libc = cli_call(chain.c, "C (--enable-ivsweep)")
+    want = {"rfft": len(points), "fused_nodelay_of": 0, "cufft_rfft": 0}
+    if {**lc, **libc} != want:
+        raise RuntimeError(f"call C: launches {lc}, library {libc}, "
+                           f"expected {want}")
+    sweep_files = os.listdir(os.path.join(chain.out, "ivsweep"))
+    if sweep_files != [f"ivsweep_{tentry.CLI_OUT_SERIES}.npz"]:
+        raise RuntimeError(f"call C wrote {sweep_files}")
+    chan = tentry.CHANNEL
+    table = FilterData(verbose=False).load(os.path.join(
+        chain.out, "ivsweep", sweep_files[0])).get_ivsweep_data(chan)
+    t = time.perf_counter()
+    bps = discover_bias_points(chain.sweep, chan)
+    table_api = IVSweepProcessing(verbose=False, device=device).process(
+        chan, bps, sgfreq=tentry.IV_SGFREQ, sgamp=tentry.IV_SGAMP,
+        rsh=tentry.IV_RSH)
+    torch.cuda.synchronize()
+    api["C"] = time.perf_counter() - t
+    if list(table["state"]) != list(table_api["state"]):
+        raise RuntimeError("call C: state tags differ from the API run")
+    worst_c = {}
+    for key, tol in (("offset_noise", IV_DATA_RTOL),
+                     ("offset_didv", IV_DATA_RTOL),
+                     ("avgtrace_noise", IV_DATA_RTOL),
+                     ("didv", IV_DATA_RTOL), ("psd", IV_PSD_RTOL)):
+        worst_c[key] = max(max_rel(a, b) for a, b in zip(table[key],
+                                                        table_api[key]))
+        if not worst_c[key] <= tol:
+            raise RuntimeError(f"call C: {key} differs from the API run by "
+                               f"{worst_c[key]:.3e} (tol {tol:g})")
+    log(f"[n] call C: {table_io.table_rows(table)} bias points, the API "
+        f"run's tags; worst relative differences {json.dumps(worst_c)}")
+
+    # both kernels against their twins on call B's shapes
+    reader = RawReader(index)
+    evs = [reader.read_row(int(r), dtype=None, adctoamp=False)
+           for r in index.order[:TSHELL_BATCH]]
+    x = adc_convert(torch.as_tensor(np.stack([e for e, _ in evs]),
+                                    device=device),
+                    torch.as_tensor(np.stack([a["adc_conv"] for _, a in evs]),
+                                    device=device))
+    inj.inject(x, [a["series_number"] for _, a in evs],
+               [a["event_number"] for _, a in evs], channels=chans)
+    kernel_d, _ = tproc.trigger_steps()[0].device_kernels()
+    compare_rfft(trigger.fir_segments(x[:, :1], kernel_d).reshape(
+        -1, kernel_d.fft_size), errs, "n")
+    del x
+    fstep = fproc.group_steps()[0]
+    slot = next(s.slot for s in fstep.specs if s.base == "of1x1_nodelay")
+    wins = []
+    for r in range(min(CLI_BATCH, nrow)):
+        start = int(trig["trigger_index"][r]) - tentry.TRIGGER_PRETRIG
+        row = index.lookup[(int(trig["dump_number"][r]) - 1,
+                            int(trig["event_number"][r]))]
+        if start < 0 or start + tentry.TRIGGER_NT > CLI_LENGTH:
+            continue
+        w, admin = reader.read_row(int(row), [chans[0]],
+                                   (start, tentry.TRIGGER_NT))
+        wins.append(sal.inject_raw_salt(w, admin, [chans[0]],
+                                        window_start=start)[0])
+    reader.close()
+    compare_kernels(torch.as_tensor(np.stack(wins), dtype=torch.float32,
+                                    device=device),
+                    fstep.nodelay[str(slot)], errs, "n", "batch")
+
+    log("[n] host seconds, command line against the API run of the same "
+        "work (the difference is the command line's own: start-up, "
+        "imports, setup and filter-file reads, npz writes): " + ", ".join(
+            f"{k} {secs[k]:.3f} / {api[k]:.3f}" for k in api)
+        + f"; B as a subprocess {secs['B, subprocess']:.3f} s; on {card}")
+    log(f"[n] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"cli_a": la, "cli_b": lb, "cli_c": lc}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=os.path.abspath, default=None,
@@ -3650,6 +4067,7 @@ def main(argv=None):
     salt_launches = phase_k(device, card, errs)
     mode_launches = phase_l(device, card, errs)
     sweep_launches = phase_m(device, card, errs)
+    cli_launches = phase_n(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
@@ -3665,7 +4083,9 @@ def main(argv=None):
                     **{path: counts[name]
                        for path, counts in mode_launches.items()},
                     **{path: counts[name]
-                       for path, counts in sweep_launches.items()}}
+                       for path, counts in sweep_launches.items()},
+                    **{path: counts[name]
+                       for path, counts in cli_launches.items()}}
         rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",

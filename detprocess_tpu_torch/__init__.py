@@ -21,7 +21,16 @@ Ported so far:
 - the dIdV, IV-sweep and noise-model fits (``DIDVAnalysis``,
   ``IVSweepProcessing``, ``IVSweepAnalysis``, ``NoiseModel``,
   ``FilterBuilder``): the trace work (cuts, PSDs, offsets, lock-in) on
-  the GPU, the fits on the CPU in float64, as the JAX package pins them.
+  the GPU, the fits on the CPU in float64, as the JAX package pins them;
+- the command line (``python -m detprocess_tpu_torch.cli``, which chains
+  every workload as the JAX one does), the multi-node launcher
+  (``python -m detprocess_tpu_torch.launch``), feature-table merging
+  (``pipelines/merge``) and the plots (``utils/plotting``, matplotlib
+  imported when a plot is drawn). Besides the JAX file forms (pytesdaq
+  HDF5, YAML, HDF5 filter files and tables), which need h5py or PyYAML,
+  it reads and writes forms of its own that numpy and ``json`` serve:
+  flat raw groups with JSON manifests, JSON setups, ``.npz`` filter files
+  and tables.
 
 The two hand-written CUDA kernels (``csrc/``) are the batched real FFT
 (``ops/cuda_fft.py``, also the trigger FIR's segment transform) and the
@@ -30,7 +39,7 @@ PyTorch twin that runs on CPU tensors; CUDA tensors go to the kernel
 where it takes their shape, else to cuFFT (``ops/fft.py``).
 
 The package imports torch and numpy only: not JAX, not the JAX package,
-not h5py, pandas or yaml.
+not h5py, pandas, yaml or matplotlib (adapters import them when called).
 """
 
 _EXPORTS = {

@@ -12,13 +12,19 @@ without yaml:
   and algorithms, inherits trace lengths global → channel → algorithm
   (msec → samples with the sample rate) and adds the feature section's
   ``traces_config`` and ``weights``;
-- :func:`load_yaml` reads a YAML file with duplicate keys refused. It
-  imports yaml inside the function: the core never needs it.
+- :func:`load_yaml` reads a setup file with duplicate keys refused: a
+  ``.json`` file with ``json`` (JSON is a subset of YAML, so the JAX
+  package reads the same file through PyYAML), any other through PyYAML,
+  imported inside the function: the core never needs it;
+- :func:`write_json_setup` writes a setup dict as JSON that PyYAML reads
+  back as the same dict (a float keeps a decimal point, which YAML 1.1
+  needs to read ``1e-05`` as a number).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 from typing import Optional, Sequence
 
 from detprocess_tpu_torch.utils import channels as chutils
@@ -55,9 +61,29 @@ def convert_length_msec_to_samples(length_msec: float, fs: float) -> int:
     return int(round(length_msec * 1e-3 * fs))
 
 
+def _duplicate_key(key) -> ValueError:
+    return ValueError(f'Duplicate key "{key}" found in the yaml file for '
+                      f"the same channel and algorithm — not allowed")
+
+
+def _unique_pairs(pairs) -> dict:
+    """A JSON object's pairs as a dict, a repeated key refused."""
+    mapping = {}
+    for key, value in pairs:
+        if key in mapping:
+            raise _duplicate_key(key)
+        mapping[key] = value
+    return mapping
+
+
 def load_yaml(path: str) -> dict:
-    """The YAML file at ``path`` as a dict; a key repeated within one
-    mapping is refused."""
+    """The setup file at ``path`` as a dict: ``.json`` through ``json``,
+    anything else through PyYAML; a key repeated within one mapping is
+    refused."""
+    if path.lower().endswith(".json"):
+        with open(path) as f:
+            return json.load(f, object_pairs_hook=_unique_pairs)
+
     import yaml
     from yaml.loader import SafeLoader
 
@@ -72,14 +98,41 @@ def load_yaml(path: str) -> dict:
             for key_node, value_node in node.value:
                 key = self.construct_object(key_node, deep=deep)
                 if key in mapping:
-                    raise ValueError(
-                        f'Duplicate key "{key}" found in the yaml file for '
-                        f"the same channel and algorithm — not allowed")
+                    raise _duplicate_key(key)
                 mapping[key] = self.construct_object(value_node, deep=deep)
             return mapping
 
     with open(path) as f:
         return yaml.load(f, Loader=UniqueKeyLoader)
+
+
+def _json_text(value) -> str:
+    if isinstance(value, dict):
+        return "{" + ", ".join(f"{json.dumps(str(k))}: {_json_text(v)}"
+                               for k, v in value.items()) + "}"
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_json_text(v) for v in value) + "]"
+    if hasattr(value, "item") and not isinstance(value, (str, bytes)):
+        value = value.item()          # numpy scalars
+    if isinstance(value, float) and not isinstance(value, bool):
+        if value != value or value in (float("inf"), float("-inf")):
+            raise ValueError(f"a setup holds no {value}: JSON has no such "
+                             "number")
+        text = repr(value)
+        mant, _, exp = text.partition("e")
+        if "." not in mant:
+            mant += ".0"
+        return mant + ("e" + (exp if exp[0] in "+-" else "+" + exp)
+                       if exp else "")
+    return json.dumps(value)
+
+
+def write_json_setup(config: dict, path: str) -> str:
+    """Write ``config`` as a JSON setup file that ``load_yaml`` and
+    PyYAML read back as ``config``; returns ``path``."""
+    with open(path, "w") as f:
+        f.write(_json_text(config) + "\n")
+    return path
 
 
 def _rename_key_recursively(d, old_key, new_key):

@@ -77,6 +77,14 @@ step on one device.
   dumps (:func:`write_ivsweep_dumps`); :func:`run_ivsweep` processes
   and analyses it. :func:`didv_filtergen_entry` is the dIdV branch of
   filter generation on dIdV series of that configuration.
+- :func:`cli_chain_entry` is the command line over files: the
+  filter-generation events as a flat raw group (one series, one dump),
+  the sweep as a flat group of ``iv``/``didv`` series with ``tes_bias``
+  in their manifests (:func:`write_ivsweep_group`), and JSON setups
+  (:func:`cli_setup`: filter generation at the trigger templates'
+  geometry, the trigger shell, the salting chain's salts and feature
+  fit; :func:`cli_sweep_setup`), with the argument lists of its three
+  calls (:class:`CliChain`).
 """
 
 from __future__ import annotations
@@ -89,7 +97,8 @@ import torch
 
 from detprocess_tpu_torch import device as dev
 from detprocess_tpu_torch.io.filterdata import FilterData
-from detprocess_tpu_torch.io.rawdata import RawIndex, write_flat_dump
+from detprocess_tpu_torch.io.rawdata import (RawIndex, write_flat_dump,
+                                             write_flat_series)
 from detprocess_tpu_torch.models import pulse, tesnoise
 from detprocess_tpu_torch.ops import filterbank, trigger
 from detprocess_tpu_torch.pipelines.feature_step import FeatureStep
@@ -390,9 +399,13 @@ def trigger_shell_window_fn(m: torch.Tensor) -> torch.Tensor:
                        float(TSHELL_WINDOW))
 
 
-def trigger_shell_resolutions(fs: float = FS) -> np.ndarray:
-    """Each channel's amplitude resolution (A) in its trigger bank."""
-    fd = shell_filter_data(TRIGGER_NT, TRIGGER_PRETRIG, fs)
+def trigger_shell_resolutions(fs: float = FS,
+                              filter_data=None) -> np.ndarray:
+    """Each channel's amplitude resolution (A) in its trigger bank, from
+    ``filter_data`` (default: the shell's analytic templates and PSDs at
+    the trigger length)."""
+    fd = (shell_filter_data(TRIGGER_NT, TRIGGER_PRETRIG, fs)
+          if filter_data is None else filter_data)
     out = []
     for chan in SHELL_CHANNELS:
         tmpl, _ = fd.get_template(chan)
@@ -1148,39 +1161,70 @@ def ivsweep_index(path: str, nb_samples: int, series: str, cal: float,
         data_type=data_type)
 
 
-def write_ivsweep_dumps(directory: str, gen: torch.Generator, device,
-                        points=None, ntraces: int = IV_NOISE_TRACES,
-                        n: int = IV_N, ndidv: int = IV_DIDV_TRACES,
-                        nper: int = IV_PERIODS) -> list:
-    """Write each bias point's noise (``ntraces`` × ``n``) and dIdV
-    (``ndidv`` × ``nper`` periods) traces, made on ``device`` and stored
-    as int16 codes, as one flat dump each in ``directory``; returns the
-    bias points (:func:`ivsweep_points` by default) with their
-    ``noise_files`` and ``didv_files`` as raw indexes, the input of
-    ``IVSweepProcessing.process``."""
-    points = ivsweep_points() if points is None else points
+def ivsweep_codes(gen: torch.Generator, device, points, ntraces: int,
+                  n: int, ndidv: int, nper: int):
+    """Each bias point's noise (``ntraces`` × ``n``) and dIdV (``ndidv``
+    × ``nper`` periods) traces, made on ``device`` as int16 codes of
+    :func:`ivsweep_adc_cal`: yields (point index, "noise" or "didv",
+    series name, codes [E, 1, width] on the host)."""
     cal = ivsweep_adc_cal(points)
-    period = int(round(FS / IV_SGFREQ))
-    out = []
     for k, pt in enumerate(points):
-        bp = dict(pt)
-        for kind, make, width in (
+        for kind, make in (
                 ("noise", lambda: ivsweep_noise(gen, pt["params"], ntraces,
-                                                n, device), n),
+                                                n, device)),
                 ("didv", lambda: ivsweep_didv(gen, pt["params"], ndidv,
-                                              nper, device),
-                 period * nper)):
+                                              nper, device))):
             series = IV_SERIES.format((1 if kind == "noise" else 2) * 10000
                                       + k)
             codes = torch.round(make() / cal).clamp(-32768, 32767).to(
                 torch.int16)
-            path = os.path.join(directory, f"{kind}_{series}_F0001.bin")
-            write_flat_dump(path, codes[:, None, :].cpu().numpy())
-            bp[f"{kind}_files"] = ivsweep_index(
-                path, width, series, cal, pt["tes_bias"],
-                "noise" if kind == "noise" else "didv")
-        out.append(bp)
+            yield k, kind, series, codes[:, None, :].cpu().numpy()
+
+
+def write_ivsweep_dumps(directory: str, gen: torch.Generator, device,
+                        points=None, ntraces: int = IV_NOISE_TRACES,
+                        n: int = IV_N, ndidv: int = IV_DIDV_TRACES,
+                        nper: int = IV_PERIODS) -> list:
+    """Write each bias point's noise and dIdV traces
+    (:func:`ivsweep_codes`) as one flat dump each in ``directory``;
+    returns the bias points (:func:`ivsweep_points` by default) with
+    their ``noise_files`` and ``didv_files`` as raw indexes, the input of
+    ``IVSweepProcessing.process``."""
+    points = ivsweep_points() if points is None else points
+    cal = ivsweep_adc_cal(points)
+    out = [dict(pt) for pt in points]
+    for k, kind, series, codes in ivsweep_codes(gen, device, points,
+                                                ntraces, n, ndidv, nper):
+        path = os.path.join(directory, f"{kind}_{series}_F0001.bin")
+        write_flat_dump(path, codes)
+        out[k][f"{kind}_files"] = ivsweep_index(
+            path, codes.shape[-1], series, cal, points[k]["tes_bias"],
+            "noise" if kind == "noise" else "didv")
     return out
+
+
+def write_ivsweep_group(directory: str, gen: torch.Generator, device,
+                        points=None, ntraces: int = IV_NOISE_TRACES,
+                        n: int = IV_N, ndidv: int = IV_DIDV_TRACES,
+                        nper: int = IV_PERIODS) -> list:
+    """The sweep of :func:`write_ivsweep_dumps` as a flat raw group: each
+    point's noise series ``iv_{series}`` and dIdV series
+    ``didv_{series}`` (:func:`io.rawdata.write_flat_series`), their
+    ``tes_bias`` in the manifests' detector config, where
+    ``pipelines/ivsweep.discover_bias_points`` finds them. Returns the
+    manifest paths."""
+    points = ivsweep_points() if points is None else points
+    cal = ivsweep_adc_cal(points)
+    manifests = []
+    for k, kind, series, codes in ivsweep_codes(gen, device, points,
+                                                ntraces, n, ndidv, nper):
+        mpath, _ = write_flat_series(
+            directory, "iv" if kind == "noise" else "didv", series,
+            [codes], [CHANNEL], FS, adc_conversion_factor=cal,
+            detector_config={CHANNEL: {
+                "tes_bias": points[k]["tes_bias"], "close_loop_norm": 1.0}})
+        manifests.append(mpath)
+    return manifests
 
 
 def ivsweep_entry(device=None, directory: str | None = None, seed: int = 0,
@@ -1297,3 +1341,140 @@ def ivsweep_results_of(point) -> dict:
     p = point["params"]
     return {"i0": p.i0, "r0": p.r0, "rp": IV_RP, "rshunt": IV_RSH,
             "ibias": point["tes_bias"], "p0": p.i0 ** 2 * p.r0}
+
+
+# the command line (python -m detprocess_tpu_torch.cli) over files: the
+# filter-generation data as a flat raw group, the setup as JSON, and the
+# sweep as a second flat group
+CLI_SERIES = "I1_D20260103_T000000"        # the continuous group's series
+CLI_OUT_SERIES = "I1_D20260103_T120000"    # the calls' output series
+
+
+def cli_setup(nrandoms: int = FG_NRANDOMS,
+              nsalt: int = SALT_PER_POINT) -> dict:
+    """The chain's processing setup (the dict its JSON file holds): the
+    noise and template sections of :func:`filtergen_config` at the
+    trigger templates' geometry (TRIGGER_NT, TRIGGER_PRETRIG), the
+    trigger section of :func:`trigger_shell_config`, the salting of
+    :func:`salting_chain_entry` (``nsalt`` salts at each of
+    :data:`SALT_SIGMAS`, each channel's quarter at that many of its
+    analytic trigger resolutions) and the feature section of
+    :func:`salting_feature_config`."""
+    share = 1.0 / len(SHELL_CHANNELS)
+    return {
+        **filtergen_config(TRIGGER_NT, TRIGGER_PRETRIG, nrandoms),
+        **trigger_shell_config(),
+        "salting": {
+            "energies": list(SALT_SIGMAS), "nsalt": int(nsalt),
+            "energy_norm_ev_per_amp": {
+                c: share / float(r) for c, r in zip(
+                    SHELL_CHANNELS, trigger_shell_resolutions())},
+            "min_separation_msec": SALT_SEPARATION_MSEC,
+            "edge_exclusion_msec": SALT_EDGE_MSEC},
+        **salting_feature_config()}
+
+
+def cli_sweep_setup() -> dict:
+    """The sweep's processing setup: its square wave and shunt."""
+    return {"didv": {"sgfreq": IV_SGFREQ, "sgamp": IV_SGAMP,
+                     "rshunt": IV_RSH}}
+
+
+class CliChain:
+    """The command lines of the chain over the groups that
+    :func:`cli_chain_entry` writes: :attr:`a` (filter generation and
+    randoms), :meth:`b` (salting with the device injector, trigger and
+    features, given call A's filter file) and :attr:`c` (the IV sweep),
+    each writing npz into :attr:`out` (or another output base).
+    :attr:`artifacts` holds the raw events' pulses and glitches
+    (:func:`filtergen_artifacts`)."""
+
+    def __init__(self, raw: str, sweep: str, setup: str, sweep_setup: str,
+                 out: str, device: str, seed: int, nrandoms: int,
+                 artifacts: dict):
+        self.raw, self.sweep, self.out = raw, sweep, out
+        self.setup, self.sweep_setup = setup, sweep_setup
+        self.device, self.seed, self.nrandoms = device, seed, nrandoms
+        self.artifacts = artifacts
+
+    def _common(self, raw, setup, out):
+        return ["--raw_path", raw, "--processing_setup", setup,
+                "--output_group_path", out, "--output-format", "npz",
+                "--output-series-name", CLI_OUT_SERIES, "--device",
+                self.device, "--quiet"]
+
+    @property
+    def a(self) -> list:
+        return self._common(self.raw, self.setup, self.out) + [
+            "--calc-filter", "--enable-rand", "--nrandoms",
+            str(self.nrandoms), "--seed", str(self.seed)]
+
+    def b(self, filter_file: str, out: str | None = None) -> list:
+        return self._common(self.raw, self.setup, out or self.out) + [
+            "--filter_file", filter_file, "--enable-salting",
+            "--device-salting", "--enable-trig", "--enable-feature",
+            "--seed", str(self.seed)]
+
+    @property
+    def c(self) -> list:
+        return self._common(self.sweep, self.sweep_setup, self.out) + [
+            "--enable-ivsweep"]
+
+    def filter_file(self, out: str | None = None) -> str:
+        """The filter file that call A wrote."""
+        directory = os.path.join(out or self.out, "filterdata")
+        files = sorted(os.listdir(directory))
+        if len(files) != 1:
+            raise RuntimeError(f"expected one filter file in {directory}, "
+                               f"found {files}")
+        return os.path.join(directory, files[0])
+
+
+def cli_chain_entry(device=None, directory: str | None = None,
+                    nevents: int = FG_EVENTS, seed: int = 0,
+                    length: int = TRIGGER_L, nrandoms: int = FG_NRANDOMS,
+                    nsalt: int = SALT_PER_POINT, points=None,
+                    ntraces: int = IV_NOISE_TRACES, n: int = IV_N,
+                    ndidv: int = IV_DIDV_TRACES,
+                    nper: int = IV_PERIODS) -> CliChain:
+    """Write the chain's inputs into ``directory`` (a new temporary
+    directory by default) and return its :class:`CliChain`:
+
+    - ``raw/``: ``nevents`` continuous events of ``length`` samples of
+      the filter-generation data (:func:`filtergen_events`: noise, DC
+      offsets, a pulse and a glitch a channel and event), made on
+      ``device`` and written as one flat series ``cont_{CLI_SERIES}`` of
+      one dump (the salt injectors match salts by series and event, and a
+      dump numbers its events from 1);
+    - ``process.json``: :func:`cli_setup`;
+    - ``sweep/`` and ``sweep.json``: the IV/dIdV sweep of
+      :func:`write_ivsweep_group` and :func:`cli_sweep_setup`.
+
+    ``device=None`` means the GPU, and the command lines run there."""
+    from detprocess_tpu_torch.config.yamlconfig import write_json_setup
+
+    device = _device(device)
+    if directory is None:
+        directory = tempfile.mkdtemp(prefix="detprocess_cli_")
+    os.makedirs(directory, exist_ok=True)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    art = filtergen_artifacts(np.random.default_rng(seed), nevents, length)
+    chunk = 8
+    raw = os.path.join(directory, "raw")
+    write_flat_series(
+        raw, "cont", CLI_SERIES,
+        [(filtergen_events(gen, art, j, min(chunk, nevents - j), device,
+                           length).cpu().numpy()
+          for j in range(0, nevents, chunk))],
+        SHELL_CHANNELS, FS, adc_conversion_factor=SHELL_CAL,
+        detector_config={c: {"close_loop_norm": cln}
+                         for c, cln in zip(SHELL_CHANNELS, SHELL_CLN)})
+    sweep = os.path.join(directory, "sweep")
+    write_ivsweep_group(sweep, gen, device, points, ntraces, n, ndidv, nper)
+    setup = write_json_setup(cli_setup(nrandoms, nsalt),
+                             os.path.join(directory, "process.json"))
+    sweep_setup = write_json_setup(cli_sweep_setup(),
+                                   os.path.join(directory, "sweep.json"))
+    return CliChain(raw, sweep, setup, sweep_setup,
+                    os.path.join(directory, "out"), str(device), seed,
+                    nrandoms, art)

@@ -20,12 +20,27 @@ adapters (h5py is imported when they are called) for the JAX package's
 filter-file layout: ``/{channel}/{param}_{tag}`` groups with a
 ``_metadata`` attrs group (``save_hdf5`` :426, ``_write_value`` :467,
 ``_write_dict`` :530, ``_write_array`` :553, ``load_hdf5`` :450,
-``_read_value`` :577). The ``plot_*`` methods are not ported.
+``_read_value`` :577).
+
+:meth:`FilterData.save_npz` and :meth:`FilterData.load_npz` hold the same
+store in one ``numpy.savez`` file for machines without h5py: the arrays
+under keys of their own, and the layout (parameter kinds, dict values,
+metadata) as JSON under ``__manifest__``. They write what ``save_hdf5``
+writes and read back what ``load_hdf5`` reads (strings as unicode, None
+dropped from dicts and metadata, a missing string cell as ""). The form
+of a path is its suffix: :meth:`FilterData.save` and
+:meth:`FilterData.load` take ``.npz`` as npz and ``.hdf5``/``.h5`` as
+HDF5, and refuse any other by name.
+
+The ``plot_*`` methods are the JAX store's delegates (io/filterfile.py
+:75-102) into ``utils/plotting``, which imports matplotlib.
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -216,6 +231,34 @@ class FilterData:
                     msg += "  [" + ", ".join(extras) + "]"
                 print(msg)
 
+    # -- plots (utils/plotting, matplotlib imported there) -----------------
+    def plot_template(self, channels, tag="default", ax=None):
+        from detprocess_tpu_torch.utils import plotting
+        if isinstance(channels, str):
+            channels = [channels]
+        for chan in channels:
+            ax = plotting.plot_template(self, chan, tag=tag, ax=ax)
+        return ax
+
+    def plot_psd(self, channels, tag="default", fold=True, ax=None):
+        from detprocess_tpu_torch.utils import plotting
+        return plotting.plot_psd(self, channels, tag=tag, fold=fold, ax=ax)
+
+    def plot_csd(self, channels, tag="default", ax=None):
+        from detprocess_tpu_torch.utils import plotting
+        return plotting.plot_csd(self, channels, tag=tag, ax=ax)
+
+    def plot_corrcoeff(self, channels, tag="default", lgcsmooth=True,
+                       nwindow=7, ax=None):
+        from detprocess_tpu_torch.utils import plotting
+        return plotting.plot_corrcoeff(self, channels, tag=tag,
+                                       lgcsmooth=lgcsmooth,
+                                       nwindow=nwindow, ax=ax)
+
+    def plot_ivsweep_offset(self, channel, tag="default", ax=None):
+        from detprocess_tpu_torch.utils import plotting
+        return plotting.plot_ivsweep_offset(self, channel, tag=tag, ax=ax)
+
     def _set(self, channel: str, name: str, value, metadata: Optional[dict],
              index=None):
         md = copy.deepcopy(metadata) if metadata else {}
@@ -393,6 +436,63 @@ class FilterData:
     def get_noise_dataframe(self, channel, tag: str = "default") -> Table:
         return self._get(channel, f"noise_processing_{tag}")[0]
 
+    # -- files ---------------------------------------------------------------
+    def save(self, path: str, overwrite: bool = True):
+        """Write the store in the form of ``path``'s suffix (``.npz``, or
+        ``.hdf5``/``.h5`` through h5py)."""
+        if file_form(path) == "npz":
+            self.save_npz(path, overwrite=overwrite)
+        else:
+            self.save_hdf5(path, overwrite=overwrite)
+
+    def load(self, path: str, overwrite: bool = False) -> "FilterData":
+        """Merge the filter file at ``path`` into the store, in the form of
+        its suffix (``.npz``, or ``.hdf5``/``.h5`` through h5py)."""
+        if file_form(path) == "npz":
+            return self.load_npz(path, overwrite=overwrite)
+        return self.load_hdf5(path, overwrite=overwrite)
+
+    def save_npz(self, path: str, overwrite: bool = True):
+        """Write the store at ``path`` as one ``.npz`` file; without
+        ``overwrite`` an existing file's other parameters are kept."""
+        store = self._filter_data
+        if not overwrite and os.path.exists(path):
+            old = FilterData(verbose=False).load_npz(path)
+            for chan, params in store.items():
+                old._filter_data.setdefault(chan, {}).update(params)
+            store = old._filter_data
+        writer = _NpzWriter()
+        items = []
+        for chan, params in store.items():
+            for name, (value, index, md) in params.items():
+                items.append({"channel": chan, "name": name,
+                              "value": writer.value(value, index),
+                              "metadata": writer.dict(md or {})})
+        manifest = json.dumps({"format": NPZ_FORMAT, "items": items})
+        with open(path, "wb") as f:
+            np.savez(f, __manifest__=np.array(manifest), **writer.arrays)
+        if self._verbose:
+            print(f"INFO: filter data saved to {path}")
+
+    def load_npz(self, path: str, overwrite: bool = False) -> "FilterData":
+        """Merge the ``.npz`` filter file at ``path`` into the store;
+        present parameters stay unless ``overwrite``."""
+        with np.load(path, allow_pickle=False) as z:
+            manifest = json.loads(str(z["__manifest__"]))
+            if manifest.get("format") != NPZ_FORMAT:
+                raise ValueError(f"'{path}' is not a filter file of this "
+                                 f"package (format {manifest.get('format')!r},"
+                                 f" expected {NPZ_FORMAT!r})")
+            reader = _NpzReader(z)
+            for item in manifest["items"]:
+                chan_dict = self._filter_data.setdefault(item["channel"], {})
+                if not overwrite and item["name"] in chan_dict:
+                    continue
+                value, index = reader.value(item["value"])
+                chan_dict[item["name"]] = (value, index,
+                                           reader.dict(item["metadata"]))
+        return self
+
     # -- HDF5 adapter ----------------------------------------------------
     def save_hdf5(self, path: str, overwrite: bool = True):
         """Write the store at ``path`` in the JAX package's layout (mode
@@ -478,10 +578,8 @@ def _read_value(g):
             node = g["columns"][c]
             if isinstance(node, h5py.Group) and node.attrs.get(
                     "__array_rows__"):
-                stack = _read_array(node["stack"])
-                lengths = node["lengths"][...]
-                data[c] = [stack[i, : lengths[i]] if lengths[i] > 0
-                           else None for i in range(len(lengths))]
+                data[c] = _rows_of_stack(_read_array(node["stack"]),
+                                         node["lengths"][...])
             else:
                 data[c] = _read_array(node)
         return Table(data), None
@@ -511,9 +609,7 @@ def _write_value(g, value, index):
                 if _write_array_rows(cols, str(col), cells):
                     written.append(str(col))
                     continue
-                if not all(isinstance(v, (str, bytes, int, float, np.floating,
-                                          np.integer, type(None), bool))
-                           for v in cells):
+                if not _scalar_cells(cells):
                     continue      # cells that cannot be stored
                 arr = np.asarray(cells, dtype=object)
             _write_array(cols, str(col), arr)
@@ -530,13 +626,13 @@ def _write_value(g, value, index):
         g.attrs["value"] = value
 
 
-def _write_array_rows(cols, name: str, cells) -> bool:
+def _array_rows(cells):
     """Array-valued cells (one 1-D array a row, None where missing) as a
-    NaN-padded ``stack`` and the rows' ``lengths``; False when the cells
-    are not such arrays."""
+    NaN-padded stack and the rows' lengths; None when the cells are not
+    such arrays."""
     rows = [np.asarray(v) for v in cells if isinstance(v, np.ndarray)]
     if not rows or not all(r.ndim == 1 for r in rows):
-        return False
+        return None
     width = max(r.shape[0] for r in rows)
     dt = complex if any(np.iscomplexobj(r) for r in rows) else float
     stack = np.full((len(cells), width), np.nan, dtype=dt)
@@ -545,6 +641,27 @@ def _write_array_rows(cols, name: str, cells) -> bool:
         if isinstance(v, np.ndarray):
             stack[i, : v.shape[0]] = v
             lengths[i] = v.shape[0]
+    return stack, lengths
+
+
+def _rows_of_stack(stack, lengths) -> list:
+    return [stack[i, : lengths[i]] if lengths[i] > 0 else None
+            for i in range(len(lengths))]
+
+
+def _scalar_cells(cells) -> bool:
+    """Cells a table column can store as strings or numbers."""
+    return all(isinstance(v, (str, bytes, int, float, np.floating,
+                              np.integer, type(None), bool)) for v in cells)
+
+
+def _write_array_rows(cols, name: str, cells) -> bool:
+    """Array-valued cells as a ``stack`` and ``lengths`` group; False when
+    the cells are not such arrays (:func:`_array_rows`)."""
+    packed = _array_rows(cells)
+    if packed is None:
+        return False
+    stack, lengths = packed
     sub = cols.create_group(name)
     sub.attrs["__array_rows__"] = True
     _write_array(sub, "stack", stack)
@@ -586,3 +703,133 @@ def _write_array(parent, name, arr):
         g.create_dataset("im", data=arr.imag)
     else:
         parent.create_dataset(name, data=arr)
+
+
+# -- the npz form ---------------------------------------------------------
+
+NPZ_FORMAT = "detprocess_tpu_torch.filterdata/1"
+HDF5_SUFFIXES = (".hdf5", ".h5")
+
+
+def file_form(path: str) -> str:
+    """'npz' or 'hdf5' by the suffix of ``path``; any other is refused."""
+    low = path.lower()
+    if low.endswith(".npz"):
+        return "npz"
+    if low.endswith(HDF5_SUFFIXES):
+        return "hdf5"
+    raise ValueError(f"filter file '{path}': the suffix names no form "
+                     "(.npz, or .hdf5/.h5 for HDF5)")
+
+
+def _npz_array(arr) -> np.ndarray:
+    """An array as ``_write_array`` stores it and ``_read_array`` reads it
+    back: strings (and an object array's cells, None as "") as
+    unicode."""
+    arr = np.asarray(arr)
+    if arr.dtype == object:
+        return np.array(["" if v is None else str(v) for v in arr], dtype=str)
+    if arr.dtype.kind == "S":
+        return arr.astype(str)
+    return arr
+
+
+def _json_scalar(v):
+    if isinstance(v, np.generic):
+        v = v.item()
+    if isinstance(v, complex):
+        return {"__complex__": [v.real, v.imag]}
+    if isinstance(v, bytes):
+        return v.decode()
+    if isinstance(v, (bool, int, float, str)):
+        return v
+    return str(v)
+
+
+class _NpzWriter:
+    """Arrays under keys a0, a1, …; everything else as JSON."""
+
+    def __init__(self):
+        self.arrays: dict = {}
+
+    def array(self, arr) -> dict:
+        key = f"a{len(self.arrays)}"
+        self.arrays[key] = _npz_array(arr)
+        return {"__array__": key}
+
+    def dict(self, value: dict) -> dict:
+        """A dict as ``_write_dict`` stores it: None dropped, lists as
+        arrays, nested dicts kept."""
+        out = {}
+        for k, v in value.items():
+            if isinstance(v, dict):
+                out[str(k)] = {"__dict__": self.dict(v)}
+            elif isinstance(v, (np.ndarray, list, tuple)):
+                out[str(k)] = self.array(np.asarray(v))
+            elif v is not None:
+                out[str(k)] = _json_scalar(v)
+        return out
+
+    def value(self, value, index) -> dict:
+        """One parameter as ``_write_value`` stores it."""
+        if isinstance(value, np.ndarray) and index is not None:
+            return {"kind": "series", "values": self.array(value),
+                    "index": self.array(np.asarray(index))}
+        if isinstance(value, Table):
+            cols = []
+            for col, arr in value.items():
+                if isinstance(arr, list) or np.asarray(arr).dtype == object:
+                    cells = list(arr)
+                    packed = _array_rows(cells)
+                    if packed is not None:
+                        cols.append([str(col), {
+                            "stack": self.array(packed[0]),
+                            "lengths": self.array(packed[1])}])
+                        continue
+                    if not _scalar_cells(cells):
+                        continue      # cells that cannot be stored
+                    arr = np.asarray(cells, dtype=object)
+                cols.append([str(col), self.array(arr)])
+            return {"kind": "dataframe", "columns": cols}
+        if isinstance(value, np.ndarray):
+            return {"kind": "array", "values": self.array(value)}
+        if isinstance(value, dict):
+            return {"kind": "dict", "values": self.dict(value)}
+        return {"kind": "scalar", "value": _json_scalar(value)}
+
+
+class _NpzReader:
+    def __init__(self, npz):
+        self._npz = npz
+
+    def item(self, v):
+        if isinstance(v, dict):
+            if "__array__" in v:
+                return self._npz[v["__array__"]]
+            if "__complex__" in v:
+                return complex(*v["__complex__"])
+            if "__dict__" in v:
+                return self.dict(v["__dict__"])
+        return v
+
+    def dict(self, value: dict) -> dict:
+        return {k: self.item(v) for k, v in value.items()}
+
+    def value(self, spec: dict):
+        kind = spec["kind"]
+        if kind == "series":
+            return self.item(spec["values"]), self.item(spec["index"])
+        if kind == "dataframe":
+            data = {}
+            for col, node in spec["columns"]:
+                data[col] = (_rows_of_stack(self.item(node["stack"]),
+                                            self.item(node["lengths"]))
+                             if "stack" in node else self.item(node))
+            return Table(data), None
+        if kind == "array":
+            return self.item(spec["values"]), None
+        if kind == "dict":
+            return self.dict(spec["values"]), None
+        if kind == "scalar":
+            return self.item(spec["value"]), None
+        raise ValueError(f"unknown stored type: {kind}")

@@ -26,6 +26,16 @@ Two ways to build one:
   events back to back, each a C-order [C, N] block of the stored dtype),
   which need no HDF5 at all.
 
+A flat raw group is the port's file form for machines without h5py:
+:func:`write_flat_series` writes a series as pytesdaq-named dumps
+``{prefix}_{series}_F{dump:04d}.bin`` beside one JSON manifest
+``{prefix}_{series}.json`` that holds what :meth:`RawIndex.from_flat`
+takes (channels, samples, sample rate, dtype, ADC conversion, pretrigger,
+data type, facility, detector config). :meth:`RawIndex.from_files` opens
+any list of raw paths: ``.hdf5`` through :meth:`~RawIndex.from_pytesdaq`,
+``.bin`` through its manifest; a list that mixes the two, or a dump
+without a manifest, is refused by name.
+
 :class:`RawReader` serves ``read_next_event``, ``read_single_event``
 (with ``trace_window``), ``read_many_events`` and ``rewind`` over an
 index, in amps or, with ``adctoamp=False, dtype=None``, in the stored
@@ -33,13 +43,15 @@ dtype with the conversion factors in ``admin["adc_conv"]``; its admin
 dicts carry the JAX reader's keys.
 
 :class:`RawData` (JAX ``RawData`` :566) classifies the files of a raw
-group directory by their name's prefix and maps each data type to its
-series; the queries that open files go through the h5py adapter.
+group directory (pytesdaq ``.hdf5`` and flat ``.bin`` dumps) by their
+name's prefix and maps each data type to its series; its queries read a
+flat series' manifest, and open HDF5 files through the h5py adapter.
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
 import re
 import sys
@@ -206,11 +218,14 @@ class RawIndex:
                   detector_config: Optional[Dict[str, dict]] = None,
                   nb_pretrigger_samples: Optional[int] = None,
                   group_name: str = "", data_type: str = "continuous",
-                  facility: int = 1) -> "RawIndex":
+                  facility: int = 1,
+                  dump_numbers: Optional[Sequence[int]] = None
+                  ) -> "RawIndex":
         """Index flat dump files (:func:`write_flat_dump`): file i of the
-        sorted ``paths`` is dump i + 1 of ``series_name``, its events are
-        numbered 1, 2, … and the event time runs on from file to file at
-        ``nb_samples / sample_rate`` an event."""
+        sorted ``paths`` is dump ``dump_numbers[i]`` (default i + 1) of
+        ``series_name``, its events are numbered 1, 2, … and the event
+        time runs on from file to file at ``nb_samples / sample_rate`` an
+        event."""
         dtype = np.dtype(dtype)
         detector_config = detector_config or {}
         cln = np.array([float((detector_config.get(c) or {}).get(
@@ -234,7 +249,9 @@ class RawIndex:
                 adc["nb_pretrigger_samples"] = int(nb_pretrigger_samples)
             md = {"series_name": series_name,
                   "series_num": series_to_number(series_name),
-                  "dump_num": i + 1, "facility": facility,
+                  "dump_num": (i + 1 if dump_numbers is None
+                               else int(dump_numbers[i])),
+                  "facility": facility,
                   "data_type": data_type, "group_name": group_name, **adc,
                   "detector_config": detector_config}
             files.append(RawFile(
@@ -324,6 +341,73 @@ class RawIndex:
                     lookup[(fi, num)] = rows[key]
         return cls(files, events, order=order, lookup=lookup)
 
+    @classmethod
+    def from_files(cls, paths: Sequence[str] | str,
+                   adc_name: str = "adc1") -> "RawIndex":
+        """Index raw files by their form: pytesdaq ``.hdf5`` files through
+        :meth:`from_pytesdaq` (h5py), flat ``.bin`` dumps through the
+        manifest of their series (:func:`write_flat_series`), one series
+        after another in name order. A list that mixes the forms, a file
+        of neither, and a dump without its manifest are refused by
+        name."""
+        if isinstance(paths, str):
+            paths = [paths]
+        paths = sorted(paths)
+        if not paths:
+            raise ValueError("no raw files given")
+        kinds = {os.path.splitext(p)[1].lower() for p in paths}
+        if not kinds <= {".hdf5", ".bin"}:
+            bad = [p for p in paths
+                   if os.path.splitext(p)[1].lower() not in (".hdf5", ".bin")]
+            raise ValueError(f"raw file '{bad[0]}' is neither a pytesdaq "
+                             "'.hdf5' file nor a flat '.bin' dump")
+        if kinds == {".hdf5", ".bin"}:
+            raise ValueError(
+                "raw files mix pytesdaq HDF5 ('"
+                + next(p for p in paths if p.lower().endswith(".hdf5"))
+                + "') and flat dumps ('"
+                + next(p for p in paths if p.lower().endswith(".bin"))
+                + "'): give one form at a time")
+        if kinds == {".hdf5"}:
+            return cls.from_pytesdaq(paths, adc_name)
+        groups: Dict[str, List[str]] = {}
+        for p in paths:
+            groups.setdefault(flat_dump_parts(p)[0] + ".json", []).append(p)
+        indexes = []
+        for manifest, dumps in sorted(groups.items()):
+            if not os.path.exists(manifest):
+                raise ValueError(
+                    f"flat dump '{dumps[0]}' has no manifest: expected "
+                    f"'{manifest}' (write_flat_series writes it)")
+            with open(manifest) as f:
+                md = json.load(f)
+            indexes.append(cls.from_flat(
+                dumps, md["channels"], int(md["nb_samples"]),
+                float(md["sample_rate"]), md["series_name"],
+                dtype=np.dtype(md["dtype"]),
+                adc_conversion_factor=float(md["adc_conversion_factor"]),
+                detector_config=md.get("detector_config") or {},
+                nb_pretrigger_samples=md.get("nb_pretrigger_samples"),
+                group_name=md.get("group_name", ""),
+                data_type=md.get("data_type", "continuous"),
+                facility=int(md.get("facility", 1)),
+                dump_numbers=[flat_dump_parts(p)[1] for p in dumps]))
+        return indexes[0] if len(indexes) == 1 else cls.concat(indexes)
+
+
+FLAT_DUMP_RE = re.compile(r"^(.*)_F(\d+)\.bin$")
+
+
+def flat_dump_parts(dump_path: str):
+    """(``{directory}/{prefix}_{series}``, dump number) of a flat dump
+    ``{prefix}_{series}_F{dump}.bin``; its manifest is the first part
+    with ``.json``."""
+    m = FLAT_DUMP_RE.match(dump_path)
+    if not m:
+        raise ValueError(f"flat dump '{dump_path}' is not named "
+                         "'{prefix}_{series}_F{dump:04d}.bin'")
+    return m.group(1), int(m.group(2))
+
 
 def _file_admin(md: dict, path: str) -> dict:
     """The file part of an event's admin dict (JAX ``_read_event``)."""
@@ -369,14 +453,87 @@ def write_flat_dump(path: str, stored: np.ndarray, append: bool = False):
         np.ascontiguousarray(stored).tofile(f)
 
 
+def write_flat_series(directory: str, prefix: str, series_name: str,
+                      dumps, channels: Sequence[str], sample_rate: float,
+                      adc_conversion_factor: float = 1.0,
+                      detector_config: Optional[Dict[str, dict]] = None,
+                      nb_pretrigger_samples: Optional[int] = None,
+                      data_type: Optional[str] = None,
+                      facility: Optional[int] = None,
+                      group_name: Optional[str] = None):
+    """Write a series of a flat raw group: dump k of ``dumps`` (an array
+    [E, C, N] of stored values, or an iterable of such chunks appended in
+    turn) as ``{prefix}_{series_name}_F{k:04d}.bin`` (k from 1), and the
+    manifest ``{prefix}_{series_name}.json``. ``data_type`` defaults to
+    the prefix's (:data:`DATA_TYPES`), ``facility`` to the series name's,
+    ``group_name`` to the directory's name. Returns (manifest path, dump
+    paths)."""
+    os.makedirs(directory, exist_ok=True)
+    channels = [str(c) for c in channels]
+    paths, shape, dtype = [], None, None
+    for k, dump in enumerate(dumps, start=1):
+        path = os.path.join(directory, f"{prefix}_{series_name}_F{k:04d}.bin")
+        chunks = [dump] if isinstance(dump, np.ndarray) else dump
+        first = True
+        for chunk in chunks:
+            chunk = np.asarray(chunk)
+            if chunk.ndim != 3 or chunk.shape[1] != len(channels):
+                raise ValueError(
+                    f"a dump chunk must be [events, {len(channels)}, "
+                    f"samples], got {list(chunk.shape)}")
+            if shape is None:
+                shape, dtype = chunk.shape[2], chunk.dtype
+            elif chunk.shape[2] != shape or chunk.dtype != dtype:
+                raise ValueError("every chunk of a series needs the same "
+                                 "trace length and dtype")
+            write_flat_dump(path, chunk, append=not first)
+            first = False
+        if first:
+            raise ValueError(f"dump {k} of {series_name} holds no events")
+        paths.append(path)
+    if not paths:
+        raise ValueError(f"no dumps given for series {series_name}")
+    if data_type is None:
+        data_type = next((dt for key, dt in DATA_TYPES.items()
+                          if prefix.startswith(key)), "unknown")
+    if facility is None:
+        facility = int(SERIES_RE.search(series_name).group(1))
+    manifest = {
+        "series_name": series_name, "channels": channels,
+        "nb_samples": int(shape), "sample_rate": float(sample_rate),
+        "dtype": np.dtype(dtype).name,
+        "adc_conversion_factor": float(adc_conversion_factor),
+        "nb_pretrigger_samples": (None if nb_pretrigger_samples is None
+                                  else int(nb_pretrigger_samples)),
+        "data_type": data_type, "facility": int(facility),
+        "group_name": (os.path.basename(os.path.normpath(directory))
+                       if group_name is None else group_name),
+        "detector_config": {str(c): {str(k): _json_value(v)
+                                     for k, v in cfg.items()}
+                            for c, cfg in (detector_config or {}).items()},
+    }
+    mpath = os.path.join(directory, f"{prefix}_{series_name}.json")
+    with open(mpath, "w") as f:
+        json.dump(manifest, f, indent=1)
+    return mpath, paths
+
+
+def _json_value(v):
+    if isinstance(v, np.generic):
+        return v.item()
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    return v
+
+
 class RawReader:
-    """Event reader over a :class:`RawIndex` (or pytesdaq paths, indexed
-    with :meth:`RawIndex.from_pytesdaq`)."""
+    """Event reader over a :class:`RawIndex` (or raw file paths, indexed
+    with :meth:`RawIndex.from_files`)."""
 
     def __init__(self, index: RawIndex | Sequence[str] | str,
                  adc_name: str = "adc1"):
         if not isinstance(index, RawIndex):
-            index = RawIndex.from_pytesdaq(index, adc_name)
+            index = RawIndex.from_files(index, adc_name)
         self.index = index
         self.adc_name = adc_name
         self._pos = 0
@@ -500,10 +657,11 @@ class RawReader:
 
 
 class RawData:
-    """The files of a raw group directory (``{group}/*.hdf5``, else
-    ``{group}/*/*.hdf5``), classified by their name's prefix
-    (:data:`DATA_TYPES`; ``restricted`` in the prefix marks restricted
-    data) and mapped ``{data type: {series: [files]}}``."""
+    """The raw files of a group directory (``{group}/*.hdf5`` and flat
+    ``{group}/*.bin`` dumps, else the same one directory down), classified
+    by their name's prefix (:data:`DATA_TYPES`; ``restricted`` in the
+    prefix marks restricted data) and mapped ``{data type: {series:
+    [files]}}``."""
 
     def __init__(self, raw_path: str, data_type: str = "continuous",
                  series: Optional[Sequence[str]] = None,
@@ -513,9 +671,9 @@ class RawData:
         self.restricted = restricted
         self._series_filter = set(series) if series else None
         self._file_map: Dict[str, Dict[str, List[str]]] = {}
-        files = sorted(glob.glob(os.path.join(raw_path, "*.hdf5")))
+        files = _raw_files(raw_path)
         if not files:
-            files = sorted(glob.glob(os.path.join(raw_path, "*", "*.hdf5")))
+            files = _raw_files(os.path.join(raw_path, "*"))
         for afile in files:
             dtype = self._classify(afile)
             if dtype is None:
@@ -575,12 +733,13 @@ class RawData:
     def get_data_config(self, data_type: Optional[str] = None,
                         series: Optional[str] = None) -> dict:
         """{series: {"channel_list", "detector_config", "overall"}} from
-        each series' first file (h5py adapter)."""
+        each series' first file (a flat series' manifest, or the h5py
+        adapter)."""
         out = {}
         for name, files in self.get_data_files(data_type, series).items():
             if not files:
                 continue
-            md = RawIndex.from_pytesdaq(files[:1]).get_metadata()
+            md = RawIndex.from_files(files[:1]).get_metadata()
             out[name] = {
                 "channel_list": list(md.get("channel_list", [])),
                 "detector_config": md.get("detector_config", {}),
@@ -611,7 +770,7 @@ class RawData:
                  for f in flist]
         nb_events, duration = 0, 0.0
         if files:
-            index = RawIndex.from_pytesdaq(files)
+            index = RawIndex.from_files(files)
             nb_events = sum(int(f.metadata.get("nb_events", 0))
                             for f in index.files)
             first = index.files[0]
@@ -661,3 +820,10 @@ class RawData:
             reader.close()
         stacked = np.stack(traces) if traces else np.zeros((0, 0, 0))
         return (stacked, admins) if include_metadata else stacked
+
+
+def _raw_files(directory: str) -> List[str]:
+    """The pytesdaq and flat raw files of ``directory`` (a glob pattern
+    allowed), sorted."""
+    return sorted(glob.glob(os.path.join(directory, "*.hdf5"))
+                  + glob.glob(os.path.join(directory, "*.bin")))

@@ -16,6 +16,13 @@ Adapters, importing h5py or pandas when called:
   ``/table/columns/{column}/data`` with h5py; :func:`write_table` also
   writes parquet (through pandas);
 - :func:`read_table` reads either back as a table;
+
+and one form of the port's own, for machines without h5py or pandas:
+:func:`write_npz_table` writes a table as one ``numpy.savez`` of its
+columns (string and object columns as unicode, with a boolean mask where
+values are missing), and :func:`read_npz_table` gives back what
+:func:`read_vaex_hdf5` gives for the same table. ``write_table``,
+``read_table`` and :func:`newest_dumps` take it as the format "npz";
 - :func:`to_dataframe` makes a ``pandas.DataFrame`` of a table.
 """
 
@@ -186,13 +193,65 @@ def to_dataframe(table: Table):
     return pd.DataFrame(table)
 
 
+NPZ_TABLE_FORMAT = "detprocess_tpu_torch.table/1"
+
+
+def write_npz_table(table: Table, path: str):
+    """Write a table as one ``.npz``: column k under ``c{k}``, string
+    and object columns as unicode (missing values as "" with a boolean
+    ``m{k}`` mask beside), the names in order under ``__columns__``."""
+    arrays = {"__format__": np.array(NPZ_TABLE_FORMAT),
+              "__columns__": np.array([str(c) for c in table], dtype=str)}
+    for k, arr in enumerate(table.values()):
+        arr = np.asarray(arr)
+        if arr.dtype.kind in "OUST":
+            missing = np.array([_is_missing(x) for x in arr], bool)
+            arr = np.array(["" if m else (x.decode() if isinstance(x, bytes)
+                                          else str(x))
+                            for x, m in zip(arr, missing)], dtype=str)
+            if missing.any():
+                arrays[f"m{k}"] = missing
+        arrays[f"c{k}"] = arr
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def read_npz_table(path: str) -> Table:
+    with np.load(path, allow_pickle=False) as z:
+        if "__format__" not in z or str(z["__format__"]) != NPZ_TABLE_FORMAT:
+            raise ValueError(f"'{path}' is not a table file of this package")
+        data = {}
+        for k, name in enumerate(z["__columns__"].tolist()):
+            arr = z[f"c{k}"]
+            if f"m{k}" in z:
+                arr = arr.astype(object)
+                arr[z[f"m{k}"]] = None
+            data[name] = arr
+    return data
+
+
+TABLE_EXTENSIONS = {"hdf5": "hdf5", "parquet": "parquet", "npz": "npz"}
+
+
+def table_ext(fmt: str) -> str:
+    """The file extension of an output format ('hdf5', 'parquet' or
+    'npz'); any other is refused."""
+    if fmt not in TABLE_EXTENSIONS:
+        raise ValueError(f"unknown table format: {fmt}")
+    return TABLE_EXTENSIONS[fmt]
+
+
 def write_table(table: Table, path: str, fmt: Optional[str] = None):
-    """Write ``table`` as vaex-layout HDF5 ('hdf5') or parquet."""
-    fmt = fmt or ("parquet" if path.endswith(".parquet") else "hdf5")
+    """Write ``table`` as vaex-layout HDF5 ('hdf5'), parquet or npz (by
+    default the form of the path's suffix)."""
+    fmt = fmt or ("parquet" if path.endswith(".parquet")
+                  else "npz" if path.endswith(".npz") else "hdf5")
     if fmt == "hdf5":
         write_vaex_hdf5(table, path)
     elif fmt == "parquet":
         to_dataframe(table).to_parquet(path)
+    elif fmt == "npz":
+        write_npz_table(table, path)
     else:
         raise ValueError(f"unknown table format: {fmt}")
 
@@ -205,7 +264,7 @@ def newest_dumps(output_dir: str, prefix: str, group_name: str,
     import glob
     import re
 
-    ext = "parquet" if output_format == "parquet" else "hdf5"
+    ext = table_ext(output_format)
     rx = re.compile(re.escape(prefix) + "_" + re.escape(group_name)
                     + r"_(.+)_F(\d+)\." + ext + "$")
     by_series: Dict[str, list] = {}
@@ -221,7 +280,9 @@ def newest_dumps(output_dir: str, prefix: str, group_name: str,
 
 
 def read_table(path: str) -> Table:
-    """A table file (vaex-layout HDF5 or parquet) as a table."""
+    """A table file (vaex-layout HDF5, parquet or npz) as a table."""
+    if path.endswith(".npz"):
+        return read_npz_table(path)
     if path.endswith(".parquet"):
         import pandas as pd
 

@@ -15,11 +15,11 @@ the reference's keys (``didv_results_{poles}poles_{tag}``).
   (``models/didv``), as the JAX package pins them there: they are small
   problems that want float64, not the GPU.
 
-``raw_files`` are pytesdaq paths or an ``io/rawdata.RawIndex`` (flat
-dumps need no h5py). ``compare_with_ivsweep`` returns a ``Table`` with
-the JAX DataFrame's columns and its row labels in ``.index``.
-``plot_fit_result`` waits for the plotting of ROADMAP §1 item 8, and
-``jaxcache`` is a TPU matter; neither is ported.
+``raw_files`` are raw paths (pytesdaq HDF5, or flat dumps beside their
+manifest) or an ``io/rawdata.RawIndex``. ``compare_with_ivsweep``
+returns a ``Table`` with the JAX DataFrame's columns and its row labels
+in ``.index``. ``plot_fit_result`` imports matplotlib when it is called;
+``jaxcache`` is a TPU matter and is not ported.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def stage(timer, name: str):
 
 def raw_index(raw) -> RawIndex:
     """A :class:`RawIndex` of pytesdaq paths (or the index itself)."""
-    return raw if isinstance(raw, RawIndex) else RawIndex.from_pytesdaq(raw)
+    return raw if isinstance(raw, RawIndex) else RawIndex.from_files(raw)
 
 
 class DIDVAnalysis(FilterData):
@@ -118,9 +118,9 @@ class DIDVAnalysis(FilterData):
     def set_ivsweep_results_from_file(self, channel: str, file_name: str,
                                       iv_type: str = "noise",
                                       tag: str = "default"):
-        """IV-sweep results of ``channel`` from a filter or IV-sweep HDF5
-        file (h5py adapter)."""
-        fd = FilterData(verbose=False).load_hdf5(file_name)
+        """IV-sweep results of ``channel`` from a filter or IV-sweep file
+        (.npz, or HDF5 through h5py)."""
+        fd = FilterData(verbose=False).load(file_name)
         results = fd._get(channel, f"ivsweep_results_{iv_type}_{tag}")[0]
         if not isinstance(results, dict):
             raise ValueError(
@@ -438,6 +438,42 @@ class DIDVAnalysis(FilterData):
                     if key in ssp:
                         err = ssp.get(f"{key}_err", np.nan)
                         print(f"  {key} = {ssp[key]:.4g} +/- {err:.4g}")
+
+    def plot_fit_result(self, channels=None, poles: int = 2,
+                        save_path: Optional[str] = None):
+        """Measured dIdV(f) against the fitted model, real and imaginary
+        parts, one figure a channel (saved as
+        ``didv_fit_{channel}_{poles}poles.png`` in ``save_path``)."""
+        import matplotlib.pyplot as plt
+
+        if channels is None:
+            channels = list(self._fits.keys())
+        elif isinstance(channels, str):
+            channels = [channels]
+        figs = []
+        for chan in channels:
+            data = self._didv_data[chan]
+            fit = self._fits[chan][poles]
+            model = didv_models.didv_model(fit.params, data.freqs,
+                                           poles).numpy()
+            fig, axes = plt.subplots(2, 1, sharex=True, figsize=(6, 5))
+            for ax, part, name in ((axes[0], np.real, "Re"),
+                                   (axes[1], np.imag, "Im")):
+                ax.semilogx(data.freqs, part(data.didv), ".", ms=3,
+                            label="measured")
+                ax.semilogx(data.freqs, part(model), "-", label="fit")
+                ax.set_ylabel(f"{name} dIdV [1/Ohms]")
+                ax.grid(alpha=0.3)
+            axes[0].legend()
+            axes[0].set_title(f"{chan} {poles}-poles dIdV fit")
+            axes[1].set_xlabel("frequency [Hz]")
+            fig.tight_layout()
+            if save_path:
+                fig.savefig(os.path.join(
+                    save_path, f"didv_fit_{chan}_{poles}poles.png"),
+                    dpi=120)
+            figs.append(fig)
+        return figs
 
     def save_didv_data(self, channels=None,
                        file_path_name: Optional[str] = None,

@@ -6,11 +6,11 @@ Port of ``detprocess_tpu/pipelines/features.py::FeatureProcessing``
 takes a normalized or YAML-form config dict, a :class:`RawIndex` served
 by ``os.preadv`` and an in-memory :class:`FilterData`, and returns the
 feature table as a dict of numpy columns. File formats go through
-adapters that import yaml, h5py or pandas when called: a list of
-pytesdaq paths (``RawIndex.from_pytesdaq``), a YAML path
-(``config.yamlconfig.load_yaml``), a filter-file path
-(``FilterData.load_hdf5``), a trigger-table path (``io.tables.
-read_table``), dumps (``io.tables.write_table``) and
+adapters that import yaml, h5py or pandas when called: a list of raw
+paths (``RawIndex.from_files``: pytesdaq HDF5, or flat dumps), a setup
+path (``config.yamlconfig.load_yaml``: JSON, or YAML), a filter-file
+path (``FilterData.load``: npz, or HDF5), a trigger-table path
+(``io.tables.read_table``), dumps (``io.tables.write_table``) and
 ``io.tables.to_dataframe`` for the JAX table.
 
 A ``process()`` call:
@@ -105,7 +105,7 @@ class FeatureProcessing:
         self._calib = calib
 
         self._index = (raw if isinstance(raw, RawIndex)
-                       else RawIndex.from_pytesdaq(raw))
+                       else RawIndex.from_files(raw))
         self._fs = self._index.sample_rate
         self._available_channels = self._index.channels
 
@@ -127,12 +127,12 @@ class FeatureProcessing:
         self._feature_config = self._config["feature"]
 
         if isinstance(filter_data, str):
-            filter_data = FilterData(verbose=verbose).load_hdf5(filter_data)
+            filter_data = FilterData(verbose=verbose).load(filter_data)
         if filter_data is None:
             path = (self._feature_config.get("overall", {}) or {}).get(
                 "filter_file")
             if path:
-                filter_data = FilterData(verbose=verbose).load_hdf5(path)
+                filter_data = FilterData(verbose=verbose).load(path)
         self._filter_data = filter_data
 
         md = self._index.get_metadata()
@@ -201,7 +201,7 @@ class FeatureProcessing:
         """(event rows, window starts, table rows, dropped count) of the
         trigger table's first ``nevents`` rows (all for -1)."""
         tab = self._trigger_table
-        ntab = len(tab["trigger_index"])
+        ntab = tables.table_rows(tab)       # a table without triggers: 0
         if nevents is not None and nevents >= 0:
             ntab = min(ntab, nevents)
         n, pre = self._plan.trigger_geometry
@@ -612,7 +612,7 @@ class FeatureProcessing:
         path = tables.output_file_name(
             output_path, self._output_prefix(), group_name, out_series,
             state["dump"],
-            "parquet" if output_format == "parquet" else "hdf5")
+            tables.table_ext(output_format))
         state["writer"].write(table, path, fmt=output_format)
 
 

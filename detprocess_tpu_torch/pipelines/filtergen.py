@@ -7,14 +7,17 @@ beginning-of-run workload that feeds triggering and feature extraction.
 
 - The noise files come from ``raw_path`` (a raw group: continuous, else
   randoms, else noise series; ``io/rawdata.RawData``), or from
-  ``noise_files``: pytesdaq paths or a :class:`RawIndex` (flat dumps need
-  no h5py, so the GPU machine uses those).
+  ``noise_files``: raw paths (pytesdaq HDF5, or flat dumps beside their
+  manifest) or a :class:`RawIndex` (flat dumps need no h5py, so the GPU
+  machine uses those).
 - ``process()`` runs the noise branch (randoms, each channel's PSD, the
   CSD of the channels when there are several, by-series PSDs tagged by
   series name with ``lgc_by_series``) and the template branch (per tag:
   analytic n-pole, sum of two-poles when the amplitude and time
   parameters are lists, average pulses from raw events; or the legacy
-  single-template block), and ``save_hdf5`` with ``lgc_save``.
+  single-template block), and with ``lgc_save`` writes the store as
+  ``filter_{series}.hdf5`` (h5py) or, with ``output_format="npz"``,
+  ``.npz``.
 - ``check_config`` validates the ``noise``, ``template`` and ``didv``
   sections up front.
 - The dIdV branch (``proces_didv``, ``_process_didv``) runs when there
@@ -90,7 +93,7 @@ class FilterDataProcessing:
         if isinstance(noise_files, RawIndex):
             self._noise = noise_files
         else:
-            self._noise = (RawIndex.from_pytesdaq(list(noise_files))
+            self._noise = (RawIndex.from_files(list(noise_files))
                            if noise_files else None)
         self._didv_files = (didv_files if isinstance(didv_files, RawIndex)
                             else list(didv_files or []))
@@ -257,7 +260,8 @@ class FilterDataProcessing:
                 lgc_by_series: bool = False, lgc_save: bool = False,
                 output_path: Optional[str] = None,
                 file_name: Optional[str] = None,
-                seed: Optional[int] = None, timer=None) -> FilterData:
+                seed: Optional[int] = None, output_format: str = "hdf5",
+                timer=None) -> FilterData:
         """Run the enabled branches; returns the filter store. ``timer``:
         a ``utils.logging.StageTimer`` for the host seconds of the
         randoms table, the reads, the upload, the cuts, the offsets, the
@@ -291,7 +295,7 @@ class FilterDataProcessing:
             del noise                   # its windows and spectra
             if lgc_by_series and len(self._noise_series_map) > 1:
                 for sname, sfiles in self._noise_series_map.items():
-                    ns = self._noise_store(RawIndex.from_pytesdaq(
+                    ns = self._noise_store(RawIndex.from_files(
                         sorted(sfiles)), verbose=False)
                     ns.generate_randoms(**draw)
                     ns.calc_psd(chan_sel, trace_length_samples=n,
@@ -316,9 +320,10 @@ class FilterDataProcessing:
         if lgc_save:
             output_path = output_path or "."
             os.makedirs(output_path, exist_ok=True)
+            ext = "npz" if output_format == "npz" else "hdf5"
             name = file_name or (
-                f"filter_{create_series_name(self._facility)}.hdf5")
-            self._filter_data.save_hdf5(os.path.join(output_path, name))
+                f"filter_{create_series_name(self._facility)}.{ext}")
+            self._filter_data.save(os.path.join(output_path, name))
         return self._filter_data
 
     def _noise_store(self, index: RawIndex, verbose=None) -> Noise:

@@ -5,7 +5,8 @@ reference IVSweepProcessing (process/ivprocess.py) and IVSweepAnalysis
 (core/ivsweep.py):
 
 - :func:`discover_bias_points` (:32) maps a raw group's noise and dIdV
-  series to bias points by their ``tes_bias`` (h5py adapter).
+  series to bias points by their ``tes_bias`` (a flat series' manifest,
+  or the h5py adapter).
 - :class:`IVSweepProcessing` (:77) runs each bias point's trace work on
   ``device`` (``device=None`` means the GPU, ``device.require_cuda``):
   the point's noise traces of one channel go up once as stored (int16
@@ -31,8 +32,8 @@ scalar column a numpy array (NaN where a row lacks it), an array- or
 dict-valued column a list (None where missing). Where pandas sorts by
 |tes_bias| (``analyze_sweep``, :452-453) the port sorts stably, so rows of
 equal |bias| keep their order (pandas promises no order for such ties).
-``plot_didv_summary`` waits for the plotting of ROADMAP §1 item 8, and
-``jaxcache`` is a TPU matter; neither is ported.
+``plot_didv_summary`` imports matplotlib when it is called; ``jaxcache``
+is a TPU matter and is not ported.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ def discover_bias_points(raw_path: str, channel: str,
         for _, files in rd.get_data_files().items():
             if not files:
                 continue
-            det = RawIndex.from_pytesdaq(files).get_detector_config(files[0])
+            det = RawIndex.from_files(files).get_detector_config()
             cfg = det.get(channel, {})
             if "tes_bias" not in cfg:
                 continue
@@ -271,9 +272,9 @@ class IVSweepAnalysis(FilterData):
 
     def set_data_from_file(self, file_name: str, channel: str = None,
                            tag: str = "default", rsh: float = 5e-3):
-        """The sweep tables of an IV-sweep or filter HDF5 file (h5py
-        adapter), with each table's stored Rshunt."""
-        fd = FilterData(verbose=False).load_hdf5(file_name)
+        """The sweep tables of an IV-sweep or filter file (.npz, or HDF5
+        through h5py), with each table's stored Rshunt."""
+        fd = FilterData(verbose=False).load(file_name)
         name = f"ivsweep_data_{tag}"
         channels = ([channel] if channel
                     else [c for c in fd.data if name in fd.data[c]])
@@ -440,6 +441,37 @@ class IVSweepAnalysis(FilterData):
         return [channels] if isinstance(channels, str) else list(channels)
 
     # ------------------------------------------------------------------
+    def plot_didv_summary(self, channel: str, poles: int = 3,
+                          save_path: Optional[str] = None):
+        """The small-signal parameters l, β and τ0 of the ``poles`` fits
+        against % Rn (or bias) over the sweep's points, one panel each;
+        None, with a message, before ``analyze_didv``."""
+        import matplotlib.pyplot as plt
+
+        df = self._sweep_df[channel]
+        cols = [f"didv_{poles}poles_{k}" for k in ("l", "beta", "tau0")]
+        have = [c for c in cols if c in df]
+        if not have:
+            print(f"ERROR: No dIdV analysis done for {channel}")
+            return None
+        fig, axes = plt.subplots(len(have), 1, sharex=True,
+                                 figsize=(6, 2.2 * len(have)))
+        if len(have) == 1:
+            axes = [axes]
+        x = df.get("percent_rn", df["tes_bias"])
+        for ax, col in zip(axes, have):
+            ax.errorbar(x, df[col], yerr=df.get(col + "_err"), fmt="o",
+                        ms=4)
+            ax.set_ylabel(col.split("_")[-1])
+            ax.grid(alpha=0.3)
+        axes[-1].set_xlabel("percent Rn" if "percent_rn" in df
+                            else "TES bias [A]")
+        fig.suptitle(f"{channel} {poles}-pole dIdV summary")
+        fig.tight_layout()
+        if save_path:
+            fig.savefig(save_path, dpi=120)
+        return fig
+
     def analyze_sweep(self, channel: str, offset_key: str = "offset_noise",
                       rp: Optional[float] = None,
                       tag: str = "default") -> Table:

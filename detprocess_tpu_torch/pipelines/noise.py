@@ -90,7 +90,7 @@ class Noise(FilterData):
                         else torch.device(device))
         self._index = (None if raw is None else raw
                        if isinstance(raw, RawIndex)
-                       else RawIndex.from_pytesdaq(raw))
+                       else RawIndex.from_files(raw))
         self._randoms: Optional[dict] = None
         self._windows: Optional[_Windows] = None
         self._offset: dict = {}

@@ -176,12 +176,12 @@ class NoiseModel(FilterData):
         slot["psd_freqs"] = psd_freqs
 
     def set_psd_from_file(self, file_name: str):
-        """Load PSDs from a filter HDF5 file whose tags name the TES
+        """Load PSDs from a filter file (.npz or HDF5) whose tags name the TES
         state (``psd_normal`` / ``psd_sc`` / ``psd_transition``) and file
         them into the noise-data slots (reference stub at
         noisemodel.py:241-249; here implemented against this package's
         tagged PSD store)."""
-        self.load_hdf5(file_name)
+        self.load(file_name)
         found = 0
         for chan in list(self._filter_data):
             for state in ("normal", "sc", "transition"):
@@ -272,9 +272,9 @@ class NoiseModel(FilterData):
 
     def set_iv_didv_results_from_file(self, file_name: str, poles: int = 2,
                                       channels=None):
-        """Load dIdV/IV-sweep results from a filter HDF5 file
+        """Load dIdV/IV-sweep results from a filter file (.npz or HDF5)
         (noisemodel.py:50-94)."""
-        self.load_hdf5(file_name)
+        self.load(file_name)
         if channels is None:
             channels = list(self._filter_data.keys())
             if not channels:

@@ -59,7 +59,7 @@ class Randoms:
         self._device = (dev.require_cuda() if device is None
                         else torch.device(device))
         self._index = (raw if isinstance(raw, RawIndex)
-                       else RawIndex.from_pytesdaq(raw))
+                       else RawIndex.from_files(raw))
         self._verbose = verbose
         self._facility = facility
         self._processing_id = processing_id
@@ -200,7 +200,7 @@ class Randoms:
             out_series = series_name or create_series_name(self._facility)
             path = tables.output_file_name(
                 output_path, "rand", group_name, out_series, 1,
-                "parquet" if output_format == "parquet" else "hdf5")
+                tables.table_ext(output_format))
             tables.write_table(table, path, fmt=output_format)
             tables.write_job_summary(
                 output_path, "rand", group_name, out_series, {

@@ -114,7 +114,7 @@ class Salting:
 
     def __init__(self, filter_data: FilterData | str, verbose: bool = True):
         if isinstance(filter_data, str):
-            filter_data = FilterData(verbose=verbose).load_hdf5(filter_data)
+            filter_data = FilterData(verbose=verbose).load(filter_data)
         self._filter_data = filter_data
         self._verbose = verbose
         self._table: Optional[dict] = None
@@ -149,7 +149,7 @@ class Salting:
     def set_raw_data(self, raw_data, series=None, restricted: bool = False):
         """Attach the continuous raw data that salts go into: a group
         directory or a :class:`~detprocess_tpu_torch.io.rawdata.RawData`
-        (h5py adapter); :meth:`generate_salt` then needs no
+        (pytesdaq or flat files); :meth:`generate_salt` then needs no
         ``raw_files``."""
         from detprocess_tpu_torch.io.rawdata import RawData
 
@@ -478,7 +478,7 @@ class Salting:
         out_series = series_name or create_series_name(facility)
         path = tables.output_file_name(
             output_path, "salting", group_name, out_series, 1,
-            "parquet" if output_format == "parquet" else "hdf5")
+            tables.table_ext(output_format))
         tables.write_table(self._table, path, fmt=output_format)
         return path
 

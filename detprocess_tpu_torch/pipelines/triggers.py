@@ -784,7 +784,7 @@ class TriggerProcessing:
         self._restricted = restricted
         self._calib = calib
         self._index = (raw if isinstance(raw, RawIndex)
-                       else RawIndex.from_pytesdaq(raw))
+                       else RawIndex.from_files(raw))
         self._fs = self._index.sample_rate
         self._available_channels = self._index.channels
 
@@ -795,12 +795,12 @@ class TriggerProcessing:
         self._trigger_config = self._config["trigger"]
 
         if isinstance(filter_data, str):
-            filter_data = FilterData(verbose=verbose).load_hdf5(filter_data)
+            filter_data = FilterData(verbose=verbose).load(filter_data)
         if filter_data is None:
             path = (self._trigger_config.get("overall", {}) or {}).get(
                 "filter_file")
             if path:
-                filter_data = FilterData(verbose=verbose).load_hdf5(path)
+                filter_data = FilterData(verbose=verbose).load(path)
         self._filter_data = filter_data
         self._channels = build_channels(self._trigger_config, filter_data,
                                         self._available_channels, self._fs)
@@ -1110,7 +1110,7 @@ class TriggerProcessing:
         dump_num += 1
         path = tables.output_file_name(
             output_path, self._trigger_prefix(), group_name, out_series,
-            dump_num, "parquet" if output_format == "parquet" else "hdf5")
+            dump_num, tables.table_ext(output_format))
         writer.write(table, path, fmt=output_format)
         return dump_num
 

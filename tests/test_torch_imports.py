@@ -21,9 +21,15 @@ the host loop of the dynamic mode); another runs the IV/dIdV sweep
 (``ivsweep_entry`` and ``run_ivsweep`` at a cut size), the dIdV branch
 of filter generation and ``FilterBuilder`` with the same modules blocked
 (and checks that scipy is not imported); a third runs ``chip_smoke.py``,
-which must fail without a GPU and print no result. The filter-generation,
+which must fail without a GPU and print no result; a fourth, with
+matplotlib blocked too, runs the three command lines of
+``cli_chain_entry`` (filter generation and randoms; salting with the
+device injector, trigger and features; the IV sweep) on a flat raw group
+with JSON setups and npz outputs, through ``cli.main`` and once through
+``python -m detprocess_tpu_torch.cli``. The filter-generation,
 salting, dIdV and sweep entry points and classes refuse to run without a
-GPU when no device is given.
+GPU when no device is given, and so does the command line without
+``--device cpu``, before it writes anything.
 """
 
 import json
@@ -369,3 +375,100 @@ def test_salting_chain_needs_the_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry.salting_chain_entry(directory=str(tmp_path / "salt"))
     assert not os.path.exists(tmp_path / "salt")
+
+
+RUN_CLI = textwrap.dedent("""
+    import json, os, subprocess, sys
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from detprocess_tpu_torch import cli, entry as E
+    chain = E.cli_chain_entry(
+        "cpu", CLI_DIR, nevents=2, length=400000, nrandoms=32, nsalt=2,
+        points=E.ivsweep_points(normal=(400e-6, 350e-6, 300e-6),
+                                transition_r0=(0.15, 0.08),
+                                sc=(4e-6, 2e-6, 1e-6)),
+        ntraces=8, n=2048, ndidv=4, nper=2)
+    rcs = [cli.main(chain.a)]
+    ff = chain.filter_file()
+    rcs.append(cli.main(chain.b(ff)))
+    rcs.append(cli.main(chain.c))
+    env = dict(os.environ)
+    sub = subprocess.run(
+        [sys.executable, "-c", PRELUDE_TEXT + "import runpy; "
+         "runpy.run_module('detprocess_tpu_torch.cli', run_name='__main__')",
+         *chain.b(ff, os.path.join(CLI_DIR, "out2"))],
+        capture_output=True, text=True, env=env)
+    written = {d: sorted(os.listdir(os.path.join(chain.out, d)))
+               for d in sorted(os.listdir(chain.out))}
+    print(json.dumps({
+        "rcs": rcs, "sub": [sub.returncode, sub.stderr[-2000:]],
+        "written": written,
+        "out2": sorted(os.listdir(os.path.join(CLI_DIR, "out2"))),
+        "filter": os.path.basename(ff),
+        "modules": sorted(m for m in sys.modules
+                          if m.startswith("detprocess_tpu_torch")),
+        "leaked": sorted(m for m in sys.modules
+                         if m.split(".")[0] in {"jax", "h5py", "pandas",
+                                                "yaml", "matplotlib",
+                                                "triton"}
+                         and sys.modules[m] is not None),
+    }))
+""")
+
+
+def test_command_line_runs_without_jax_h5py_pandas_yaml_matplotlib(tmp_path):
+    """The three command lines of ``cli_chain_entry`` (and call B through
+    ``python -m detprocess_tpu_torch.cli``) on flat groups with JSON
+    setups, npz out, with jax, h5py, pandas, yaml and matplotlib blocked;
+    none of them imported."""
+    prelude = PRELUDE + "sys.modules['matplotlib'] = None\n"
+    import detprocess_tpu_torch.cli  # noqa: F401  (imports here too)
+    code = (prelude + f"PRELUDE_TEXT = {prelude!r}\n"
+            + f"CLI_DIR = {str(tmp_path / 'cli')!r}\n"
+            + "import detprocess_tpu_torch.launch, "
+            "detprocess_tpu_torch.pipelines.merge, "
+            "detprocess_tpu_torch.utils.plotting\n" + RUN_CLI)
+    proc = _run(code, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["rcs"] == [0, 0, 0]
+    assert res["sub"][0] == 0, res["sub"][1]
+    series = "I1_D20260103_T120000"
+    assert res["written"] == {
+        "feature": [f"feature_features_{series}_F0001.npz",
+                    f"feature_features_{series}_summary.json"],
+        "filterdata": [res["filter"]],
+        "ivsweep": [f"ivsweep_{series}.npz"],
+        "randoms": [f"rand_randoms_{series}_F0001.npz",
+                    f"rand_randoms_{series}_summary.json"],
+        "salting": [f"salting_salting_{series}_F0001.npz"],
+        "trigger": [f"threshtrig_trigger_{series}_F0001.npz",
+                    f"threshtrig_trigger_{series}_summary.json"]}
+    assert res["filter"].startswith("filter_I1_D")
+    assert res["filter"].endswith(".npz")
+    assert res["out2"] == ["feature", "salting", "trigger"]
+    for name in ("cli", "launch", "pipelines.merge", "utils.plotting",
+                 "parallel.multihost"):
+        assert f"detprocess_tpu_torch.{name}" in res["modules"], name
+    assert res["leaked"] == []
+
+
+def test_command_line_needs_the_gpu(tmp_path):
+    """Without ``--device cpu`` the command line takes the GPU and, with
+    none, raises before it reads or writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from detprocess_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--raw_path", str(tmp_path / "raw"), "--enable-trig",
+                  "--output_group_path", str(tmp_path / "out")])
+    assert not os.path.exists(tmp_path / "out")
+    argv = ["cli", "--raw_path", str(tmp_path / "raw"),
+            "--output_group_path", str(tmp_path / "o2")]
+    proc = _run(f"import runpy, sys; sys.argv = {argv!r}; "
+                "runpy.run_module('detprocess_tpu_torch.cli', "
+                "run_name='__main__')")
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    assert not os.path.exists(tmp_path / "o2")
