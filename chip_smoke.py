@@ -4,8 +4,9 @@ continuous-data trigger step, the FeatureProcessing shell, the
 TriggerProcessing shell chained into it, every feature algorithm
 through FeatureProcessing, filter generation chained into it, salting
 through both shells, the dynamic and sub-tile trigger modes, the
-IV/dIdV sweep with the dIdV branch of filter generation, and the
-command line over files, on one card.
+IV/dIdV sweep with the dIdV branch of filter generation, the command
+line over files, and the mesh (virtual shards on one card, and all the
+cards where there are several), on one card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -273,6 +274,43 @@ n. the command line (python -m detprocess_tpu_torch.cli) over files
    glitches pass (k)'s efficiency and energy-scale checks; both kernels
    agree with their twins on B's shapes. It prints each call's host
    seconds beside the API run's, and the subprocess's wall time.
+o. the mesh (parallel/mesh.py): a mesh of 4 virtual shards on the card
+   (parallel.mesh.Mesh([device] * 4)) and, where torch.cuda.device_count()
+   ≥ 2, make_mesh() over all the cards, each through the same checks.
+   (h)'s 64 continuous events (610 MiB, written again) through the
+   trigger shell without and with mesh=, with (h)'s static windows, (l)'s
+   dynamic ones and the device injector of a table of 32 coincident 10σ
+   salts an event number (2 a number, clear of the data's pulses): each
+   pair of runs gives the same rows (by dump, event, channel and index)
+   but for triggers within 1e-3 of the threshold, integer and string
+   columns exactly, floats within 1e-5; every injected pulse (and salt)
+   is found as (h) finds it; the upload stays 2 bytes a sample; the mesh
+   runs launch each kernel and route once a shard where the runs without
+   launch once (rFFT 20, cuFFT 4 a batch of 8 on 4 shards). The static
+   table chained into FeatureProcessing with and without mesh= (4096/1024,
+   batch 512): the same rows, floats within 1e-5 of |value| + 1e-3 of the
+   column's largest. One trace of 2^27 samples (107 s, 512 MiB float32)
+   of (e)'s configuration with 10σ pulses inside, across each boundary and
+   a pair 70 samples apart across the middle one, through
+   sharded_longtrace_trigger and merge_sharded_triggers against the
+   unsharded FIR, Δχ² and find_triggers_kernel, at window 125 and 3: the
+   same indices but for triggers within 1e-3 of the threshold, Δχ² and
+   amplitudes within 1e-4, one trigger at the pair (window 125), every
+   pulse found, count_total global, one rFFT launch a shard. (j)'s 2048
+   randoms × 32768 on 4 channels through Noise.calc_psd/calc_csd with and
+   without mesh=: PSDs within 1e-6 relative, the CSD within 3.2e-6 of
+   √(C_ii·C_jj); rFFT 5 a shard. The command line's --mesh-devices 2 on
+   one card is refused with rc 1 and the count named (with ≥ 2 cards, (n)'s
+   call B with --mesh-devices <count> gives the tables of B without).
+   Two processes of 2 shards each (parallel.multihost.initialize, gloo
+   with the data on the card; NCCL with a card a process): the sharded
+   PSD within 1e-6 of the one-process mean and a trace of 4 × 2^22 samples
+   over the 4 global shards as unsharded. With ≥ 2 cards, a launch of
+   each kernel on the last card leaves torch.cuda.current_device() as it
+   was. Each kernel against its twin on one shard's own batch. It prints
+   (h)'s continuous events/s and the host dispatch ms a batch with and
+   without the mesh, the busy share of one meshed batch, and the long
+   trace's Msamples/s sharded and unsharded.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
@@ -289,7 +327,11 @@ the device injector, the host injector and none; salting_feature: its
 first call of the salted feature shell; trigger_shell_dynamic,
 trigger_shell_subtile: phase l's first calls of each mode; ivsweep:
 phase m's sweep, filtergen_didv: its dIdV branch of filter generation;
-cli_a, cli_b, cli_c: phase n's three command-line calls), whose sum is
+cli_a, cli_b, cli_c: phase n's three command-line calls;
+mesh_trigger_static, mesh_trigger_dynamic, mesh_trigger_salted,
+mesh_chain, mesh_longtrace_w125, mesh_longtrace_w3, mesh_spectra: phase
+o's first mesh run of each on the virtual shards, with a _cards suffix on
+all the cards), whose sum is
 ``launches``, and the SM clocks of its phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
@@ -302,6 +344,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -357,6 +400,8 @@ from detprocess_tpu_torch.io.filterdata import FilterData  # noqa: E402
 from detprocess_tpu_torch.pipelines.ivsweep import (  # noqa: E402
     discover_bias_points)
 from detprocess_tpu_torch.pipelines.salting import Salting  # noqa: E402
+from detprocess_tpu_torch.pipelines.noise import Noise  # noqa: E402
+from detprocess_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 
 FS = 1.25e6
 N = 32768
@@ -4042,6 +4087,768 @@ def _phase_n(device, card, errs, tmp):
     return {"cli_a": la, "cli_b": lb, "cli_c": lc}
 
 
+
+# ---------------------------------------------------------------------------
+# phase (o): the mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4            # virtual shards on one card
+MESH_RTOL = 1e-5           # mesh against no mesh: Δχ², amplitudes, floats
+MESH_LONG_L = 2 ** 27      # the long trace: 107 s at 1.25 MHz
+MESH_LONG_PULSES = 48      # interior 10σ pulses of the long trace
+MESH_LONG_CAPACITY = 65536
+MESH_PAIR_GAP = 70         # the pileup pair across one boundary, samples
+MESH_LONG_WINDOWS = (tentry.TRIGGER_WINDOW, 3)
+MESH_PSD_RTOL = 1e-6
+MESH_CSD_TOL = 3.2e-6      # of √(C_ii·C_jj), (j)'s bound
+MESH_PROC_L = 2 ** 22      # samples a global shard in the two-process run
+MESH_PROC_TIMEOUT = 300
+
+
+def mesh_positions(pulses, nev):
+    """Every injected pulse's index, per event."""
+    out = []
+    for e in range(nev):
+        at = [pulses["coincident"][e].ravel(), pulses["single"][e].ravel(),
+              pulses["big"][e].ravel(), pulses["pairs"][e].ravel()]
+        if pulses["sat"] is not None:
+            at.append(np.atleast_1d(pulses["sat"][e]))
+        out.append(np.concatenate(at))
+    return out
+
+
+def mesh_salts(pulses, nev, per_file, res, per_event=2):
+    """A salting table for (h)'s files: ``per_event`` coincident 10σ salts
+    on every channel for each event number, at indices at least
+    TSHELL_MARGIN samples from every injected pulse of the events of that
+    number in every dump (the injectors match salts by series and event
+    only)."""
+    pos = mesh_positions(pulses, nev)
+    margin = tentry.TSHELL_MARGIN
+    grid = np.arange(4 * margin, tentry.TRIGGER_L - 4 * margin, 997)
+    rows = {k: [] for k in ("series_number", "event_number", "salt_channel",
+                            "salt_amplitude", "salt_template_tag",
+                            "trigger_index", "salt_energy_ev")}
+    truth = []
+    for num in range(1, per_file + 1):
+        near = np.concatenate([pos[e] for e in range(num - 1, nev, per_file)])
+        clear = grid[np.min(np.abs(grid[:, None] - near[None, :]),
+                            axis=1) > margin]
+        for t_ in clear[np.linspace(0, len(clear) - 1, per_event).astype(
+                int)]:
+            truth.append((num, int(t_)))
+            for c, chan in enumerate(tentry.SHELL_CHANNELS):
+                rows["series_number"].append(
+                    series_to_number(tentry.TSHELL_SERIES))
+                rows["event_number"].append(num)
+                rows["salt_channel"].append(chan)
+                rows["salt_amplitude"].append(tentry.TSHELL_PULSE_SIGMA
+                                              * res[c])
+                rows["salt_template_tag"].append("default")
+                rows["trigger_index"].append(int(t_))
+                rows["salt_energy_ev"].append(1.0)
+    return {k: np.asarray(v) for k, v in rows.items()}, truth
+
+
+def check_mesh_salts(table, truth, per_file, nev):
+    """Every salt found in every channel's columns of every event of its
+    number, within TRIG_INDEX_TOL."""
+    ev = event_of(table, per_file)
+    worst = 0
+    for num, t_ in truth:
+        for e in range(num - 1, nev, per_file):
+            rows = ev == e
+            for chan in tentry.SHELL_CHANNELS:
+                d = np.abs(np.asarray(table[f"trigger_index_{chan}"],
+                                      np.float64)[rows] - t_)
+                if np.all(np.isnan(d)) or np.nanmin(d) > TRIG_INDEX_TOL:
+                    raise RuntimeError(f"mesh: the salt at {t_} of event {e}"
+                                       f" not found in {chan}")
+                worst = max(worst, float(np.nanmin(d)))
+    return worst
+
+
+def compare_mesh_tables(got, ref, threshold, what, rtol=MESH_RTOL):
+    """The mesh run's trigger table against the run without one on the
+    same files: the same rows (by dump, event, channel and index) but for
+    triggers whose Δχ² lies within TRIG_NEAR_THRESHOLD of the threshold;
+    on the rows both have, integer and string columns exactly and float
+    columns within ``rtol`` (NaN where NaN). Returns (worst relative
+    difference, rows in one run only)."""
+    def keys(t):
+        return list(zip(np.asarray(t["dump_number"]).tolist(),
+                        np.asarray(t["event_number"]).tolist(),
+                        [str(c) for c in t["trigger_channel"]],
+                        np.asarray(t["trigger_index"]).tolist()))
+    kg, kr = keys(got), keys(ref)
+    rg = {k: i for i, k in enumerate(kg)}
+    rr = {k: i for i, k in enumerate(kr)}
+    only = 0
+    for mine, other, tab, side in ((rg, rr, got, "mesh"),
+                                   (rr, rg, ref, "no-mesh")):
+        for k, i in mine.items():
+            if k in other:
+                continue
+            d = float(tab["trigger_delta_chi2"][i])
+            if abs(d - threshold) > TRIG_NEAR_THRESHOLD * threshold:
+                raise RuntimeError(f"{what}: row {k} (Δχ² {d:.6g}) only in "
+                                   f"the {side} run")
+            only += 1
+    if sorted(got) != sorted(ref):
+        raise RuntimeError(f"{what}: columns differ: "
+                           f"{sorted(set(got) ^ set(ref))}")
+    gi = np.array([rg[k] for k in kr if k in rg], np.int64)
+    ri = np.array([rr[k] for k in kr if k in rg], np.int64)
+    worst = 0.0
+    for col in ref:
+        if col == "trigger_prod_id" and only:
+            continue                 # numbered after the rows that differ
+        a, b = np.asarray(got[col])[gi], np.asarray(ref[col])[ri]
+        if a.dtype.kind == "f" or b.dtype.kind == "f":
+            a, b = a.astype(np.float64), b.astype(np.float64)
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise RuntimeError(f"{what}: {col} differs in NaN")
+            ok = ~np.isnan(b)
+            rel = float(np.max(np.abs(a[ok] - b[ok]) / np.where(
+                b[ok] != 0, np.abs(b[ok]), 1.0), initial=0.0))
+            worst = max(worst, rel)
+            if not rel <= rtol:
+                raise RuntimeError(f"{what}: {col} differs by {rel:.3e} "
+                                   f"(rtol {rtol:g})")
+        elif not np.array_equal(missing_as_none(a), missing_as_none(b)):
+            raise RuntimeError(f"{what}: {col} differs")
+    log(f"[o] {what}: {len(kg)} rows on the mesh, {len(kr)} without; "
+        f"{only} near-threshold rows in one run only; floats within "
+        f"{worst:.3e} (rtol {rtol:g})")
+    return worst, only
+
+
+def mesh_launch_check(got, single, factor, what):
+    """The mesh run's launches: ``factor`` times the run's without a mesh
+    (one launch a shard where the run without one launches once)."""
+    want = {k: factor * v for k, v in single.items()}
+    log(f"[o] {what}: launches {got}, without the mesh {single} (× "
+        f"{factor}, one launch a shard)")
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, expected {want}")
+
+
+def sync_all():
+    """Wait for every card (a mesh's shards may be on several)."""
+    torch.cuda.synchronize()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def counted(fn, *args, **kw):
+    """(fn's result, its launches and library routes as one dict)."""
+    sync_all()
+    _kernels.reset_launch_counts()
+    out = fn(*args, **kw)
+    sync_all()
+    return out, {**_kernels.launch_counts(), **_kernels.library_counts()}
+
+
+def mesh_trigger_shells(device, card, errs, mesh, tag, index, pulses,
+                        per_file, nev):
+    """(o) on one mesh: the trigger shell with and without
+    it, static, dynamic and with the device injector; then the chain.
+    Returns the mesh runs' launches by path."""
+    config = tentry.trigger_shell_config()
+    fd = tentry.shell_filter_data(tentry.TRIGGER_NT, tentry.TRIGGER_PRETRIG)
+    res = tentry.trigger_shell_resolutions()
+    chans = list(tentry.SHELL_CHANNELS)
+    # one reader for the compared calls: with several, the events come in
+    # no fixed order, and the livetime and event-time columns follow it
+    kw = dict(event_batch=TSHELL_BATCH, capacity=TSHELL_CAPACITY)
+    nbatch = -(-nev // TSHELL_BATCH)
+    factor = min(mesh.size, TSHELL_BATCH)
+    out = {}
+    salts, truth = mesh_salts(pulses, nev, per_file, res)
+    salting = Salting(fd, verbose=False)
+    salting.set_dataframe(salts)
+
+    def shell(mode):
+        s = TriggerProcessing(index, config, fd, verbose=False,
+                              device=device)
+        if mode == "dynamic":
+            for c in chans:
+                s.set_dynamic_threshold(c, tentry.trigger_shell_window_fn)
+        if mode == "salted":
+            s.set_salting(salting.make_device_injector(chans))
+        return s
+
+    tables = {}
+    for mode in ("static", "dynamic", "salted"):
+        runs = {}
+        for name, m in (("single", None), ("mesh", mesh)):
+            s = shell(mode)
+            (runs[name], _, _), launches = counted(
+                run_tshell, s, f"{tag} {mode}, {name}, first call", card,
+                "o", mesh=m, **kw)
+            if m is not None:
+                if s.stats["upload_bytes"] != 2 * nev * len(chans) \
+                        * tentry.TRIGGER_L:
+                    raise RuntimeError(f"mesh {mode}: upload not int16: "
+                                       f"{s.stats}")
+                mesh_launch_check(launches, single_launches, factor,
+                                  f"{tag} {mode}")
+                out[f"mesh_trigger_{mode}"] = launches
+            else:
+                single_launches = launches
+            if mode == "static":
+                _, sec, stages = run_tshell(s, f"{tag} {mode}, {name}, "
+                                            f"second call, {TSHELL_READERS} "
+                                            "readers", card, "o", mesh=m,
+                                            nreaders=TSHELL_READERS, **kw)
+                per_batch = 1e3 * stages["dispatch"] / nbatch
+                log(f"[o] {tag} (h) {name}: {nev / sec:.3f} continuous "
+                    f"events/s; host dispatch {per_batch:.3f} ms a batch "
+                    f"(the fill and the enqueue of "
+                    f"{1 if m is None else mesh.size} shard(s)); on {card}")
+        compare_mesh_tables(runs["mesh"], runs["single"],
+                            shell("static").channels[0].chi2_threshold,
+                            f"{tag} {mode}: mesh against no mesh")
+        worst_i, worst_a = tshell_found(runs["mesh"], pulses, res, per_file,
+                                        f"{tag} {mode} mesh")
+        log(f"[o] {tag} {mode}: every injected pulse found on the mesh "
+            f"(worst index offset {worst_i:g}, amplitude {worst_a:.3f} σ)")
+        if mode == "salted":
+            w = check_mesh_salts(runs["mesh"], truth, per_file, nev)
+            log(f"[o] {tag} salted: all {len(truth)} coincident 10σ salts "
+                f"found in every channel on the mesh (worst index offset "
+                f"{w:g})")
+        tables[mode] = runs["mesh"]
+
+    # the busy share of one meshed batch
+    s = shell("static")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        s.process(nevents=TSHELL_BATCH, event_batch=TSHELL_BATCH,
+                  capacity=TSHELL_CAPACITY, mesh=mesh)
+        sync_all()
+        sec = time.perf_counter() - t
+    busy, kern, copy = device_intervals(prof)
+    log(f"[o] {tag} one meshed batch ({TSHELL_BATCH} events, {mesh.size} "
+        f"shards) under torch.profiler: {1e3 * sec:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / (1e3 * sec):.1f}%), kernels "
+        f"{kern:.3f} ms, copies {copy:.3f} ms; on {card}")
+
+    # the rFFT kernel against its twin on one shard's own batch
+    step = s.trigger_steps(TSHELL_CAPACITY, device=mesh.devices[0])[0]
+    kernel_d, _ = step.device_kernels()
+    rows = index.order[:max(TSHELL_BATCH // mesh.size, 1)]
+    reader = RawReader(index)
+    raw = np.stack([reader.read_row(int(r), dtype=None, adctoamp=False)[0]
+                    for r in rows])
+    reader.close()
+    conv = torch.as_tensor(np.stack([index.files[int(index.file[r])].conv
+                                     for r in rows]), device=mesh.devices[0])
+    x = adc_convert(torch.as_tensor(raw, device=mesh.devices[0]), conv)
+    seg = trigger.fir_segments(x[:, :1], kernel_d).reshape(
+        -1, kernel_d.fft_size)
+    compare_rfft(seg, errs, "o")
+    del x, seg
+
+    # the chain: the mesh's table into the feature shell with and without
+    cfg = tentry.shell_config(tentry.TRIGGER_NT, tentry.TRIGGER_PRETRIG)
+    feats = {}
+    for name, m in (("single", None), ("mesh", mesh)):
+        fshell = FeatureProcessing(index, cfg, fd,
+                                   trigger_table=tables["static"],
+                                   verbose=False, device=device)
+        (feats[name], _, _), launches = counted(
+            run_shell, fshell, f"{tag} chain, {name}", card, "o",
+            batch_size=CHAIN_BATCH, nreaders=TSHELL_READERS, mesh=m)
+        if m is None:
+            chain_single = launches
+        else:
+            mesh_launch_check(launches, chain_single,
+                              min(mesh.size, CHAIN_BATCH), f"{tag} chain")
+            out["mesh_chain"] = launches
+    nrow = len(tables["static"]["trigger_index"])
+    if len(feats["mesh"]["event_number"]) != nrow:
+        raise RuntimeError(f"mesh chain: {len(feats['mesh']['event_number'])}"
+                           f" of {nrow} rows")
+    errs_by_col = {}
+    for col, r in feats["single"].items():
+        g, r = np.asarray(feats["mesh"][col]), np.asarray(r)
+        if r.dtype.kind == "f":
+            scale = np.abs(r)
+            chan = col.rsplit("_", 1)[-1]
+            nopulse = f"chi2nopulse_of1x1_constrained_{chan}"
+            if col.startswith("chi2_of1x1") and nopulse in feats["single"]:
+                # a fit's χ² = χ²₀ − q²/norm: float32 resolves it to
+                # the rounding of χ²₀, the channel's no-pulse χ², which
+                # the batch shape of an FFT plan moves by an ulp or two
+                scale = np.maximum(scale, np.abs(feats["single"][nopulse]))
+            err = np.abs(g - r) / (scale + 1e-3 * np.max(np.abs(r)))
+            k = int(np.argmax(err)) if err.size else 0
+            errs_by_col[col] = (float(np.max(err, initial=0.0)),
+                                float(r[k]) if r.size else 0.0,
+                                float(g[k]) if g.size else 0.0)
+        elif not np.array_equal(missing_as_none(g), missing_as_none(r)):
+            raise RuntimeError(f"mesh chain: {col} differs")
+    ranked = sorted(errs_by_col.items(), key=lambda kv: -kv[1][0])
+    worst = ranked[0][1][0] if ranked else 0.0
+    log(f"[o] {tag} chain: {nrow} rows on the mesh as without it; floats "
+        f"within {worst:.3e} of |value| (a fit's χ²: of the channel's no-"
+        f"pulse χ²₀) + 1e-3·max|column| (tol {MESH_RTOL:g}); largest "
+        f"(column, error, without, with): "
+        + "; ".join(f"{c} {e:.3e} {a:.9g} {b:.9g}"
+                    for c, (e, a, b) in ranked[:8]))
+    if not worst <= MESH_RTOL:
+        raise RuntimeError(f"mesh chain: floats differ by {worst:.3e}")
+    fstep = FeatureProcessing(index, cfg, fd, trigger_table=tables["static"],
+                              verbose=False, device=device).group_steps(
+        device=mesh.devices[-1])[0]
+    slot = next(sp.slot for sp in fstep.specs if sp.base == "of1x1_nodelay")
+    treader = RawReader(index)
+    nshard = max(CHAIN_BATCH // mesh.size, 1)
+    win = torch.as_tensor(np.stack([
+        treader.read_row(int(index.lookup[(int(d) - 1, int(e))]), ["chan1"],
+                         (int(i) - tentry.TRIGGER_PRETRIG, tentry.TRIGGER_NT),
+                         dtype=np.float32)[0][0]
+        for d, e, i in zip(tables["static"]["dump_number"][:nshard],
+                           tables["static"]["event_number"][:nshard],
+                           tables["static"]["trigger_index"][:nshard])]),
+        device=mesh.devices[-1])
+    treader.close()
+    compare_kernels(win, fstep.nodelay[str(slot)], errs, "o", "batch")
+    return out
+
+
+def longtrace_input(device, kernel, template, l, nshards, gen):
+    """One trace [1, l] of (e)'s white noise with 10σ pulses: interior
+    ones, one straddling each boundary of ``nshards`` shards, and a pileup
+    pair MESH_PAIR_GAP samples apart across the middle boundary. Returns
+    (trace, pulse indices, the pair's indices)."""
+    sigma = math.sqrt(tentry.TRIGGER_PSD * FS)
+    x = torch.randn((1, l), generator=gen, device=device) * sigma
+    amp = TRIG_PULSE_SIGMA * float(kernel.resolution[0])
+    l_loc = l // nshards
+    nt, pre = tentry.TRIGGER_NT, tentry.TRIGGER_PRETRIG
+    inner = np.linspace(8 * nt, l - 8 * nt, MESH_LONG_PULSES).astype(int)
+    bounds_ = [k * l_loc for k in range(1, nshards)]
+    inner = [int(t) for t in inner
+             if min((abs(t - b) for b in bounds_), default=l) > 8 * nt]
+    b = bounds_[len(bounds_) // 2] if bounds_ else l // 2
+    pair = [b - MESH_PAIR_GAP // 2, b + MESH_PAIR_GAP - MESH_PAIR_GAP // 2]
+    pos = inner + [k - nt // 3 for k in bounds_] + pair
+    tmpl = torch.as_tensor(template, dtype=x.dtype, device=device) * amp
+    for t0 in pos:
+        x[0, t0 - pre:t0 - pre + nt] += tmpl
+    return x, pos, pair
+
+
+def compare_long(got, ref, threshold, what):
+    """A merged sharded long-trace list (indices, Δχ², amplitudes) against
+    the unsharded TriggerSet: the same indices but for triggers within
+    TRIG_NEAR_THRESHOLD of the threshold; matched Δχ² and amplitudes
+    within TRIG_RTOL. Returns the number of triggers in one list only."""
+    g_idx, g_d, g_a = got
+    k = int(ref.count)
+    r_idx = ref.indices[:k].cpu().numpy()
+    r_d = ref.dchi2[:k].cpu().numpy().astype(np.float64)
+    r_a = ref.amplitudes[:, :k].cpu().numpy().astype(np.float64)
+    gm = {int(i): n for n, i in enumerate(g_idx)}
+    rm = {int(i): n for n, i in enumerate(r_idx)}
+    only = 0
+    for mine, other, d, side in ((gm, rm, g_d, "sharded"),
+                                 (rm, gm, r_d, "unsharded")):
+        for i, n in mine.items():
+            if i not in other:
+                if abs(float(d[n]) - threshold) > TRIG_NEAR_THRESHOLD \
+                        * threshold:
+                    raise RuntimeError(f"{what}: trigger at {i} (Δχ² "
+                                       f"{float(d[n]):.6g}) only {side}")
+                only += 1
+    both = [i for i in r_idx if int(i) in gm]
+    gi = np.array([gm[int(i)] for i in both], np.int64)
+    ri = np.array([rm[int(i)] for i in both], np.int64)
+    rel_d = float(np.max(np.abs(g_d[gi] - r_d[ri]) / np.abs(r_d[ri]),
+                         initial=0.0))
+    rel_a = float(np.max(np.abs(g_a[:, gi] - r_a[:, ri])
+                         / np.abs(r_a[:, ri]), initial=0.0))
+    log(f"[o] {what}: {len(g_idx)} triggers sharded, {k} unsharded, "
+        f"{only} near the threshold in one only; Δχ² within {rel_d:.3e}, "
+        f"amplitudes within {rel_a:.3e} (tol {TRIG_RTOL:g})")
+    if not (rel_d <= TRIG_RTOL and rel_a <= TRIG_RTOL):
+        raise RuntimeError(f"{what}: values differ ({rel_d:.3e}, "
+                           f"{rel_a:.3e})")
+    return only
+
+
+def mesh_longtrace(device, card, errs, mesh, tag):
+    """(o): one trace of MESH_LONG_L samples split in time over the
+    mesh against the unsharded FIR, Δχ² and merge, at (e)'s window and at
+    3. Returns the sharded runs' launches."""
+    kernel, _, template = tentry.build_trigger()
+    thr = trigger.chi2_threshold(tentry.TRIGGER_SIGMA, 1)
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    x, pos, pair = longtrace_input(device, kernel, template, MESH_LONG_L,
+                                   mesh.size, gen)
+    l_loc = MESH_LONG_L // mesh.size
+    log(f"[o] {tag} long trace: {MESH_LONG_L} samples "
+        f"({MESH_LONG_L / FS:.1f} s at {FS / 1e6:g} MHz, "
+        f"{4 * MESH_LONG_L / 2**20:.0f} MiB float32) on {mesh.size} shards "
+        f"of {l_loc}; {len(pos)} pulses of {TRIG_PULSE_SIGMA:g}σ ("
+        f"{mesh.size - 1} across boundaries, a pair {MESH_PAIR_GAP} samples "
+        f"apart across sample {pair[0] + MESH_PAIR_GAP // 2})")
+    out = {}
+    for window in MESH_LONG_WINDOWS:
+        def unsharded():
+            q = trigger.of_fir(x, kernel)
+            d, a = trigger.delta_chi2(q, kernel.iw_matrix)
+            return trigger.find_triggers_kernel(d, a, thr, window,
+                                                MESH_LONG_CAPACITY)
+        fn = pmesh.sharded_longtrace_trigger(
+            mesh, kernel, thr, window, MESH_LONG_CAPACITY // mesh.size)
+        ref, single = counted(unsharded)
+        res, launches = counted(lambda: fn(pmesh.shard_time(mesh, x)))
+        mesh_launch_check(launches, single, mesh.size,
+                          f"{tag} long trace, window {window}")
+        nseg = -(-(l_loc + max(kernel.pretrigger, 1) + max(
+            kernel.nt - kernel.pretrigger, 1)) // kernel.block)
+        log(f"[o] {tag} long trace segments: {mesh.size} × {nseg} with the "
+            f"halos against {-(-MESH_LONG_L // kernel.block)} unsharded "
+            f"(F = {kernel.fft_size})")
+        out[f"mesh_longtrace_w{window}"] = launches
+        merged = pmesh.merge_sharded_triggers(res.indices, res.dchi2,
+                                              res.amplitudes)
+        only = compare_long(merged, ref, thr,
+                            f"{tag} long trace, window {window}")
+        total = int(res.count_total)
+        if int(res.count.sum()) != len(merged[0]) or (
+                abs(total - int(ref.count_total)) > only):
+            raise RuntimeError(f"long trace: counts {res.count.tolist()}, "
+                               f"count_total {total} against "
+                               f"{int(ref.count_total)}")
+        near_pair = [int(i) for i in merged[0]
+                     if pair[0] - TRIG_INDEX_TOL <= i <= pair[1]
+                     + TRIG_INDEX_TOL]
+        if window >= MESH_PAIR_GAP and len(near_pair) != 1:
+            raise RuntimeError(f"long trace: the pair gave {near_pair}")
+        miss = [t0 for t0 in pos
+                if np.min(np.abs(merged[0] - t0)) > TRIG_INDEX_TOL]
+        if miss:
+            raise RuntimeError(f"long trace: pulses {miss} not found")
+        secs = {}
+        for name, run in (("unsharded", unsharded),
+                          ("sharded", lambda: fn(pmesh.shard_time(mesh, x)))):
+            sync_all()
+            t = time.perf_counter()
+            run()
+            sync_all()
+            secs[name] = time.perf_counter() - t
+        log(f"[o] {tag} long trace, window {window}: count_total {total} "
+            f"(global); triggers at the pair {near_pair}; every pulse "
+            f"within {TRIG_INDEX_TOL}; Msamples/s: "
+            + ", ".join(f"{k} {MESH_LONG_L / v / 1e6:.3f} ({v:.4f} s)"
+                        for k, v in secs.items()) + f"; on {card}")
+    # the rFFT kernel on one shard's own extended segments
+    halo_l = max(kernel.pretrigger, 1)
+    halo_r = max(kernel.nt - kernel.pretrigger, 1)
+    shards = pmesh.shard_time(mesh, x)
+    ext = torch.cat([torch.zeros_like(shards[0][..., :halo_l]), shards[0],
+                     shards[1][..., :halo_r].to(shards[0].device)
+                     if len(shards) > 1 else
+                     torch.zeros_like(shards[0][..., :halo_r])], dim=-1)
+    compare_rfft(trigger.fir_segments(ext, kernel).reshape(
+        -1, kernel.fft_size), errs, "o")
+    del x, shards, ext
+    return out
+
+
+def mesh_spectra(device, card, mesh, tag, index):
+    """(o): (j)'s PSDs and CSD through Noise with and without the
+    mesh on the same randoms. Returns the mesh run's launches."""
+    chans = list(tentry.SHELL_CHANNELS)
+    table = Noise(index, verbose=False, device=device).generate_randoms(
+        nrandoms=FG_NRANDOMS, seed=SEED)
+    out, launches = {}, {}
+    for name, m in (("single", None), ("mesh", mesh)):
+        noise = Noise(index, verbose=False, device=device)
+        noise.set_randoms(table)
+
+        def run():
+            noise.calc_psd(chans, trace_length_samples=FG_N,
+                           pretrigger_length_samples=FG_PRETRIG, mesh=m)
+            noise.calc_csd(chans, trace_length_samples=FG_N,
+                           pretrigger_length_samples=FG_PRETRIG, mesh=m)
+        _, launches[name] = counted(run)
+        out[name] = ([noise.get_psd(c)[0] for c in chans],
+                     noise.get_csd("|".join(chans))[0], noise.stats["kept"])
+    want = {"rfft": (len(chans) + 1) * mesh.size, "fused_nodelay_of": 0,
+            "cufft_rfft": 0}
+    log(f"[o] {tag} spectra launches: without the mesh {launches['single']},"
+        f" on it {launches['mesh']} (one a shard for each channel's PSD and "
+        f"one a shard for the CSD, expected {want})")
+    if launches["mesh"] != want:
+        raise RuntimeError(f"mesh spectra launches {launches['mesh']}")
+    psd_rel = max(float(np.max(np.abs(g - r) / r))
+                  for g, r in zip(out["mesh"][0], out["single"][0]))
+    ref = out["single"][1]
+    diag = np.sqrt(np.abs(np.einsum("iik->ik", ref)))
+    csd_rel = float(np.max(np.abs(out["mesh"][1] - ref)
+                           / (diag[:, None] * diag[None, :])))
+    log(f"[o] {tag} spectra ({FG_NRANDOMS} randoms × {FG_N}, kept "
+        f"{out['mesh'][2]}): PSD within {psd_rel:.3e} relative (tol "
+        f"{MESH_PSD_RTOL:g}), CSD within {csd_rel:.3e} of √(C_ii·C_jj) "
+        f"(tol {MESH_CSD_TOL:g}); on {card}")
+    if not (psd_rel <= MESH_PSD_RTOL and csd_rel <= MESH_CSD_TOL):
+        raise RuntimeError("mesh spectra differ from the run without")
+    return launches["mesh"]
+
+
+def mesh_cli(device, card, tmp, count):
+    """(o): with ``count`` ≥ 2 devices, (n)'s call B with
+    ``--mesh-devices count`` against B without; with one, the refusal."""
+    if count < 2:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--raw_path", tmp, "--processing_setup",
+                           os.path.join(tmp, "none.json"), "--enable-trig",
+                           "--mesh-devices", "2", "--device", str(device),
+                           "--output_group_path", os.path.join(tmp, "o")])
+        text = buf.getvalue()
+        log(f"[o] command line --mesh-devices 2 on one card: rc {rc}, "
+            f"{text.strip()!r}")
+        if rc == 0 or "only 1 CUDA device" not in text:
+            raise RuntimeError("--mesh-devices 2 on one card not refused "
+                               "naming the count")
+        return
+    chain = tentry.cli_chain_entry(
+        device, os.path.join(tmp, "cli"), nevents=CLI_EVENTS, seed=SEED,
+        length=CLI_LENGTH, nrandoms=CLI_NRANDOMS, nsalt=CLI_NSALT,
+        points=tentry.ivsweep_points(), ntraces=IV_NTRACES, n=IV_N,
+        ndidv=IV_NDIDV, nper=IV_PERIODS)
+    cli_call(chain.a, "A (for the mesh)")
+    ff = chain.filter_file()
+    outs = {name: os.path.join(tmp, name) for name in ("single", "mesh")}
+    cli_call(chain.b(ff, outs["single"]), "B")
+    cli_call(chain.b(ff, outs["mesh"]) + ["--mesh-devices", str(count)],
+             f"B --mesh-devices {count}")
+    for sub in ("salting", "trigger", "feature"):
+        files = sorted(f for f in os.listdir(os.path.join(outs["single"],
+                                                          sub))
+                       if f.endswith(".npz"))
+        mine = sorted(f for f in os.listdir(os.path.join(outs["mesh"], sub))
+                      if f.endswith(".npz"))
+        if files != mine or not files:
+            raise RuntimeError(f"--mesh-devices {count}: {sub} files {mine}"
+                               f" against {files}")
+        for f in files:
+            worst = compare_tables(
+                table_io.read_table(os.path.join(outs["mesh"], sub, f)),
+                table_io.read_table(os.path.join(outs["single"], sub, f)),
+                f"--mesh-devices {count} {sub}/{f}")
+            log(f"[o] command line B --mesh-devices {count}: {sub}/{f} "
+                f"equal to the run without a mesh (floats within "
+                f"{worst:.3e})")
+
+
+MESH_WORKER = r'''
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[4])
+from detprocess_tpu_torch import entry as tentry
+from detprocess_tpu_torch.ops import spectral, trigger
+from detprocess_tpu_torch.parallel import collectives, multihost
+from detprocess_tpu_torch.parallel import mesh as pmesh
+
+rank, port, backend = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+l_shard, n, seed = int(sys.argv[5]), int(sys.argv[6]), int(sys.argv[7])
+if sys.argv[8] == "cuda":
+    card = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(card)
+    sync = torch.cuda.synchronize
+else:                        # a rehearsal of the phase on the CPU
+    card, sync = torch.device("cpu"), lambda *a: None
+multihost.initialize(f"127.0.0.1:{port}", num_processes=2,
+                     process_id=rank, backend=backend, timeout_sec=120)
+mesh = multihost.global_mesh([card, card])
+out = {"rank": rank, "backend": mesh.backend, "mesh": repr(mesh)}
+gen = torch.Generator(device=card).manual_seed(seed)
+x = torch.randn((64, n), generator=gen, device=card)
+psd = pmesh.sharded_psd(mesh, 1.25e6)(pmesh.shard_batch(mesh, x))
+ref = spectral.welch_psd(x, 1.25e6)
+out["psd_rel"] = float(((psd - ref).abs() / ref).max())
+kernel, _, template = tentry.build_trigger()
+thr = trigger.chi2_threshold(tentry.TRIGGER_SIGMA, 1)
+l = 4 * l_shard
+sigma = float(np.sqrt(tentry.TRIGGER_PSD * tentry.FS))
+y = torch.randn((1, l), generator=gen, device=card) * sigma
+amp = 10.0 * float(kernel.resolution[0])
+tm = torch.as_tensor(template, dtype=y.dtype, device=card) * amp
+pos = [k * l_shard - 1365 for k in (1, 2, 3)] + [
+    l_shard // 2, 3 * l_shard + 5000, 2 * l_shard - 35, 2 * l_shard + 35]
+for t0 in pos:
+    y[0, t0 - 1024:t0 - 1024 + 4096] += tm
+t = time.perf_counter()
+res = pmesh.sharded_longtrace_trigger(mesh, kernel, thr, 125, 4096)(
+    pmesh.shard_time(mesh, y))
+sync(card)
+out["sharded_s"] = time.perf_counter() - t
+parts = collectives.gather_host(mesh, (res.indices.cpu().numpy(),
+                                       res.dchi2.cpu().numpy()))
+idx = np.concatenate([p[0] for p in parts])
+d = np.concatenate([p[1] for p in parts])
+keep = idx >= 0
+idx, d = idx[keep], d[keep]
+q = trigger.of_fir(y, kernel)
+dd, aa = trigger.delta_chi2(q, kernel.iw_matrix)
+r = trigger.find_triggers_kernel(dd, aa, thr, 125, 16384)
+k = int(r.count)
+ri, rd = r.indices[:k].cpu().numpy(), r.dchi2[:k].cpu().numpy()
+only = sorted(set(idx.tolist()) ^ set(ri.tolist()))
+near = [i for i in only if abs(float(np.concatenate([d, rd])[
+    np.concatenate([idx, ri]).tolist().index(i)]) - thr) <= 1e-3 * thr]
+both = np.intersect1d(idx, ri)
+gd = d[np.searchsorted(idx, both)] if len(both) else d[:0]
+rdd = rd[np.searchsorted(ri, both)] if len(both) else rd[:0]
+out.update(triggers=int(len(idx)), unsharded=k, only=len(only),
+           near=len(near), dchi2_rel=float(np.max(np.abs(gd - rdd) / rdd,
+                                                  initial=0.0)),
+           count_total=int(res.count_total), ref_total=int(r.count_total),
+           pulses_found=int(sum(np.min(np.abs(idx - t0)) <= 256
+                                for t0 in pos)), pulses=len(pos))
+print("MESHWORKER " + json.dumps(out), flush=True)
+'''
+
+
+def mesh_two_processes(device, card, tmp):
+    """(o): two processes of two shards each (NCCL where each has a
+    card of its own, gloo otherwise, the data on the card): the sharded
+    PSD and a long trace over the 4 global shards against the one-process
+    runs."""
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= 2 else "gloo"
+    worker = os.path.join(tmp, "mesh_worker.py")
+    with open(worker, "w") as f:
+        f.write(MESH_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(r), str(port), backend, ROOT,
+         str(MESH_PROC_L), str(FG_N), str(SEED),
+         torch.device(device).type],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_PROC_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise RuntimeError(f"two-process mesh: a worker outlived "
+                           f"{MESH_PROC_TIMEOUT} s")
+    wall = time.perf_counter() - t
+    results = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        line = [ln for ln in text.splitlines()
+                if ln.startswith("MESHWORKER ")]
+        if p.returncode != 0 or not line:
+            raise RuntimeError(f"two-process mesh: worker {r} rc "
+                               f"{p.returncode}:\n{text[-3000:]}")
+        results.append(json.loads(line[-1][len("MESHWORKER "):]))
+    for res in results:
+        log(f"[o] two processes ({backend}), worker {res['rank']}: "
+            f"{json.dumps(res)}")
+        if not (res["backend"] == backend and res["psd_rel"] <= MESH_PSD_RTOL
+                and res["only"] == res["near"]
+                and res["dchi2_rel"] <= TRIG_RTOL
+                and abs(res["count_total"] - res["ref_total"]) <= res["only"]
+                and res["pulses_found"] == res["pulses"]):
+            raise RuntimeError(f"two-process mesh: worker {res['rank']} off:"
+                               f" {res}")
+    log(f"[o] two processes × 2 shards over {backend} (the data on the "
+        f"card): PSD within {max(r['psd_rel'] for r in results):.3e} of the "
+        f"one-process mean, the long trace of {4 * MESH_PROC_L} samples "
+        f"over 4 global shards as unsharded ({results[0]['triggers']} "
+        f"triggers); {wall:.1f} s wall for both workers; on {card}")
+
+
+def check_current_device(card):
+    """(o): after a launch of each kernel on
+    the last card, the calling thread's current device is unchanged."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        log("[o] current device after a launch on another card: not "
+            "checkable with one card")
+        return
+    last = torch.device("cuda", count - 1)
+    before = torch.cuda.current_device()
+    x = torch.randn(16, 4096, device=last)
+    cuda_fft.rfft_kernel(x)
+    bank, _, _ = build_bank(4096, 2048)
+    FusedNodelayOF.from_bank(filterbank.bank_to_torch(bank, last,
+                                                      torch.float32)).kernel(x)
+    torch.cuda.synchronize(last)
+    after = torch.cuda.current_device()
+    log(f"[o] current device {before} before and {after} after launches on "
+        f"{last}")
+    if after != before:
+        raise RuntimeError(f"a launch on {last} moved the current device "
+                           f"from {before} to {after}")
+
+
+def phase_o(device, card, errs):
+    """The mesh: the trigger shell, the chain, the long trace and the
+    spectra with and without it on virtual shards (and on all the cards
+    where there are several), the command line's mesh, two processes;
+    returns each mesh path's launches."""
+    tmp = tempfile.mkdtemp(prefix="detprocess_smoke_mesh_")
+    try:
+        return _phase_o(device, card, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_o(device, card, errs, tmp):
+    t_phase = t = time.perf_counter()
+    count = torch.cuda.device_count()
+    meshes = [("virtual", pmesh.Mesh([device] * MESH_SHARDS))]
+    if count >= 2:
+        meshes.append(("cards", pmesh.make_mesh()))
+    log(f"[o] meshes: " + "; ".join(f"{tag} {m!r}" for tag, m in meshes)
+        + f" ({count} card(s))")
+    trig_dir = os.path.join(tmp, "trigger")
+    os.makedirs(trig_dir)
+    paths, pulses = tentry.write_trigger_dumps(
+        trig_dir, torch.Generator().manual_seed(SEED), TSHELL_EVENTS,
+        TSHELL_FILES, device)
+    index = tentry.trigger_shell_index(paths)
+    per_file = TSHELL_EVENTS // TSHELL_FILES
+    fg_dir = os.path.join(tmp, "filtergen")
+    _, fg_index, _ = tentry.filter_generation_entry(
+        device, fg_dir, nevents=FG_EVENTS, seed=SEED, length=FG_LENGTH,
+        nrandoms=FG_NRANDOMS, n=FG_N, pretrig=FG_PRETRIG, nfiles=FG_FILES)
+    log(f"[o] wrote (h)'s {TSHELL_EVENTS} events and (j)'s {FG_EVENTS} in "
+        f"{time.perf_counter() - t:.1f} s (set-up, not timed)")
+    launches = {}
+    for tag, mesh in meshes:
+        got = mesh_trigger_shells(device, card, errs, mesh, tag, index,
+                                  pulses, per_file, TSHELL_EVENTS)
+        got.update(mesh_longtrace(device, card, errs, mesh, tag))
+        got["mesh_spectra"] = mesh_spectra(device, card, mesh, tag,
+                                           fg_index)
+        launches.update({k if tag == "virtual" else f"{k}_cards": v
+                         for k, v in got.items()})
+    mesh_cli(device, card, tmp, count)
+    mesh_two_processes(device, card, tmp)
+    check_current_device(card)
+    log(f"[o] phase time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=os.path.abspath, default=None,
@@ -4068,6 +4875,7 @@ def main(argv=None):
     mode_launches = phase_l(device, card, errs)
     sweep_launches = phase_m(device, card, errs)
     cli_launches = phase_n(device, card, errs)
+    mesh_launches = phase_o(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
@@ -4085,7 +4893,9 @@ def main(argv=None):
                     **{path: counts[name]
                        for path, counts in sweep_launches.items()},
                     **{path: counts[name]
-                       for path, counts in cli_launches.items()}}
+                       for path, counts in cli_launches.items()},
+                    **{path: counts[name]
+                       for path, counts in mesh_launches.items()}}
         rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",

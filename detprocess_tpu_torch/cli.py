@@ -1,6 +1,6 @@
 """The command line of the port: filter generation → IV sweep →
 salting → randoms → trigger → feature processing over a raw data group,
-on one GPU.
+on one GPU or a mesh of them.
 
 Port of ``detprocess_tpu/cli.py``: the same flags and aliases
 (:31-121), the same workloads chained in the same order with the same
@@ -25,11 +25,14 @@ or JSON (``config/yamlconfig.load_yaml``). The forms follow the files'
 suffixes and the flag; nothing falls back to another form, device or
 mode when one fails.
 
-``--mesh-devices`` above 1 is refused: the mesh is ROADMAP.md §1 item 7.
-``--prewarm`` keeps its use: one capped run of trigger and features that
-saves nothing, the host workloads skipped with the JAX notice; what it
-warms here is the nvcc build of the kernels at first use
-(``ops/_kernels``), whose directory it prints.
+``--mesh-devices N`` above 1 shards the trigger and feature batches over
+a mesh of N devices of ``--device``'s type (``parallel/mesh.make_mesh``,
+made once a run; JAX ``_cli_mesh`` :123-130): the first N cards, refused
+with an ``ERROR:`` naming the count where fewer exist, or N virtual
+shards with ``--device cpu``. ``--prewarm`` keeps its use: one capped
+run of trigger and features that saves nothing, the host workloads
+skipped with the JAX notice; what it warms here is the nvcc build of
+the kernels at first use (``ops/_kernels``), whose directory it prints.
 """
 
 from __future__ import annotations
@@ -49,11 +52,6 @@ from detprocess_tpu_torch.io import tables
 from detprocess_tpu_torch.io.filterdata import FilterData
 from detprocess_tpu_torch.io.rawdata import RawData, RawIndex
 from detprocess_tpu_torch.utils.misc import create_series_name
-
-MESH_REFUSAL = ("ERROR: --mesh-devices {n} is not ported yet (ROADMAP.md "
-                "§1 item 7, multi-GPU): run one process per GPU on its own "
-                "series (python -m detprocess_tpu_torch.launch)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -120,8 +118,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="concurrent host reader threads feeding the "
                         "device pipeline")
     p.add_argument("--mesh-devices", type=int, default=None,
-                   help="not ported yet (ROADMAP.md §1 item 7): a value "
-                        "above 1 is refused")
+                   help="shard trigger/feature batches over this many "
+                        "devices of --device's type (parallel/mesh, over "
+                        "the events axis); default: one device")
     p.add_argument("--random_rate", type=float, default=None)
     p.add_argument("--nrandoms", type=int, default=None)
     p.add_argument("--salting_energies", type=float, nargs="+",
@@ -153,6 +152,15 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def cli_mesh(args):
+    """The mesh of ``--mesh-devices`` (None for none, 0 or 1), made once
+    a run; ``make_mesh``'s ValueError where the devices are too few."""
+    if args.mesh_devices in (None, 0, 1):
+        return None
+    from detprocess_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(args.mesh_devices, device=args.device)
+
+
 def table_paths(directory: str) -> list:
     """The table dumps of a directory (.hdf5, .parquet and .npz)."""
     return sorted(glob.glob(os.path.join(directory, "*.hdf5"))
@@ -170,10 +178,12 @@ def most_salts_per_event(table: dict) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh_devices not in (None, 0, 1):
-        print(MESH_REFUSAL.format(n=args.mesh_devices))
-        return 1
     device = resolve_device(args.device)
+    try:
+        mesh = cli_mesh(args)
+    except ValueError as exc:
+        print(f"ERROR: --mesh-devices {args.mesh_devices}: {exc}")
+        return 1
 
     data_type = "calib" if args.calib else "continuous"
     rawdata = RawData(args.raw_path, data_type=data_type,
@@ -383,7 +393,7 @@ def main(argv=None) -> int:
                                      lgc_save=not args.prewarm,
                                      output_path=out_dir,
                                      output_format=args.output_format,
-                                     series_name=out_series,
+                                     series_name=out_series, mesh=mesh,
                                      nreaders=(nreaders if args.nevents < 0
                                                else 1))
         print(f"INFO: {tables.table_rows(trigger_table)} triggers "
@@ -427,7 +437,7 @@ def main(argv=None) -> int:
         proc.process(nevents=args.nevents, batch_size=args.batch_size,
                      lgc_save=not args.prewarm, output_path=out_dir,
                      output_format=args.output_format,
-                     series_name=out_series,
+                     series_name=out_series, mesh=mesh,
                      nreaders=(nreaders if ttable is not None
                                or args.nevents < 0 else 1))
         print("INFO: features "

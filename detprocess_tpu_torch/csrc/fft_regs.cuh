@@ -288,6 +288,28 @@ __device__ __forceinline__ void other_passes(float2 (&v)[16], float2* s,
   }
 }
 
+// Makes `device` current for one C entry and gives the caller's current
+// device back when the entry returns, on every path: a launch on cuda:1
+// must not leave a thread that allocates on "cuda" pointing at cuda:1.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    restore_ = cudaGetDevice(&previous_) == cudaSuccess;
+    error_ = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (restore_) cudaSetDevice(previous_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  cudaError_t error() const { return error_; }
+
+ private:
+  int previous_ = 0;
+  bool restore_ = false;
+  cudaError_t error_ = cudaSuccess;
+};
+
 }  // namespace dpr
 
 // Dispatch a templated launcher over N = 256 … 32768 (LOG2M = 7 … 14).

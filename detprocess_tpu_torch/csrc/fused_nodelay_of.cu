@@ -257,8 +257,8 @@ int fused_entry(const void* x, const void* tw, const void* phiw,
                 const void* dinvw, int nslots, long long batch, int n,
                 void* q_out, void* c0_out, void* stamps, int device,
                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  dpr::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (batch <= 0 || batch > 0x7fffffffLL || nslots < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

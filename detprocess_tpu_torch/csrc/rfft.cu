@@ -169,8 +169,8 @@ int launch_rfft(const float2* x, float2* out, const float2* tw,
 template <bool kStamp>
 int rfft_entry(const void* x, void* out, const void* tw, void* stamps,
                long long batch, int n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  dpr::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (batch <= 0 || batch > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -85,6 +85,11 @@ step on one device.
   geometry, the trigger shell, the salting chain's salts and feature
   fit; :func:`cli_sweep_setup`), with the argument lists of its three
   calls (:class:`CliChain`).
+- :func:`dryrun_multichip` is ``__graft_entry__.dryrun_multichip``: the
+  sharded feature step, PSD, CSD, event-sharded trigger, time-sharded
+  long trace, and the trigger shell with ``mesh=`` on int16 data with the
+  device injector, then with two coincident channels, on ``n`` shards of
+  one device (virtual shards).
 """
 
 from __future__ import annotations
@@ -107,6 +112,7 @@ from detprocess_tpu_torch.pipelines.filtergen import FilterDataProcessing
 from detprocess_tpu_torch.pipelines.salting import Salting
 from detprocess_tpu_torch.pipelines.trigger_step import TriggerStep
 from detprocess_tpu_torch.pipelines.triggers import TriggerProcessing
+from detprocess_tpu_torch.parallel import mesh as pmesh
 
 FS = 1.25e6
 CHANNEL = "chan1"
@@ -1478,3 +1484,161 @@ def cli_chain_entry(device=None, directory: str | None = None,
     return CliChain(raw, sweep, setup, sweep_setup,
                     os.path.join(directory, "out"), str(device), seed,
                     nrandoms, art)
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """The JAX dryrun of the mesh (``__graft_entry__.dryrun_multichip``
+    :93, its body ``_dryrun_body`` :151) on ``n_devices`` virtual shards
+    of ``device`` (None: the GPU); raises AssertionError where a section's
+    check fails and returns a summary of the sections' counts.
+
+    1. the feature step of :func:`entry`'s template at N = 1024, event-
+       sharded (4 events a shard; one :class:`FeatureStep` a device);
+    2. the PSD and 3. the two-channel CSD with one psum each;
+    4. continuous triggering sharded over events (8192 samples an event,
+       one 1e-5 A pulse at sample 4000);
+    5. one long trace of 4096 samples a shard split in time, a pulse a
+       shard and one across the first boundary;
+    6. the trigger shell with ``mesh=`` on n + 1 int16 events (an unequal
+       last shard), with a salt an event added by the device injector;
+    7. two coincident channels through the shell with ``mesh=`` and a
+       coincidence window of 50 samples: one merged row an event.
+    """
+    import shutil
+
+    device = _device(device)
+    mesh = pmesh.Mesh([device] * n_devices)
+    fs, n = FS, 1024
+    pretrig = n // 2
+    batch = 4 * n_devices
+    bank, template, _ = build_bank(n, pretrig, fs)
+    rng = np.random.default_rng(0)
+    traces = torch.as_tensor((rng.standard_normal((batch, n)) * 1e-8
+                              + 1e-6 * template[None, :]).astype(np.float32))
+    shards = pmesh.shard_batch(mesh, traces)
+    summary: dict = {}
+
+    # 1) the feature step, one FeatureStep a device
+    steps = {d: FeatureStep(filterbank.bank_to_torch(bank, d, torch.float32),
+                            [CHANNEL], fs, pretrig, n) for d in mesh.devices}
+    feats = pmesh.unshard(mesh, pmesh.sharded_map(
+        mesh, lambda x, step: step(x[:, None, :]))(
+        shards, [steps[d] for d in mesh.devices]))
+    amps = feats[f"amp_of1x1_unconstrained_{CHANNEL}"]
+    assert amps.shape == (batch,) and bool(torch.isfinite(amps).all()), \
+        "non-finite amplitudes in the sharded feature step"
+    summary["feature_events"] = batch
+
+    # 2) the PSD, 3) the CSD of two channels
+    psd = pmesh.sharded_psd(mesh, fs)(shards)
+    assert psd.shape == (n,) and bool(torch.isfinite(psd).all()) \
+        and bool((psd >= 0).all())
+    csd = pmesh.sharded_csd(mesh, fs)(
+        [torch.stack([x, 0.5 * x], dim=1) for x in shards])
+    assert csd.shape == (2, 2, n) and bool(torch.isfinite(csd).all())
+
+    # 4) continuous triggering sharded over events
+    psd_level = 4e-18
+    nxm = filterbank.make_ofnxm_bank(
+        template, np.full(n, psd_level).astype(complex), fs, pretrig)
+    kernel = trigger.make_trigger_kernel(nxm)
+    thr = float(trigger.chi2_threshold(5.0, 1))
+    sigma = np.sqrt(psd_level * fs)
+    l_cont = 8192
+    cont = (rng.standard_normal((batch, 1, l_cont)) * sigma).astype(
+        np.float32)
+    cont[:, 0, 4000 - pretrig:4000 - pretrig + n] += 1e-5 * template
+    ts = pmesh.sharded_trigger(mesh, kernel, thr, 125, 32)(
+        pmesh.shard_batch(mesh, torch.as_tensor(cont)))
+    assert ts.count.shape == (batch,) and bool((ts.count >= 1).all())
+    assert bool(((ts.indices[:, 0] - 4000).abs() <= 5).all())
+    summary["triggers"] = int(ts.count.sum())
+
+    # 5) one long trace split in time, with the halo exchange
+    l_loc = 4096
+    l_long = n_devices * l_loc
+    xlong = (rng.standard_normal((1, l_long)) * sigma).astype(np.float32)
+    inj = [s * l_loc + l_loc // 2 for s in range(n_devices)]
+    if n_devices >= 2:
+        inj.append(l_loc - n // 4)
+    for t0 in inj:
+        xlong[0, t0 - pretrig:t0 - pretrig + n] += 2e-5 * template
+    lt = pmesh.sharded_longtrace_trigger(mesh, kernel, thr, 125, 16)(
+        pmesh.shard_time(mesh, torch.as_tensor(xlong)))
+    g_idx, _, _ = pmesh.merge_sharded_triggers(lt.indices, lt.dchi2,
+                                               lt.amplitudes)
+    for t0 in inj:
+        if n < t0 < l_long - n:            # the trace's edges are zeroed
+            assert any(abs(int(i) - t0) <= 5 for i in g_idx), t0
+    summary["longtrace_triggers"] = len(g_idx)
+
+    # 6) the trigger shell with mesh= on int16 codes, device salting
+    nev = n_devices + 1
+    conv = 2.0 ** -25 / 2.0                  # adc factor / close_loop_norm
+    tmp = tempfile.mkdtemp(prefix="detprocess_dryrun_mesh_")
+    try:
+        series = "I1_D20260818_T000000"
+        cont2 = rng.standard_normal((nev, 1, l_cont)) * sigma
+        cont2[:, 0, 4000 - pretrig:4000 - pretrig + n] += 2e-5 * template
+        write_flat_series(os.path.join(tmp, "one"), "cont", series,
+                          [np.round(cont2 / conv).astype(np.int16)],
+                          ["chan1"], fs, adc_conversion_factor=2.0 ** -25,
+                          detector_config={"chan1": {"close_loop_norm": 2.0}})
+        fd = FilterData(verbose=False)
+        for c in ("chan1", "chan2"):
+            fd.set_template(c, template, fs,
+                            pretrigger_length_samples=pretrig)
+            fd.set_psd(c, np.full(n, psd_level), fs)
+
+        def shell(directory, chans):
+            cfg = {"trigger": {c: {
+                "run": True, "template_tag": "default",
+                "threshold_sigma": 8.0, "pileup_window_msec": 0.1}
+                for c in chans}}
+            index = RawIndex.from_files(sorted(
+                os.path.join(directory, f) for f in os.listdir(directory)
+                if f.endswith(".bin")))
+            return TriggerProcessing(index, cfg, fd, verbose=False,
+                                     device=device)
+
+        from detprocess_tpu_torch.io.rawdata import series_to_number
+        salting = Salting(fd, verbose=False)
+        salting.set_dataframe({
+            "series_number": np.full(nev, series_to_number(series)),
+            "event_number": np.arange(1, nev + 1),
+            "salt_channel": np.array(["chan1"] * nev),
+            "salt_amplitude": np.full(nev, 2e-5),
+            "salt_template_tag": np.array(["default"] * nev),
+            "trigger_index": np.full(nev, 6000),
+            "salt_energy_ev": np.full(nev, 50.0)})
+        tp = shell(os.path.join(tmp, "one"), ["chan1"])
+        tp.set_salting(salting.make_device_injector(["chan1"]))
+        table = tp.process(capacity=32, event_batch=nev, mesh=mesh)
+        ti, ev = table["trigger_index"], table["event_number"]
+        assert len(ti) >= 2 * nev, "the mesh shell missed triggers"
+        for e in range(1, nev + 1):
+            assert np.any(np.abs(ti[ev == e] - 4000) <= 5), e   # written
+            assert np.any(np.abs(ti[ev == e] - 6000) <= 5), e   # salted
+        summary["shell_triggers"] = len(ti)
+
+        # 7) two coincident channels over the mesh
+        cont3 = rng.standard_normal((nev, 2, l_cont)) * sigma
+        cont3[:, 0, 4000 - pretrig:4000 - pretrig + n] += 2e-5 * template
+        cont3[:, 1, 4004 - pretrig:4004 - pretrig + n] += 1.5e-5 * template
+        write_flat_series(os.path.join(tmp, "two"), "cont",
+                          "I1_D20260818_T000100",
+                          [np.round(cont3 / conv).astype(np.int16)],
+                          ["chan1", "chan2"], fs,
+                          adc_conversion_factor=2.0 ** -25,
+                          detector_config={c: {"close_loop_norm": 2.0}
+                                           for c in ("chan1", "chan2")})
+        coinc = shell(os.path.join(tmp, "two"), ["chan1", "chan2"]).process(
+            capacity=32, event_batch=nev, mesh=mesh,
+            coincident_window_samples=50)
+        merged = int(np.sum(np.isfinite(coinc["trigger_index_chan2"].astype(
+            float)) & (coinc["trigger_channel"] == "chan1")))
+        assert merged == nev, (merged, nev)   # one merged pair an event
+        summary["coincidence_merges"] = merged
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary

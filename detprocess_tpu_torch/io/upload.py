@@ -11,7 +11,9 @@ Shared by the ``FeatureProcessing`` and ``TriggerProcessing`` shells
   a side stream, records an event there that the compute stream waits on,
   and converts stored ADC codes to amps on the device (``ops/adc.py``),
   so that int16 codes cross the bus at 2 bytes a sample. It counts the
-  bytes and samples it moved.
+  bytes and samples it moved. On a mesh each shard's rows go to their own
+  device, on that device's side stream (one a device), and the buffer
+  goes back to its ring with every shard's event.
 
 On the CPU a batch stays where it is: the "upload" is the host tensor
 itself, and only the conversion runs.
@@ -50,59 +52,68 @@ class BufferRing:
 
     def acquire(self):
         try:
-            event, buf = self._free.get_nowait()
+            events, buf = self._free.get_nowait()
         except queue.Empty:
             if self._left > 0:
                 self._left -= 1
                 t = torch.empty(self._shape, dtype=self._dtype,
                                 pin_memory=self._pin)
                 return t, t.numpy()
-            event, buf = self._free.get()
+            events, buf = self._free.get()
         if buf is None:
             raise RuntimeError("the batch buffers were closed")
-        if event is not None:
+        for event in events:
             event.synchronize()
         return buf
 
     def release(self, buf, event=None):
-        self._free.put((event, buf))
+        """Give ``buf`` back; it is handed out again once ``event`` (an
+        event, a list of them, one a shard's copy, or None) has
+        completed."""
+        events = ([] if event is None else list(event)
+                  if isinstance(event, (list, tuple)) else [event])
+        self._free.put(([e for e in events if e is not None], buf))
 
     def close(self):
         """Wake a reader thread waiting for a buffer: it gets none."""
-        self._free.put((None, None))
+        self._free.put(([], None))
 
 
 class Uploader:
-    """Host batches [B, C, N] to ``device``, counted in ``bytes`` and
+    """Host batches [B, C, N] to ``device`` (or, per call, to another
+    device of the same type: a mesh's shards), counted in ``bytes`` and
     ``samples`` (as stored, before any conversion)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.on_cuda = self.device.type == "cuda"
-        self._stream = (torch.cuda.Stream(self.device) if self.on_cuda
-                        else None)
+        self._streams: dict = {}           # a side stream a device
         self.bytes = 0
         self.samples = 0
 
     def upload(self, host: torch.Tensor, conv: Optional[np.ndarray] = None,
-               dtype: torch.dtype = torch.float32):
-        """(traces on the device, the copy's event or None) of the host
-        batch ``host``. With ``conv`` [B, C] the stored values are
-        converted there, ``host · conv`` in ``dtype``. On the GPU ``host``
-        must be pinned and stay untouched until the event has completed
-        (give its buffer back to its :class:`BufferRing` with the event)."""
+               dtype: torch.dtype = torch.float32, device=None):
+        """(traces on ``device``, default the uploader's, and the copy's
+        event or None) of the host batch ``host``. With ``conv`` [B, C]
+        the stored values are converted there, ``host · conv`` in
+        ``dtype``. On the GPU ``host`` must be pinned and stay untouched
+        until the event has completed (give its buffer back to its
+        :class:`BufferRing` with the event)."""
         copied = conv_d = None
+        target = self.device if device is None else torch.device(device)
         if self.on_cuda:
-            compute = torch.cuda.current_stream(self.device)
-            with torch.cuda.stream(self._stream):
+            if target not in self._streams:
+                self._streams[target] = torch.cuda.Stream(target)
+            compute = torch.cuda.current_stream(target)
+            with torch.cuda.stream(self._streams[target]):
                 x = torch.empty(host.shape, dtype=host.dtype,
-                                device=self.device)
+                                device=target)
                 x.copy_(host, non_blocking=True)
                 if conv is not None:
                     conv_d = torch.from_numpy(conv).pin_memory().to(
-                        self.device, non_blocking=True)
+                        target, non_blocking=True)
                 copied = torch.cuda.Event(blocking=True)
-                copied.record(self._stream)
+                copied.record(self._streams[target])
             compute.wait_event(copied)
             x.record_stream(compute)
             if conv_d is not None:

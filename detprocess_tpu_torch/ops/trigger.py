@@ -49,6 +49,7 @@ import torch
 from detprocess_tpu_torch import device as dev
 from detprocess_tpu_torch.ops import fft, filterbank
 from detprocess_tpu_torch.ops.filterbank import OFNxMBank
+from detprocess_tpu_torch.parallel import collectives as col
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
@@ -339,15 +340,8 @@ def find_triggers_tiled(dchi2: torch.Tensor, amps: torch.Tensor,
         a = torch.nn.functional.pad(a, (0, pad))
     nt = (l + pad) // g
     dev = d.device
-    d = d.reshape(nev, nt, g)
-
-    # per-tile summaries
-    col = torch.arange(g, device=dev)
-    above = d > threshold
-    tile_max, tile_arg = torch.max(torch.where(above, d, -math.inf), dim=-1)
-    first_in = torch.where(above, col, g).amin(dim=-1)
-    last_in = torch.where(above, col, -1).amax(dim=-1)
-    has = last_in >= 0
+    tile_max, tile_arg, first_in, last_in, has = _tile_summaries(
+        d.reshape(nev, nt, g), threshold)
     base = torch.arange(nt, device=dev) * g
     last_idx = torch.where(has, base + last_in, -1)
 
@@ -362,20 +356,60 @@ def find_triggers_tiled(dchi2: torch.Tensor, amps: torch.Tensor,
                            device=dev).scatter_reduce(
         -1, gid, tile_max, "amax")
     reach = has & (tile_max == group_max.gather(-1, gid))
-    tile = torch.arange(nt, device=dev).expand(nev, nt)
-    first_reach = torch.full((nev, nt + 1), nt, device=dev).scatter_reduce(
-        -1, gid, torch.where(reach, tile, nt), "amin")
-    winner = reach & (tile == first_reach.gather(-1, gid))
+    winner = _first_reach(reach, gid)
     count_total = start.sum(dim=-1)
+    idx, val, amp = _compact_winners(winner, base, tile_arg, tile_max, a,
+                                     g, capacity, amps_transform)
+    capacity = idx.shape[-1]
+    return TriggerSet(
+        indices=idx.reshape(*batch, capacity),
+        dchi2=val.reshape(*batch, capacity),
+        amplitudes=amp.reshape(*batch, amp.shape[-2], capacity),
+        count=torch.clamp(count_total, max=capacity).reshape(batch),
+        count_total=count_total.reshape(batch),
+    )
+
+
+def _tile_summaries(d: torch.Tensor, threshold: float):
+    """Per tile of d [..., T, G]: (maximum of the above-threshold samples,
+    −inf in a tile without any; its argmax; the first and the last
+    above-threshold column, G and −1 without any; whether it has one)."""
+    g = d.shape[-1]
+    col = torch.arange(g, device=d.device)
+    above = d > threshold
+    tile_max, tile_arg = torch.max(torch.where(above, d, -math.inf), dim=-1)
+    first_in = torch.where(above, col, g).amin(dim=-1)
+    last_in = torch.where(above, col, -1).amax(dim=-1)
+    return tile_max, tile_arg, first_in, last_in, last_in >= 0
+
+
+def _first_reach(reach: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """The first tile of each group id ``gid`` [E, T] among those that
+    ``reach`` its maximum."""
+    nev, nt = reach.shape
+    tile = torch.arange(nt, device=reach.device).expand(nev, nt)
+    first = torch.full((nev, nt + 1), nt, device=reach.device).scatter_reduce(
+        -1, gid, torch.where(reach, tile, nt), "amin")
+    return reach & (tile == first.gather(-1, gid))
+
+
+def _compact_winners(winner, base, tile_arg, tile_max, a, g, capacity,
+                     amps_transform=None):
+    """The winners [E, T] (in time order) compacted to K = min(capacity,
+    T) slots: (indices base + argmax [E, K] int64, −1 empty; Δχ² [E, K];
+    amplitudes [E, M, K], from a [E, M, T·G] or, with ``amps_transform``
+    [M, M'], ``amps_transform`` times a raw q [E, M', T·G])."""
+    nev, nt = winner.shape
+    m = a.shape[-2]
+    dev = winner.device
     # as in the JAX package, no more slots than tiles (one winner a tile)
     capacity = min(capacity, nt)
-
-    # compaction: winners are in time order; slot K collects the dropped
+    # slot K collects the dropped
     slot = torch.cumsum(winner, dim=-1) - 1
     slot = torch.where(winner & (slot < capacity), slot, capacity)
     idx = torch.full((nev, capacity + 1), -1, dtype=torch.int64, device=dev)
-    idx.scatter_(-1, slot, base + tile_arg)
-    val = torch.zeros((nev, capacity + 1), dtype=d.dtype, device=dev)
+    idx.scatter_(-1, slot, (base + tile_arg).to(torch.int64))
+    val = torch.zeros((nev, capacity + 1), dtype=tile_max.dtype, device=dev)
     val.scatter_(-1, slot, tile_max)
     cand_amp = a.reshape(nev, m, nt, g).gather(
         -1, tile_arg[:, None, :, None].expand(nev, m, nt, 1))[..., 0]
@@ -384,13 +418,7 @@ def find_triggers_tiled(dchi2: torch.Tensor, amps: torch.Tensor,
     amp = amp[..., :capacity]
     if amps_transform is not None:
         amp = torch.einsum("ij,ejk->eik", _as(amps_transform, amp), amp)
-    return TriggerSet(
-        indices=idx[:, :capacity].reshape(*batch, capacity),
-        dchi2=val[:, :capacity].reshape(*batch, capacity),
-        amplitudes=amp.reshape(*batch, amp.shape[-2], capacity),
-        count=torch.clamp(count_total, max=capacity).reshape(batch),
-        count_total=count_total.reshape(batch),
-    )
+    return idx[:, :capacity], val[:, :capacity], amp
 
 
 def find_triggers_blocks(dchi2: torch.Tensor, amps: torch.Tensor,
@@ -413,6 +441,111 @@ def find_triggers_kernel(dchi2: torch.Tensor, amps: torch.Tensor,
     as :func:`find_triggers_tiled` pads to whole tiles)."""
     return find_triggers_tiled(dchi2[..., None, :], amps[..., None, :],
                                threshold, pileup_window, capacity)
+
+
+def find_triggers_sharded(mesh, dchi2, amps, threshold: float,
+                          pileup_window: int, capacity: int,
+                          t_offsets) -> list:
+    """The merge of :func:`find_triggers_tiled` on the time shards of one
+    long trace (JAX ``find_triggers_sharded`` :753 and
+    ``find_triggers_sharded_tiled`` :643): ``dchi2`` and ``amps`` are this
+    process's shards of the mesh ``mesh`` (``parallel/collectives.Mesh``),
+    one [L] and one [M, L] a shard on its device, each shard the global
+    samples from its ``t_offsets`` entry on. Returns one
+    :class:`TriggerSet` a shard, with global int64 indices, its own winners
+    in at most ``capacity`` slots (``count``) and the global group count
+    (``count_total``, one psum).
+
+    Each shard reduces its tiles as the unsharded merge does; the shards
+    then exchange a handful of values by ``all_gather``: the largest
+    last-above index (whether a shard's first tiles merge with an earlier
+    shard's), whether the shard holds a group start, the maximum of its
+    tiles before its first start and the maximum at its end. From these
+    each shard has the maximum that the group open at its start reached
+    before it, and the maximum that the group open at its end reaches
+    after it, so a group that crosses one boundary or several (a shard
+    with no start of its own included) gets one winner, at the first
+    global position that reaches its maximum. Every shard's length must be
+    a multiple of the tile G."""
+    g = _tile_size(pileup_window)
+    shards = []
+    for d, t0 in zip(dchi2, t_offsets):
+        l = d.numel()
+        if l % g:
+            raise ValueError(f"a shard of {l} samples is not a whole number "
+                             f"of tiles of {g} (pileup window "
+                             f"{pileup_window})")
+        nt = l // g
+        tile_max, tile_arg, first_in, last_in, has = _tile_summaries(
+            d.reshape(1, nt, g), threshold)
+        base = torch.arange(nt, device=d.device) * g + int(t0)
+        last_idx = torch.where(has, base + last_in, -1)
+        shards.append((nt, tile_max, tile_arg, first_in, has, base,
+                       last_idx))
+
+    # the last above-threshold index of every earlier shard
+    last_all = col.all_gather(mesh, [s[6].amax() for s in shards])
+    prev_carry = torch.nn.functional.pad(
+        torch.cummax(last_all, dim=0).values[:-1], (1, 0), value=-1)
+    local = []
+    for i, (nt, tile_max, tile_arg, first_in, has, base,
+            last_idx) in enumerate(shards):
+        dev = tile_max.device
+        prev_last = torch.maximum(
+            torch.nn.functional.pad(torch.cummax(last_idx, dim=-1).values[
+                :, :-1], (1, 0), value=-1),
+            prev_carry[mesh.offset + i].to(dev))
+        start = has & ((prev_last < 0)
+                       | (base + first_in - prev_last > pileup_window))
+        gid = torch.cumsum(start, dim=-1)
+        group_max = torch.full((1, nt + 1), -math.inf, dtype=tile_max.dtype,
+                               device=dev).scatter_reduce(
+            -1, gid, tile_max, "amax")
+        # before its first start, a shard's tiles continue the group open
+        # at its left; after its last start, the group runs on to the right
+        local.append((start, gid, group_max, start.any(), group_max[0, 0],
+                      group_max[0, gid[0, -1]]))
+
+    starts = col.all_gather(mesh, [s[3] for s in local])
+    heads = col.all_gather(mesh, [s[4] for s in local])
+    ends = col.all_gather(mesh, [s[5] for s in local])
+    neg = torch.full((), -math.inf, dtype=heads.dtype, device=heads.device)
+    from_left = [neg]                 # the open group's maximum before shard s
+    for s in range(mesh.size - 1):
+        from_left.append(torch.where(starts[s], ends[s],
+                                     torch.maximum(from_left[-1], ends[s])))
+    from_right = [neg]                # … and after shard s
+    for s in range(mesh.size - 1, 0, -1):
+        from_right.append(torch.where(starts[s], heads[s],
+                                      torch.maximum(from_right[-1],
+                                                    heads[s])))
+    from_right = from_right[::-1]
+
+    count_total = col.psum(mesh, [s[0].sum() for s in local])
+    out = []
+    for i, ((nt, tile_max, tile_arg, _, has, base, _),
+            (start, gid, group_max, _, _, _)) in enumerate(zip(shards,
+                                                               local)):
+        dev = tile_max.device
+        left = from_left[mesh.offset + i].to(dev)
+        right = from_right[mesh.offset + i].to(dev)
+        pos = torch.arange(nt + 1, device=dev)
+        total = torch.where(pos == 0, torch.maximum(group_max, left),
+                            group_max)
+        total = torch.where(pos == gid[0, -1], torch.maximum(total, right),
+                            total)
+        reach = has & (tile_max == total.gather(-1, gid))
+        # the group open at the left reached its maximum before this shard
+        reach = reach & ~((gid == 0) & (left >= total[0, 0]))
+        winner = _first_reach(reach, gid)
+        a = amps[i].reshape(1, amps[i].shape[-2], -1)
+        idx, val, amp = _compact_winners(winner, base, tile_arg, tile_max, a,
+                                         g, capacity)
+        out.append(TriggerSet(
+            indices=idx[0], dchi2=val[0], amplitudes=amp[0],
+            count=torch.clamp(winner.sum(), max=idx.shape[-1]),
+            count_total=count_total.to(dev)))
+    return out
 
 
 # ---------------------------------------------------------------------------

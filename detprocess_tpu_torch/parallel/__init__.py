@@ -1,2 +1,2 @@
-"""Scale-out across nodes (``multihost``); the mesh is ROADMAP.md §1
-item 7."""
+"""Scale-out: the device mesh and its collectives (``collectives``,
+``mesh``) and the mesh over processes (``multihost``)."""

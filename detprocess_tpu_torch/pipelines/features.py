@@ -47,8 +47,16 @@ keeps the stored-dtype reads, and its plan for the batch's rows and
 window starts is added on the device right after the conversion, before
 the group steps. Both map the salts' channels by name onto the channels
 read. ``resume`` continues the newest dump series in ``output_path``
-after the rows its dumps hold (JAX :1521-1529, :1721); ``mesh`` is
-refused by name.
+after the rows its dumps hold (JAX :1521-1529, :1721).
+
+The mesh (``process(mesh=...)``, a ``parallel/mesh.Mesh`` of this
+process's devices; JAX :611, :1471-1478, :1609-1630): each batch's rows
+are split over the shards (unevenly where they do not divide; an empty
+shard is skipped, where JAX pads), each shard's rows go up on its
+device's side stream, the salt plan goes with its rows, each shard runs
+its own group steps (banks and kernel constants on its device) and copies
+its columns to the host once; the drain gathers them in row order. This
+holds in full-trace and trigger-table mode, and with ``resume``.
 
 ``device=None`` means the GPU (``device.require_cuda``); the CPU runs
 only when the caller passes ``"cpu"``.
@@ -73,6 +81,7 @@ from detprocess_tpu_torch.io.prefetch import OrderedChunkPrefetcher
 from detprocess_tpu_torch.io.rawdata import RawIndex
 from detprocess_tpu_torch.io.upload import BufferRing, Uploader
 from detprocess_tpu_torch.ops.saltinject import split_injector
+from detprocess_tpu_torch.parallel.collectives import bounds, check_mesh
 from detprocess_tpu_torch.pipelines import feature_plan as fplan
 from detprocess_tpu_torch.pipelines.feature_group import GroupStep
 from detprocess_tpu_torch.utils.misc import create_series_name
@@ -178,15 +187,16 @@ class FeatureProcessing:
     def plan(self) -> fplan.FeaturePlan:
         return self._plan
 
-    def group_steps(self, dtype=torch.float32) -> List[GroupStep]:
-        """The plan's group steps on the shell's device, built once per
-        dtype."""
-        if dtype not in self._steps:
+    def group_steps(self, dtype=torch.float32, device=None) -> List[GroupStep]:
+        """The plan's group steps on ``device`` (default the shell's; a
+        mesh's shard device), built once per device and dtype."""
+        device = self._device if device is None else torch.device(device)
+        if (device, dtype) not in self._steps:
             geom = (self._plan.raw_nb_samples, self._plan.raw_pretrigger)
-            self._steps[dtype] = [GroupStep(g, self._fs, geom, self._device,
-                                            dtype)
-                                  for g in self._plan.groups]
-        return self._steps[dtype]
+            self._steps[(device, dtype)] = [
+                GroupStep(g, self._fs, geom, device, dtype)
+                for g in self._plan.groups]
+        return self._steps[(device, dtype)]
 
     # -- rows and reads ----------------------------------------------------
     def _read_channel_rows(self):
@@ -302,11 +312,12 @@ class FeatureProcessing:
         ``nb_events_per_dump`` or ``memory_limit`` say otherwise) with a
         job summary beside it; ``resume`` then skips the rows the newest
         dump series there already holds and continues its series and
-        numbering (the returned table holds the new rows only)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh is not ported yet (ROADMAP.md §1 item 7): run one "
-                "process per GPU on its own files")
+        numbering (the returned table holds the new rows only). ``mesh``:
+        a ``parallel/mesh.Mesh`` of this process's devices of the shell's
+        type; each batch's rows are split over its shards."""
+        devices = ([self._device] if mesh is None
+                   else check_mesh(mesh, self._device,
+                                   processes=False).devices)
         t_start = time.time()
         trigger_mode = self._trigger_table is not None
         if nreaders > 1 and not trigger_mode and (nevents >= 0 or resume):
@@ -317,7 +328,7 @@ class FeatureProcessing:
         if dtype not in (np.float32, np.float64):
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
         torch_dtype = torch.float64 if dtype == np.float64 else torch.float32
-        steps = self.group_steps(torch_dtype)
+        steps = {d: self.group_steps(torch_dtype, d) for d in devices}
         on_cuda = self._device.type == "cuda"
         out_series = series_name or create_series_name(self._facility)
         skip = dump0 = 0
@@ -405,36 +416,52 @@ class FeatureProcessing:
                 if raw_mode:
                     conv = np.stack([conv32[int(f)]
                                      for f in self._index.file[chunk[0]]])
-                x, copied = uploader.upload(host_t[:nb], conv)
+                shards = [(d, lo, hi) for d, (lo, hi) in
+                          zip(devices, bounds(nb, len(devices)))
+                          if hi > lo]            # an empty shard is skipped
+                xs, copies = [], []
+                for d, lo, hi in shards:
+                    x, copied = uploader.upload(
+                        host_t[lo:hi], None if conv is None else conv[lo:hi],
+                        device=d)
+                    xs.append(x)
+                    copies.append(copied)
                 if on_cuda:
-                    compute = torch.cuda.current_stream(self._device)
-                    ring.release(buf, copied)
+                    ring.release(buf, copies)
                 self.stats["upload_bytes"] = uploader.bytes
                 self.stats["upload_samples"] = uploader.samples
-                if device_inject is not None:
-                    device_inject.inject(
-                        x, self._series[self._index.file[chunk[0]]],
-                        self._index.event_number[chunk[0]],
-                        window_starts=chunk[1], channels=self._read_names)
-                feats = {}
-                for step in steps:
-                    feats.update(step(x))
-                keys = list(feats)
-                packed = (torch.stack([feats[k].to(torch_dtype)
-                                       for k in keys]) if keys else
-                          torch.empty((0, nb), dtype=torch_dtype))
-                done = None
-                if on_cuda:
-                    out = torch.empty(packed.shape, dtype=packed.dtype,
-                                      pin_memory=True)
-                    out.copy_(packed, non_blocking=True)
-                    done = torch.cuda.Event(blocking=True)
-                    done.record(compute)
-                else:
-                    out = packed
+                parts = []
+                for x, (d, lo, hi) in zip(xs, shards):
+                    rows = chunk[0][lo:hi]
+                    if device_inject is not None:
+                        device_inject.inject(
+                            x, self._series[self._index.file[rows]],
+                            self._index.event_number[rows],
+                            window_starts=(None if chunk[1] is None
+                                           else chunk[1][lo:hi]),
+                            channels=self._read_names)
+                    feats = {}
+                    for step in steps[d]:
+                        feats.update(step(x))
+                    keys = list(feats)
+                    packed = (torch.stack([feats[k].to(torch_dtype)
+                                           for k in keys]) if keys else
+                              torch.empty((0, hi - lo), dtype=torch_dtype))
+                    done = None
+                    if on_cuda:
+                        out = torch.empty(packed.shape, dtype=packed.dtype,
+                                          pin_memory=True)
+                        out.copy_(packed, non_blocking=True)
+                        done = torch.cuda.Event(blocking=True)
+                        done.record(torch.cuda.current_stream(d))
+                    else:
+                        out = packed
+                    parts.append((out, done))
+                    del feats, packed
+                if not on_cuda:
                     ring.release(buf)
-                del x, feats, packed
-                inflight.append((keys, out, done, chunk, nb))
+                del xs, x
+                inflight.append((keys, parts, chunk, nb))
                 self.stats["batches"] += 1
                 if timer is not None:
                     timer.add_seconds("dispatch",
@@ -501,10 +528,12 @@ class FeatureProcessing:
     # -- drain -------------------------------------------------------------
     def _emit(self, entry, state, lgc_save, output_path, output_format,
               out_series, group_name, dump_size, memory_limit):
-        keys, out, done, chunk, nb = entry
-        if done is not None:
-            done.synchronize()
-        arr = out.numpy().astype(np.float64)
+        keys, parts, chunk, nb = entry
+        for _, done in parts:
+            if done is not None:
+                done.synchronize()
+        arr = np.concatenate([out.numpy() for out, _ in parts],
+                             axis=1).astype(np.float64)
         frame = self._admin_columns(chunk[0], chunk[2])
         frame.update({k: arr[i][:nb] for i, k in enumerate(keys)})
         self.stats["events"] += nb

@@ -15,10 +15,14 @@ windows, each channel's cut mask and its spectra; the CSD averages the
 windows that every channel keeps. Compound channels (``a+b``, ``a-b``)
 are the weighted sums of ``utils/channels.channel_combination_weights``.
 
-The JAX class's complex-transfer workaround and ``jaxcache`` are TPU
-matters and are not ported; ``mesh=`` (the multi-chip mean) raises
-``NotImplementedError`` until ROADMAP §1 item 7. ``device=None`` means
-the GPU (``device.require_cuda``).
+With ``mesh=`` (a ``parallel/mesh.Mesh``, over one process or several)
+the kept windows are split over the shards (unevenly where they do not
+divide), each shard takes its spectra on its device and the mean reduces
+with one psum (``parallel/mesh.sharded_psd``/``sharded_csd``; JAX
+``_mesh_mean_spectrum`` :107, which pads with zero rows instead). The
+JAX class's complex-transfer workaround and ``jaxcache`` are TPU matters
+and are not ported. ``device=None`` means the GPU
+(``device.require_cuda``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from detprocess_tpu_torch.io.filterdata import FilterData
 from detprocess_tpu_torch.io.rawdata import RawIndex
 from detprocess_tpu_torch.ops import autocuts as cuts
 from detprocess_tpu_torch.ops import spectral
+from detprocess_tpu_torch.parallel import mesh as pmesh
+from detprocess_tpu_torch.parallel.collectives import check_mesh
 from detprocess_tpu_torch.pipelines.randoms import Randoms
 from detprocess_tpu_torch.utils import channels as chutils
 
@@ -187,10 +193,10 @@ class Noise(FilterData):
                  window: Optional[str] = None, dtype=None, mesh=None,
                  timer=None):
         """Each channel's two-sided PSD of the kept randoms, stored as
-        ``psd_{tag}``, and its offset."""
+        ``psd_{tag}``, and its offset. ``mesh``: the kept randoms are
+        split over its shards and the mean reduces with one psum."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the multi-GPU spectral mean is ROADMAP §1 item 7")
+            check_mesh(mesh, self._device)
         if isinstance(channels, str):
             channels = [channels]
         stage = timer.stage if timer is not None else (
@@ -233,10 +239,15 @@ class Noise(FilterData):
             with stage("offsets"):
                 self._offset[chan] = median_offset(tr[kept])
             self._fs = fs
-            spectra, scale = self._spectrum(win, chan, tr, window, stage)
-            with stage("spectra"):
-                psd = spectral.mean_psd(spectra[kept], n, fs, scale)
-                psd = psd.cpu().numpy()
+            if mesh is None:
+                spectra, scale = self._spectrum(win, chan, tr, window, stage)
+                with stage("spectra"):
+                    psd = spectral.mean_psd(spectra[kept], n, fs, scale)
+            else:
+                with stage("spectra"):
+                    psd = pmesh.sharded_psd(mesh, fs, window)(
+                        pmesh.shard_batch(mesh, tr[kept]))
+            psd = psd.cpu().numpy()
             self.stats["kept"][chan] = nkept
             self.stats["passes"][chan] = passes
             self.set_psd(chan, psd, fs, tag=tag, metadata={
@@ -253,10 +264,10 @@ class Noise(FilterData):
                  window: Optional[str] = None, dtype=None, mesh=None,
                  timer=None):
         """The CSD [C, C, N] of ``channels`` over the randoms every
-        channel keeps, stored under ``'c1|c2|…'``."""
+        channel keeps, stored under ``'c1|c2|…'``. ``mesh``: those randoms
+        are split over its shards and the mean reduces with one psum."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the multi-GPU spectral mean is ROADMAP §1 item 7")
+            check_mesh(mesh, self._device)
         stage = timer.stage if timer is not None else (
             lambda name: nullcontext())
         channels = list(channels)
@@ -275,14 +286,20 @@ class Noise(FilterData):
                 f"autocuts rejected all {len(mask)} randoms for CSD "
                 f"estimation (nsigma_cut={nsigma_cut})")
         self._fs = fs
-        spectra = []
-        for c, chan in enumerate(channels):
-            x, scale = self._spectrum(win, chan, win.traces[:, c], window,
-                                      stage)
-            spectra.append(x[kept])
-        with stage("spectra"):
-            csd = spectral.mean_csd(torch.stack(spectra, dim=1), n, fs,
-                                    scale).cpu().numpy()
+        if mesh is None:
+            spectra = []
+            for c, chan in enumerate(channels):
+                x, scale = self._spectrum(win, chan, win.traces[:, c],
+                                          window, stage)
+                spectra.append(x[kept])
+            with stage("spectra"):
+                csd = spectral.mean_csd(torch.stack(spectra, dim=1), n, fs,
+                                        scale)
+        else:
+            with stage("spectra"):
+                csd = pmesh.sharded_csd(mesh, fs, window)(
+                    pmesh.shard_batch(mesh, win.traces[kept]))
+        csd = csd.cpu().numpy()
         self.stats["kept"]["|".join(channels)] = len(kept)
         self.set_csd(channels, csd, fs, tag=tag, metadata={
             "nb_randoms": len(kept),

@@ -48,8 +48,19 @@ JAX :429): a channel's merge window becomes a function of its groups'
 running maximum Δχ², merged on the device by
 ``ops/trigger.find_triggers_dynamic_batched`` in both passes.
 
+The mesh (``process(mesh=...)``, a ``parallel/mesh.Mesh`` of this
+process's devices; JAX :720-731, :1496-1520): each batch is split over
+the shards by events (unevenly where it does not divide; an empty shard
+is skipped, where JAX repeats the last event to pad), each shard's rows
+of the pinned buffer go to their own device on that device's side
+stream, and the buffer is read into again only after every shard's copy
+has finished. Each shard runs its channels' own :class:`TriggerStep`
+(one a channel and device), the device injector's plan for its events,
+and packs its sets with one copy to the host; the drain sees the batch in
+event order, as without a mesh.
+
 ``device=None`` means the GPU (``device.require_cuda``); the CPU runs
-only when the caller passes ``"cpu"``. The mesh is refused by name.
+only when the caller passes ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ from detprocess_tpu_torch.io.upload import BufferRing, Uploader
 from detprocess_tpu_torch.ops import filterbank
 from detprocess_tpu_torch.ops import trigger as trig_ops
 from detprocess_tpu_torch.ops.saltinject import split_injector
+from detprocess_tpu_torch.parallel.collectives import bounds, check_mesh
 from detprocess_tpu_torch.pipelines.trigger_step import TriggerStep
 from detprocess_tpu_torch.utils import channels as chutils
 from detprocess_tpu_torch.utils.misc import create_series_name
@@ -850,16 +862,18 @@ class TriggerProcessing:
         raise ValueError(f"no trigger channel named {channel}")
 
     def trigger_steps(self, capacity: int = DEFAULT_CAPACITY,
-                      dtype=torch.float32) -> List[TriggerStep]:
-        """Each channel's :class:`TriggerStep` on the shell's device,
-        built once per capacity, dtype and dynamic settings (the key holds
-        the window function itself, so a later ``set_dynamic_threshold``
-        never reuses a step of an earlier one)."""
-        key = (capacity, dtype) + tuple(
+                      dtype=torch.float32, device=None) -> List[TriggerStep]:
+        """Each channel's :class:`TriggerStep` on ``device`` (default the
+        shell's; a mesh's shard device), built once per device, capacity,
+        dtype and dynamic settings (the key holds the window function
+        itself, so a later ``set_dynamic_threshold`` never reuses a step of
+        an earlier one)."""
+        device = self._device if device is None else torch.device(device)
+        key = (device, capacity, dtype) + tuple(
             (tc.dynamic_threshold_function, tc.dynamic_candidate_capacity,
              tc.dynamic_premerge_window) for tc in self._channels)
         if key not in self._steps:
-            self._steps[key] = [tc.step(capacity, self._device, dtype)
+            self._steps[key] = [tc.step(capacity, device, dtype)
                                 for tc in self._channels]
         return self._steps[key]
 
@@ -887,11 +901,13 @@ class TriggerProcessing:
         is written to ``output_path`` every ``nb_events_per_dump``
         continuous events (default: once, at the end) with a job summary
         beside it; ``resume`` skips the events up to the newest dump's
-        last (series, event) and continues its series and numbering."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh is not ported yet (ROADMAP.md §1 item 7): run one "
-                "process per GPU on its own files")
+        last (series, event) and continues its series and numbering.
+        ``mesh``: a ``parallel/mesh.Mesh`` of this process's devices of
+        the shell's type; each batch is split over its shards by events
+        (see the module docstring)."""
+        devices = ([self._device] if mesh is None
+                   else check_mesh(mesh, self._device,
+                                   processes=False).devices)
         if nreaders > 1 and (nevents >= 0 or resume):
             raise ValueError("nreaders > 1 requires processing all "
                              "events (nevents=-1) without resume")
@@ -913,7 +929,8 @@ class TriggerProcessing:
             # un-truncated, as the EventBuilder compares it
             merge_window = coincident_window_samples
 
-        steps = self.trigger_steps(capacity, torch_dtype)
+        steps = {d: self.trigger_steps(capacity, torch_dtype, d)
+                 for d in devices}
         stage = (timer.stage if timer is not None
                  else (lambda name: nullcontext()))
         out_series = series_name or create_series_name(self._facility)
@@ -936,9 +953,9 @@ class TriggerProcessing:
         needed = sorted({i for tc in self._channels for i in tc.chan_indices})
         read_channels = [self._available_channels[i] for i in needed]
         remap = {orig: pos for pos, orig in enumerate(needed)}
-        gathers = [torch.as_tensor([remap[i] for i in tc.chan_indices],
-                                   device=self._device)
-                   for tc in self._channels]
+        gathers = {d: [torch.as_tensor([remap[i] for i in tc.chan_indices],
+                                       device=d)
+                       for tc in self._channels] for d in devices}
 
         on_cuda = self._device.type == "cuda"
         nb = int(self._index.get_metadata()["nb_samples"])
@@ -970,7 +987,7 @@ class TriggerProcessing:
             nonlocal events_done
             admins, packed = entry
             with stage("drain"):
-                sets = _sets_to_host(packed)
+                sets = _merge_shards([_sets_to_host(p) for p in packed])
                 table = drain_batch(self._channels, sets, admins, nb,
                                     self._fs, state, merge_window,
                                     self._processing_id)
@@ -1014,22 +1031,29 @@ class TriggerProcessing:
                     host_t, host_a = ring.acquire()
                     for i, tr in enumerate(traces_list):
                         host_a[i] = tr
-                    x, copied = uploader.upload(
-                        host_t[:len(traces_list)],
-                        np.stack(convs).astype(dtype) if convs else None,
-                        torch_dtype)
-                    if device_inject is not None:
-                        device_inject.inject(
-                            x, [a["series_number"] for a in admins],
-                            [a["event_number"] for a in admins],
-                            channels=read_channels)
-                    batch_sets = {tc.name: step(x.index_select(1, g))
-                                  for tc, step, g in zip(self._channels,
-                                                         steps, gathers)}
-                    ring.release((host_t, host_a), copied)
-                    inflight.append((admins, _pack_sets(batch_sets,
-                                                        torch_dtype)))
-                    del x, batch_sets
+                    conv = np.stack(convs).astype(dtype) if convs else None
+                    packed, copies = [], []
+                    for d, (lo, hi) in zip(devices, bounds(len(traces_list),
+                                                           len(devices))):
+                        if hi == lo:
+                            continue              # an empty shard
+                        x, copied = uploader.upload(
+                            host_t[lo:hi], None if conv is None
+                            else conv[lo:hi], torch_dtype, device=d)
+                        if device_inject is not None:
+                            device_inject.inject(
+                                x, [a["series_number"] for a in admins[lo:hi]],
+                                [a["event_number"] for a in admins[lo:hi]],
+                                channels=read_channels)
+                        batch_sets = {tc.name: step(x.index_select(1, g))
+                                      for tc, step, g in zip(
+                                          self._channels, steps[d],
+                                          gathers[d])}
+                        packed.append(_pack_sets(batch_sets, torch_dtype))
+                        copies.append(copied)
+                        del x, batch_sets
+                    ring.release((host_t, host_a), copies)
+                    inflight.append((admins, packed))
                 self.stats["batches"] += 1
                 while len(inflight) > max(pipeline_depth, 0):
                     drain(inflight.pop(0))
@@ -1155,6 +1179,24 @@ def _pack_sets(batch_sets: dict, dtype: torch.dtype):
     done = torch.cuda.Event(blocking=True)
     done.record(torch.cuda.current_stream(ibuf.device))
     return host[0], host[1], layout, done
+
+
+def _merge_shards(shard_sets: List[dict]) -> dict:
+    """One batch's host trigger sets from its shards' (each {name: (set,
+    set or None)} over its events), concatenated along the events in shard
+    order."""
+    if len(shard_sets) == 1:
+        return shard_sets[0]
+
+    def cat(sets):
+        if sets[0] is None:
+            return None
+        return trig_ops.TriggerSet(*(
+            None if f is None else np.concatenate([s[i] for s in sets])
+            for i, f in enumerate(sets[0])))
+    return {name: tuple(cat([ss[name][k] for ss in shard_sets])
+                        for k in range(2))
+            for name in shard_sets[0]}
 
 
 def _sets_to_host(packed) -> dict:

@@ -334,18 +334,37 @@ def test_refusals_match(group, tmp_path, capsys, case):
 
 
 def test_mesh_devices_refused_naming_item_7(group, tmp_path, capsys):
+    """--mesh-devices, once refused naming ROADMAP §1 item 7, runs the
+    trigger and feature chain on a mesh: the port on 2 virtual CPU shards
+    writes the JAX CLI's files and tables (its 8-device mesh), at the
+    tolerances of every chain here; one device is no mesh."""
+    common = ["--raw_path", group["raw"], "--processing_setup",
+              group["setup"], "--output-series-name", OUT_SERIES, "--quiet",
+              "--enable-trig", "--enable-feature"]
+    outs = run_both(capsys, common + ["--mesh-devices", "8"],
+                    common + ["--mesh-devices", "2"], str(tmp_path))
+    compare_outputs(outs, SUBS["trigger_feature"])
+    assert cli.main(common + ["--mesh-devices", "1", "--device", "cpu",
+                              "--output_group_path",
+                              str(tmp_path / "one")]) == 0
+
+
+def test_mesh_devices_overasked_is_refused(group, tmp_path, capsys,
+                                           monkeypatch):
+    """More CUDA devices than exist: rc 1 and an ERROR naming the count,
+    before any work (JAX make_mesh's refusal)."""
+    monkeypatch.setattr(cli, "resolve_device",
+                        lambda name: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     rc = cli.main(["--raw_path", group["raw"], "--processing_setup",
                    group["setup"], "--enable-trig", "--mesh-devices", "2",
-                   "--device", "cpu", "--output_group_path",
-                   str(tmp_path / "o")])
+                   "--output_group_path", str(tmp_path / "o")])
     assert rc == 1
-    assert "ROADMAP.md §1 item 7" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "ERROR: --mesh-devices 2: requested a 2-device mesh but only 1 " \
+           "CUDA device(s) are available" in out
     assert not os.path.exists(tmp_path / "o")
-    # one device is no mesh: the run goes on
-    assert cli.main(["--raw_path", group["raw"], "--processing_setup",
-                     group["setup"], "--enable-trig", "--mesh-devices", "1",
-                     "--device", "cpu", "--quiet", "--output_group_path",
-                     str(tmp_path / "o")]) == 0
 
 
 def test_prewarm_saves_nothing(group, tmp_path, capsys, monkeypatch):

@@ -287,8 +287,8 @@ def test_salted_trigger_resume_gives_the_uncut_table(data, tmp_path):
 
 
 @pytest.mark.parametrize("what,error,match", [
-    ("feature mesh", NotImplementedError, "item 7"),
-    ("trigger mesh", NotImplementedError, "item 7"),
+    ("feature mesh", TypeError, "parallel.mesh.Mesh"),
+    ("trigger mesh", TypeError, "parallel.mesh.Mesh"),
     ("trigger dynamic unknown channel", ValueError,
      "no trigger channel named"),
     ("feature readers with resume", ValueError, "without resume"),

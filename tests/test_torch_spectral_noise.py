@@ -228,9 +228,9 @@ def test_noise_set_randoms_and_refusals(noise_files):
     jn.calc_psd("chan2", trace_length_samples=512)
     _assert_stored_equal(other, jn, "chan2", "psd_default")
     assert other.get_offset("chan1") is None
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         other.calc_psd("chan1", trace_length_samples=512, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         other.calc_csd(CHANNELS, trace_length_samples=512, mesh=object())
     other.clear_randoms()
     assert other.get_sample_rate() is None

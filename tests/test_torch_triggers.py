@@ -271,7 +271,7 @@ def test_refusals_and_device(coinc, tmp_path):
     assert split_injector(shell._injector) == (None, device)
     with pytest.raises(ValueError, match="no trigger channel named"):
         shell.set_dynamic_threshold("chan9", lambda m: 100.0)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         shell.process(mesh=object())
     with pytest.raises(ValueError, match="nreaders"):
         shell.process(nreaders=2, nevents=1)
