@@ -311,6 +311,27 @@ o. the mesh (parallel/mesh.py): a mesh of 4 virtual shards on the card
    (h)'s continuous events/s and the host dispatch ms a batch with and
    without the mesh, the busy share of one meshed batch, and the long
    trace's Msamples/s sharded and unsharded.
+p. the last of the API: (g)'s 8192 events in 4 flat dumps through
+   FeatureProcessing, its configuration given as a YamlConfig over a JSON
+   setup, with the of1x1 fits on every channel and, through
+   ``external_file``, examples/processing/custom_extractor_torch.py's
+   pulse_shape on every channel; and the same without the extractor. It
+   fails unless rfft and fused_nodelay_of each launch 5 times a batch
+   with cuFFT at 0, every column is finite, (g)'s physics holds, the
+   extractor's columns of the first batch agree with pulse_shape on the
+   float64 CPU copy of the same traces within 1e-6 of each column's
+   largest |value|, every column of the run without the extractor equals
+   the run with it (0.0), and ``lgc_output=False`` returns None with
+   dumps that equal the returned table. Then the full-spectrum
+   of1x1_nodelay, of1x1_withdelay and time_resolution (ops/of1x1, full
+   complex FFT) on (d)'s first batch [8192, 32768] against the half-
+   spectrum fits: amplitudes within 1e-6, t0 in the same sample (or one
+   sample apart where the two delays' Δχ² tie within 1e-5 in the half
+   spectrum's scan, a float32 tie of the argmax), χ² within (d)'s 5e-3,
+   lowchi2 within 2e-2 (the ties excepted), σ_t0 within 1e-5. It prints
+   events/s with and without the extractor (second calls), the
+   extractor's CUDA-event ms a batch and its share of the batch's layers,
+   and the phase's seconds.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
@@ -331,7 +352,8 @@ cli_a, cli_b, cli_c: phase n's three command-line calls;
 mesh_trigger_static, mesh_trigger_dynamic, mesh_trigger_salted,
 mesh_chain, mesh_longtrace_w125, mesh_longtrace_w3, mesh_spectra: phase
 o's first mesh run of each on the virtual shards, with a _cards suffix on
-all the cards), whose sum is
+all the cards; api_rest: phase p's first call with the extractor), whose
+sum is
 ``launches``, and the SM clocks of its phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
@@ -394,7 +416,10 @@ from detprocess_tpu_torch.pipelines.ivsweep import (  # noqa: E402
     IVSweepProcessing)
 from detprocess_tpu_torch.pipelines.template import FilterBuilder  # noqa: E402
 from detprocess_tpu_torch import cli  # noqa: E402
-from detprocess_tpu_torch.config.yamlconfig import load_yaml  # noqa: E402
+from detprocess_tpu_torch.config.yamlconfig import (  # noqa: E402
+    YamlConfig, load_yaml, write_json_setup)
+from detprocess_tpu_torch.pipelines.feature_plan import (  # noqa: E402
+    load_external_extractors)
 from detprocess_tpu_torch.io import tables as table_io  # noqa: E402
 from detprocess_tpu_torch.io.filterdata import FilterData  # noqa: E402
 from detprocess_tpu_torch.pipelines.ivsweep import (  # noqa: E402
@@ -4849,6 +4874,249 @@ def _phase_o(device, card, errs, tmp):
     return launches
 
 
+P_EXTRACTOR = os.path.join(ROOT, "examples", "processing",
+                           "custom_extractor_torch.py")
+P_EXT_TOL = 1e-6         # extractor vs float64: of the column's max |value|
+P_FULL_AMP_RTOL = 1e-6   # full-spectrum fits against the half spectrum
+P_TRES_RTOL = 1e-5       # σ_t0: a float32 sum over N bins against N/2+1
+P_TIE_RTOL = 1e-5        # Δχ² of two delays this close: a float32 tie
+P_FEATURES = ("amp", "chi2", "lowchi2", "t0", "chi2nopulse", "ampres",
+              "timeres", "baseline", "integral", "maximum", "minimum",
+              "peak", "tail")
+
+
+def p_config(extractor: bool) -> dict:
+    """(g)'s configuration, with pulse_shape on every channel through
+    ``external_file`` where ``extractor``."""
+    cfg = tentry.shell_config()
+    if extractor:
+        feat = cfg["feature"]
+        feat[",".join(tentry.SHELL_CHANNELS)]["pulse_shape"] = {"run": True}
+        feat["external_file"] = P_EXTRACTOR
+    return cfg
+
+
+def phase_p(device, card, errs):
+    """The last of the JAX API: external extractors, YamlConfig and
+    lgc_output through FeatureProcessing, and the full-spectrum fits;
+    returns the kernels' launches on the shell's path."""
+    tmp = tempfile.mkdtemp(prefix="detprocess_smoke_")
+    try:
+        return _phase_p(device, card, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_p(device, card, errs, tmp):
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    paths, amps, shifts = tentry.write_shell_dumps(
+        tmp, gen, SHELL_EVENTS, SHELL_FILES, device)
+    index = tentry.shell_index(paths)
+    shells = {}
+    for name, extractor in (("with", True), ("without", False)):
+        setup = write_json_setup(p_config(extractor),
+                                 os.path.join(tmp, f"{name}.json"))
+        shells[name] = FeatureProcessing(
+            index, YamlConfig(setup, tentry.SHELL_CHANNELS, sample_rate=FS),
+            tentry.shell_filter_data(), verbose=False, device=device)
+    kw = dict(batch_size=SHELL_BATCH, nreaders=SHELL_READERS)
+    nbatch = -(-SHELL_EVENTS // SHELL_BATCH)
+
+    _kernels.reset_launch_counts()
+    table, _, _ = run_shell(shells["with"], "with the extractor, first call",
+                            card, phase="p", **kw)
+    launches = _kernels.launch_counts()
+    check_shell_launches(launches, _kernels.library_counts(), nbatch,
+                         "with the extractor", phase="p")
+    ext_cols = [f"{k}_{c}" for c in tentry.SHELL_CHANNELS
+                for k in ("peak_over_area", "tail_fraction")]
+    for key, v in table.items():
+        if len(v) != SHELL_EVENTS:
+            raise RuntimeError(f"column {key}: {len(v)} rows")
+        if key.split("_")[0] in P_FEATURES and not np.isfinite(v).all():
+            raise RuntimeError(f"column {key} is not finite")
+    shell_physics(table, amps, shifts, phase="p",
+                  per_file=SHELL_EVENTS // SHELL_FILES)
+
+    plain, _, _ = run_shell(shells["without"], "without the extractor, "
+                            "first call", card, phase="p", **kw)
+    if sorted(set(table) - set(plain)) != sorted(ext_cols):
+        raise RuntimeError(f"extractor columns "
+                           f"{sorted(set(table) ^ set(plain))}, expected "
+                           f"{ext_cols}")
+    worst = 0.0
+    for key, v in plain.items():
+        if v.dtype.kind == "f":
+            worst = max(worst, float(np.abs(table[key] - v).max()))
+        elif not np.array_equal(table[key], v):
+            raise RuntimeError(f"column {key} differs without the extractor")
+    log(f"[p] every column without the extractor against the run with it: "
+        f"max|Δ| {worst!r}")
+    if worst != 0.0:
+        raise RuntimeError("the extractor changed the other columns")
+
+    # the extractor's columns of the first batch against float64 on the CPU
+    rows = index.order[:SHELL_BATCH]
+    reader = RawReader(index)
+    raw64 = np.stack([reader.read_row(int(r))[0] for r in rows])
+    reader.close()
+    fn = load_external_extractors(P_EXTRACTOR)["pulse_shape"]
+    ext_err = {}
+    for c, chan in enumerate(tentry.SHELL_CHANNELS):
+        ref = fn(torch.as_tensor(raw64[:, c]), fs=FS,
+                 nb_pretrigger_samples=tentry.SHELL_PRETRIG)
+        for k, r in ref.items():
+            r = r.numpy()
+            err = float(np.abs(table[f"{k}_{chan}"][:SHELL_BATCH] - r).max()
+                        / np.abs(r).max())
+            ext_err[f"{k}_{chan}"] = err
+    log(f"[p] extractor columns of the first {SHELL_BATCH} events against "
+        f"pulse_shape on their float64 CPU copy, max|Δ|/max|ref|: "
+        + "; ".join(f"{k} {v:.3e}" for k, v in ext_err.items())
+        + f" (tol {P_EXT_TOL:g})")
+    if not max(ext_err.values()) <= P_EXT_TOL:
+        raise RuntimeError("the extractor's columns disagree with float64")
+    del raw64
+
+    _, with_s, _ = run_shell(shells["with"], "with the extractor, second "
+                             "call", card, phase="p", **kw)
+    _, without_s, _ = run_shell(shells["without"], "without the extractor, "
+                                "second call", card, phase="p", **kw)
+    log(f"[p] second calls: {SHELL_EVENTS / with_s:.1f} events/s with the "
+        f"extractor, {SHELL_EVENTS / without_s:.1f} without (host clock, "
+        f"process() call to returned columns); on {card}")
+
+    out = os.path.join(tmp, "out")
+    got = shells["with"].process(dtype=np.float32, lgc_save=True,
+                                 output_path=out, output_format="npz",
+                                 series_name=tentry.SHELL_SERIES,
+                                 lgc_output=False, **kw)
+    if got is not None:
+        raise RuntimeError("lgc_output=False returned a table")
+    dumps = sorted(os.path.join(out, f) for f in os.listdir(out)
+                   if f.endswith(".npz"))
+    written = table_io.concat_tables([table_io.read_table(f) for f in dumps])
+    if list(written) != list(table) or not all(
+            np.array_equal(written[k], table[k]) for k in table):
+        raise RuntimeError("lgc_output=False: the dumps differ from the "
+                           "returned table")
+    log(f"[p] lgc_output=False: None returned, {len(dumps)} dumps holding "
+        f"{len(written['event_number'])} rows equal to the table")
+
+    # the extractor's layers in one batch already on the card
+    block = SHELL_BATCH * len(tentry.SHELL_CHANNELS) * tentry.SHELL_N
+    codes = torch.as_tensor(np.fromfile(paths[0], np.int16, block).reshape(
+        SHELL_BATCH, len(tentry.SHELL_CHANNELS), tentry.SHELL_N)).to(device)
+    conv = torch.as_tensor(tentry.shell_conv(), dtype=torch.float32,
+                           device=device).expand(SHELL_BATCH, -1)
+    x = adc_convert(codes, conv)
+    (step,) = shells["with"].group_steps()
+    step(x)
+    layers, _ = trigger_layer_times(step, x)
+    total = sum(v[0] for v in layers.values())
+    ext_ms = sum(v[0] for k, v in layers.items()
+                 if k.startswith("pulse_shape:"))
+    ext_dev = sum(v[1] for k, v in layers.items()
+                  if k.startswith("pulse_shape:"))
+    log(f"[p] extractor: {ext_ms:.3f} ms a batch of {SHELL_BATCH} (CUDA "
+        f"events, 4 layers, card synchronised between layers; device "
+        f"{ext_dev:.3f} ms), {100 * ext_ms / total:.1f}% of the batch's "
+        f"{total:.3f} ms of layers; on {card}")
+    del codes, x
+
+    p_full_spectrum(device, card)
+    log(f"[p] phase seconds: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def p_full_spectrum(device, card):
+    """The full-spectrum fits of ops/of1x1 on (d)'s first batch against
+    the half-spectrum fits of the feature step."""
+    bank, template, _ = build_bank(N, PRETRIG, FS)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tmpl = torch.as_tensor(template, dtype=torch.float32, device=device)
+    psd_half = torch.as_tensor(bank.psd[0][:N // 2 + 1], dtype=torch.float32,
+                               device=device)
+    tr, _ = synth_batch(gen, torch.sqrt(psd_half * FS * N / 2.0), tmpl,
+                        BATCH, N)
+    tb = filterbank.bank_to_torch(bank, device, torch.float32)
+
+    def full(name, dtype):
+        return torch.as_tensor(getattr(bank, name), dtype=dtype,
+                               device=device)
+
+    phi, s_fft = full("phi", torch.complex64), full("s_fft", torch.complex64)
+    dinv, norm = full("denom_inv", torch.float32), full("norm", torch.float32)
+    low = of1x1.lowfreq_mask(N, FS, LOW_FCUT)
+    low_h = of1x1.lowfreq_mask_half(N, FS, LOW_FCUT)
+    t = time.perf_counter()
+    vfft = of1x1.signal_fft(tr)[:, None, :]
+    got = {"nodelay": of1x1.of1x1_nodelay(vfft, phi, norm, dinv, s_fft,
+                                          low_mask=low),
+           "withdelay": of1x1.of1x1_withdelay(vfft, phi, norm, dinv, s_fft,
+                                              PRETRIG, FS, low_mask=low)}
+    torch.cuda.synchronize(device)
+    full_s = time.perf_counter() - t
+    del vfft
+    vr = fft.rfft(tr)[:, None, :]
+    half = (tb["phi_h"], tb["norm"], tb["denom_inv_h"], tb["s_fft_h"],
+            tb["bin_w"])
+    ref = {"nodelay": of1x1.of1x1_nodelay_half(vr, *half, low_h, N),
+           "withdelay": of1x1.of1x1_withdelay_half(
+               vr, *half, PRETRIG, FS, low_mask_h=low_h, n=N)}
+    for name in got:
+        g, r = got[name], ref[name]
+        amp = rel_err(g.amp, r.amp)
+        chi2 = rel_err(g.chi2, r.chi2)
+        # t0 is the argmax of Δχ² over whole samples: where the float32
+        # Δχ² of two neighbouring delays ties, the two sums may pick
+        # either; such an event must be a tie in the half-spectrum series
+        shift = ((g.t0 - r.t0) * FS).round()[:, 0]
+        ties = torch.nonzero(shift != 0)[:, 0]
+        gap = p_tie_gaps(vr[ties], tb, g.t0[ties, 0], r.t0[ties, 0])
+        keep = shift == 0
+        lowchi2 = rel_err(g.lowchi2[keep], r.lowchi2[keep])
+        log(f"[p] full-spectrum {name} on (d)'s batch [{BATCH}, {N}] against "
+            f"the half spectrum: amp rel {amp:.3e} (tol {P_FULL_AMP_RTOL:g}), "
+            f"t0 the same sample in {int(keep.sum())} events and one sample "
+            f"apart in {len(ties)}, each a tie of Δχ² (largest gap "
+            f"{max(gap, default=0.0):.3e} of Δχ², tol {P_TIE_RTOL:g}), "
+            f"χ² rel {chi2:.3e} (tol {CHI2_RTOL:g}), lowchi2 rel "
+            f"{lowchi2:.3e} "
+            f"(tol {REF_RTOL['lowchi2']:g}; the ties' own shifts excepted)")
+        if not (amp <= P_FULL_AMP_RTOL and chi2 <= CHI2_RTOL
+                and lowchi2 <= REF_RTOL["lowchi2"]
+                and bool((shift.abs() <= 1).all())
+                and all(x <= P_TIE_RTOL for x in gap)):
+            raise RuntimeError(f"full-spectrum {name} disagrees with the "
+                               "half spectrum")
+    amp = ref["withdelay"].amp[:, 0]
+    tres = of1x1.time_resolution(amp, s_fft[0], dinv[0], FS)
+    tres_h = of1x1.time_resolution_half(amp, tb["s_fft_h"][0],
+                                        tb["denom_inv_h"][0], tb["bin_w"], N,
+                                        FS)
+    terr = rel_err(tres, tres_h)
+    log(f"[p] full-spectrum time_resolution: rel {terr:.3e} against the half "
+        f"spectrum (tol {P_TRES_RTOL:g}); both full-spectrum fits "
+        f"{1e3 * full_s:.1f} ms on the host clock; on {card}")
+    if not (terr <= P_TRES_RTOL and bool(torch.isfinite(tres).all())):
+        raise RuntimeError("full-spectrum time_resolution disagrees")
+
+
+def p_tie_gaps(vr, tb, t0_a, t0_b):
+    """|Δχ²(a) − Δχ²(b)| / Δχ²(b) in the half-spectrum delay scan of the
+    events ``vr`` [E, 1, N/2+1] at their two picks' t0 (seconds)."""
+    if not len(vr):
+        return []
+    q = torch.roll(fft.irfft(tb["phi_h"] * vr, N) * N, PRETRIG, dims=-1)
+    dchi2 = (q * q / tb["norm"][..., None])[:, 0].double()
+    rows = torch.arange(len(vr), device=vr.device)
+    pos = [(t * FS).round().long() + PRETRIG for t in (t0_a, t0_b)]
+    a, b = dchi2[rows, pos[0]], dchi2[rows, pos[1]]
+    return ((a - b).abs() / b.abs()).tolist()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=os.path.abspath, default=None,
@@ -4876,6 +5144,7 @@ def main(argv=None):
     sweep_launches = phase_m(device, card, errs)
     cli_launches = phase_n(device, card, errs)
     mesh_launches = phase_o(device, card, errs)
+    api_launches = phase_p(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
@@ -4895,7 +5164,8 @@ def main(argv=None):
                     **{path: counts[name]
                        for path, counts in cli_launches.items()},
                     **{path: counts[name]
-                       for path, counts in mesh_launches.items()}}
+                       for path, counts in mesh_launches.items()},
+                    "api_rest": api_launches[name]}
         rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",

@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of detprocess_tpu for NVIDIA Hopper GPUs.
 
-Ported so far:
+What is ported:
 
 - the of1x1 feature step
   (:class:`detprocess_tpu_torch.pipelines.feature_step.FeatureStep`):
@@ -30,7 +30,12 @@ Ported so far:
   HDF5, YAML, HDF5 filter files and tables), which need h5py or PyYAML,
   it reads and writes forms of its own that numpy and ``json`` serve:
   flat raw groups with JSON manifests, JSON setups, ``.npz`` filter files
-  and tables.
+  and tables;
+- the rest of the JAX API: external feature extractors (torch functions,
+  ``pipelines/feature_group``), ``lgc_output``, ``YamlConfig``,
+  ``io/rawdata.RawWriter``, the full-spectrum optimal-filter and PSD
+  functions of ``ops/of1x1``, ``ops/ofnxm`` and ``ops/psdfeatures``, and
+  the helpers of ``utils`` and ``io/tables``.
 
 The two hand-written CUDA kernels (``csrc/``) are the batched real FFT
 (``ops/cuda_fft.py``, also the trigger FIR's segment transform) and the
@@ -59,14 +64,17 @@ _EXPORTS = {
     "FilterDataProcessing": "detprocess_tpu_torch.pipelines.filtergen",
     "FilterData": "detprocess_tpu_torch.io.filterdata",
     "RawData": "detprocess_tpu_torch.io.rawdata",
+    "YamlConfig": "detprocess_tpu_torch.config.yamlconfig",
 }
 
 
 def __getattr__(name):
-    """The user-facing classes, imported when first asked for (the JAX
-    package's top-level names)."""
+    """The user-facing classes and the ``cli`` module, imported when
+    first asked for (the JAX package's top-level names)."""
+    import importlib
     if name in _EXPORTS:
-        import importlib
         return getattr(importlib.import_module(_EXPORTS[name]), name)
+    if name == "cli":
+        return importlib.import_module("detprocess_tpu_torch.cli")
     raise AttributeError(
         f"module 'detprocess_tpu_torch' has no attribute {name!r}")

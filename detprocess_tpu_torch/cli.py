@@ -437,7 +437,7 @@ def main(argv=None) -> int:
         proc.process(nevents=args.nevents, batch_size=args.batch_size,
                      lgc_save=not args.prewarm, output_path=out_dir,
                      output_format=args.output_format,
-                     series_name=out_series, mesh=mesh,
+                     series_name=out_series, lgc_output=False, mesh=mesh,
                      nreaders=(nreaders if ttable is not None
                                or args.nevents < 0 else 1))
         print("INFO: features "

@@ -18,7 +18,12 @@ without yaml:
   imported inside the function: the core never needs it;
 - :func:`write_json_setup` writes a setup dict as JSON that PyYAML reads
   back as the same dict (a float keeps a decimal point, which YAML 1.1
-  needs to read ``1e-05`` as a number).
+  needs to read ``1e-05`` as a number);
+- :class:`YamlConfig` is the JAX class (:98) over :func:`load_yaml` and
+  :func:`normalize_config`, so a ``.json`` setup needs no PyYAML;
+  :func:`resolve_config` turns what a shell is given as ``config`` (a
+  :class:`YamlConfig`, a setup path or a setup dict) into the normalized
+  dict.
 """
 
 from __future__ import annotations
@@ -383,3 +388,46 @@ def _configure_salting(salting_config, global_config, available_channels):
         split_channel_list.extend(split_chans)
     salting_dict["channel_list"] = unique_list(split_channel_list)
     return salting_dict
+
+
+class YamlConfig:
+    """A processing setup file, normalized (JAX ``YamlConfig``):
+    ``get_config(processing_type)`` returns a deep copy of one section,
+    or of the whole config without a type."""
+
+    def __init__(self, yaml_file: str,
+                 available_channels: Sequence[str] | str,
+                 sample_rate: Optional[float] = None,
+                 verbose: bool = True):
+        self._yaml_file = yaml_file
+        self._sample_rate = sample_rate
+        if isinstance(available_channels, str):
+            available_channels = [available_channels]
+        self._available_channels = list(available_channels)
+        self._verbose = verbose
+        self._processing_config = normalize_config(
+            load_yaml(yaml_file), self._available_channels, sample_rate)
+
+    def get_config(self, processing_type: Optional[str] = None):
+        if processing_type is not None:
+            if processing_type not in CONFIGURATION_FIELDS:
+                raise ValueError(
+                    f'Configuration type "{processing_type}" not found')
+            return copy.deepcopy(self._processing_config[processing_type])
+        return copy.deepcopy(self._processing_config)
+
+    @property
+    def available_channels(self):
+        return list(self._available_channels)
+
+
+def resolve_config(config, available_channels: Sequence[str],
+                   sample_rate: Optional[float] = None) -> dict:
+    """The normalized config of a shell's ``config`` argument: a
+    :class:`YamlConfig` as it was normalized, a setup path or a loaded
+    setup dict normalized over ``available_channels``."""
+    if isinstance(config, YamlConfig):
+        return config.get_config()
+    if isinstance(config, str):
+        config = load_yaml(config)
+    return normalize_config(config, available_channels, sample_rate)

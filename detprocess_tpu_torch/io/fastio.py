@@ -12,13 +12,16 @@ preallocated buffer:
   caller's own (``out=``, e.g. a slot of a pinned upload buffer);
 - windowed and channel-subset reads are a few small positioned reads.
 
-Resolving a dataset in an HDF5 file to its offset is the job of the h5py
-adapter (``io/rawdata.py``); nothing here imports h5py.
+:func:`dataset_storage` and :meth:`FastReader.resolve` resolve an h5py
+dataset to its block (h5py's own module is imported only when they are
+called, with a dataset of an open file); ``io/rawdata.py`` indexes
+pytesdaq files with them.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import threading
 from typing import NamedTuple, Optional, Tuple
 
@@ -30,6 +33,32 @@ class FastDataset(NamedTuple):
     offset: int                     # absolute file offset of element 0
     shape: Tuple[int, ...]
     dtype: np.dtype                 # native-endian
+
+
+def dataset_storage(ds) -> Optional[Tuple[int, Tuple[int, ...], np.dtype]]:
+    """(offset, shape, native dtype) of an h5py dataset stored as one
+    contiguous, allocated, unfiltered, little-endian block of at most two
+    dimensions, else None."""
+    from h5py import h5d
+
+    try:
+        plist = ds.id.get_create_plist()
+        if plist.get_layout() != h5d.CONTIGUOUS:
+            return None
+        if plist.get_nfilters() != 0:
+            return None
+        offset = ds.id.get_offset()
+    except Exception:
+        return None
+    if offset is None:
+        return None                 # storage not allocated yet
+    dt = ds.dtype
+    if dt.kind not in "iuf" or dt.byteorder == ">" or (
+            dt.byteorder == "=" and sys.byteorder == "big"):
+        return None
+    if len(ds.shape) > 2:
+        return None
+    return int(offset), tuple(int(s) for s in ds.shape), dt.newbyteorder("=")
 
 
 class FastReader:
@@ -51,6 +80,18 @@ class FastReader:
         self._gen = 0                    # bumped by close()
         self._lock = threading.Lock()
         self._thread_caches: list = []   # [(weakref(thread), fds dict)]
+        self._entries: dict = {}         # (path, dataset) → entry or None
+
+    def resolve(self, path: str, ds) -> Optional[FastDataset]:
+        """The :class:`FastDataset` of the h5py dataset ``ds`` of the file
+        at ``path``, or None where :func:`dataset_storage` refuses it; each
+        (path, dataset name) is resolved once."""
+        key = (path, ds.name)
+        if key not in self._entries:
+            storage = dataset_storage(ds)
+            self._entries[key] = (None if storage is None
+                                  else FastDataset(path, *storage))
+        return self._entries[key]
 
     def _reap_dead_threads_locked(self) -> None:
         """Close the fds of exited threads (caller holds ``_lock``). Only

@@ -45,6 +45,9 @@ from typing import Optional
 
 import numpy as np
 
+from detprocess_tpu_torch.utils.freq import (  # noqa: F401
+    estimate_sampling_rate, fold_spectrum)
+
 
 def check_fs_consistent(fs_raw, metadata, what, channel, tag):
     """Raise if the sample rate stored with a filter item (``metadata``)
@@ -55,35 +58,6 @@ def check_fs_consistent(fs_raw, metadata, what, channel, tag):
             f"sample rate is not consistent between raw data "
             f"({float(fs_raw):g} Hz) and {what} ({float(got):g} Hz) "
             f"for channel {channel} (tag '{tag}')")
-
-
-def fold_spectrum(psd: np.ndarray, fs: float):
-    """Fold a two-sided PSD onto the non-negative frequencies (all bins
-    but DC, and Nyquist for even N, doubled): (freqs, folded)."""
-    psd = np.asarray(psd)
-    n = psd.shape[-1]
-    nfold = n // 2 + 1
-    folded = np.array(psd[..., :nfold], copy=True)
-    if n % 2 == 0:
-        folded[..., 1:-1] *= 2.0
-    else:
-        folded[..., 1:] *= 2.0
-    freqs = np.abs(np.fft.fftfreq(n, d=1.0 / fs)[:nfold])
-    return freqs, folded
-
-
-def estimate_sampling_rate(freq_array: np.ndarray) -> float:
-    """Sample rate from a one- or two-sided frequency axis."""
-    freq_sorted = np.unique(np.sort(np.asarray(freq_array)))
-    positive = freq_sorted[freq_sorted > 0]
-    if positive.size == 0:
-        raise ValueError("no positive frequencies; cannot infer sampling rate")
-    df = positive[0]
-    if freq_sorted[0] < 0:
-        n = len(freq_array)
-    else:
-        n = 2 * (len(freq_array) - 1)
-    return n * df
 
 
 class Table(dict):

@@ -42,6 +42,11 @@ index, in amps or, with ``adctoamp=False, dtype=None``, in the stored
 dtype with the conversion factors in ``admin["adc_conv"]``; its admin
 dicts carry the JAX reader's keys.
 
+:class:`RawWriter` (JAX :90-220) writes pytesdaq HDF5 dumps with the JAX
+writer's groups, datasets and attributes: int16 ADC codes with an
+``adc_conversion_factor``, float32 otherwise; h5py is imported when a dump
+is written.
+
 :class:`RawData` (JAX ``RawData`` :566) classifies the files of a raw
 group directory (pytesdaq ``.hdf5`` and flat ``.bin`` dumps) by their
 name's prefix and maps each data type to its series; its queries read a
@@ -54,15 +59,15 @@ import glob
 import json
 import os
 import re
-import sys
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from detprocess_tpu_torch.io.fastio import FastDataset, FastReader
-
-SERIES_RE = re.compile(r"I(\d+)_D(\d{8})_T(\d{6})")
+from detprocess_tpu_torch.io.fastio import (FastDataset, FastReader,
+                                            dataset_storage)
+from detprocess_tpu_torch.utils.channels import (SERIES_RE,
+                                                 series_name_to_number)
 
 FILE_STAMPS = ("fridge_run", "series_start_time", "group_start_time",
                "fridge_run_start_time")
@@ -89,8 +94,7 @@ def extract_series_name(filename: str) -> str:
 
 
 def series_to_number(series_name: str) -> int:
-    fac, day, tme = SERIES_RE.search(series_name).groups()
-    return int(fac) * 10**14 + int(day) * 10**6 + int(tme)
+    return series_name_to_number(series_name)
 
 
 def series_number_to_name(series_num: int) -> str:
@@ -427,23 +431,14 @@ def _file_admin(md: dict, path: str) -> dict:
 def _fast_dataset(ds, path: str) -> FastDataset:
     """The FastDataset of an h5py dataset, or a ValueError naming it when
     its storage is not contiguous, allocated, unfiltered and
-    little-endian (the copy of fastio's ``dataset_storage``)."""
-    from h5py import h5d
-
-    plist = ds.id.get_create_plist()
-    offset = ds.id.get_offset()
-    dt = ds.dtype
-    if (plist.get_layout() != h5d.CONTIGUOUS or plist.get_nfilters() != 0
-            or offset is None or dt.kind not in "iuf"
-            or dt.byteorder == ">"
-            or (dt.byteorder == "=" and sys.byteorder == "big")
-            or len(ds.shape) > 2):
+    little-endian (``fastio.dataset_storage``)."""
+    storage = dataset_storage(ds)
+    if storage is None:
         raise ValueError(
             f"raw file '{path}': dataset {ds.name} is not stored as a "
             "contiguous, unfiltered, little-endian block (chunked or "
             "compressed?); the pread reader cannot serve it")
-    return FastDataset(path, int(offset), tuple(int(s) for s in ds.shape),
-                       dt.newbyteorder("="))
+    return FastDataset(path, *storage)
 
 
 def write_flat_dump(path: str, stored: np.ndarray, append: bool = False):
@@ -526,6 +521,127 @@ def _json_value(v):
     return v
 
 
+class RawWriter:
+    """Write pytesdaq-format raw files: one HDF5 dump of events per
+    :meth:`write_dump` call (JAX ``RawWriter``)."""
+
+    def __init__(self, path: str, series_name: str, sample_rate: float,
+                 channels: Sequence[str], prefix: str = "cont",
+                 facility: int = 1, group_name: str = "group",
+                 data_type: str = "continuous", adc_name: str = "adc1",
+                 nb_pretrigger_samples: Optional[int] = None,
+                 detector_config: Optional[Dict[str, dict]] = None,
+                 fridge_run: Optional[int] = None,
+                 series_start_time: Optional[int] = None,
+                 group_start_time: Optional[int] = None,
+                 fridge_run_start_time: Optional[int] = None,
+                 adc_conversion_factor: Optional[float] = None):
+        self.path = path
+        self.series_name = series_name
+        self.sample_rate = float(sample_rate)
+        self.channels = list(channels)
+        self.prefix = prefix
+        self.facility = facility
+        self.group_name = group_name
+        self.data_type = data_type
+        self.adc_name = adc_name
+        self.nb_pretrigger_samples = nb_pretrigger_samples
+        self.detector_config = detector_config or {}
+        self.fridge_run = fridge_run
+        self.series_start_time = series_start_time
+        self.group_start_time = group_start_time
+        self.fridge_run_start_time = fridge_run_start_time
+        # with a factor (volts/bit), traces are stored as int16 codes
+        # rint(amps · close_loop_norm / cal), which readers turn back
+        # into amps · cal / close_loop_norm
+        self.adc_conversion_factor = adc_conversion_factor
+        os.makedirs(path, exist_ok=True)
+
+    def _close_loop_norms(self) -> np.ndarray:
+        return np.array([
+            float((self.detector_config.get(c) or {}).get(
+                "close_loop_norm", 1.0)) or 1.0
+            for c in self.channels])
+
+    def file_name(self, dump_num: int) -> str:
+        return os.path.join(
+            self.path,
+            f"{self.prefix}_{self.series_name}_F{dump_num:04d}.hdf5")
+
+    def write_dump(self, traces: np.ndarray, dump_num: int = 1,
+                   event_times: Optional[np.ndarray] = None,
+                   trigger_types: Optional[np.ndarray] = None,
+                   start_time: float = 0.0) -> str:
+        """Write ``traces`` [nb_events, C, N] (float amps) as dump
+        ``dump_num``; returns the file's path."""
+        import h5py
+
+        traces = np.asarray(traces)
+        nb_events, nchan, nsamp = traces.shape
+        if nchan != len(self.channels):
+            raise ValueError(
+                f"traces have {nchan} channels, writer configured with "
+                f"{len(self.channels)}")
+        cln = self._close_loop_norms()
+        if self.adc_conversion_factor is None:
+            # readers always return stored·cal/close_loop_norm, so float
+            # storage (cal = 1) holds amps·close_loop_norm
+            stored = (traces * cln[None, :, None]).astype(np.float32)
+        else:
+            conv = float(self.adc_conversion_factor) / cln
+            codes = np.rint(traces / conv[None, :, None])
+            if np.abs(codes).max(initial=0) > np.iinfo(np.int16).max:
+                raise ValueError(
+                    "int16 ADC overflow: max |code| "
+                    f"{np.abs(codes).max():.0f} > 32767 — raise "
+                    "adc_conversion_factor (volts/bit) or "
+                    "close_loop_norm")
+            stored = codes.astype(np.int16)
+        fname = self.file_name(dump_num)
+        with h5py.File(fname, "w") as f:
+            f.attrs["series_name"] = self.series_name
+            f.attrs["series_num"] = series_to_number(self.series_name)
+            f.attrs["dump_num"] = dump_num
+            f.attrs["facility"] = self.facility
+            f.attrs["data_type"] = self.data_type
+            f.attrs["data_purpose"] = self.data_type
+            f.attrs["group_name"] = self.group_name
+            f.attrs["daq_version"] = "detprocess_tpu"
+            for key in FILE_STAMPS:
+                val = getattr(self, key)
+                if val is not None:
+                    f.attrs[key] = int(val)
+            g = f.create_group(self.adc_name)
+            g.attrs["nb_events"] = nb_events
+            g.attrs["nb_samples"] = nsamp
+            g.attrs["nb_channels"] = nchan
+            g.attrs["sample_rate"] = self.sample_rate
+            if self.nb_pretrigger_samples is not None:
+                g.attrs["nb_pretrigger_samples"] = int(
+                    self.nb_pretrigger_samples)
+            g.attrs["channel_list"] = self.channels
+            g.attrs["adc_conversion_factor"] = (
+                1.0 if self.adc_conversion_factor is None
+                else float(self.adc_conversion_factor))
+            g.attrs["dataset_prefix"] = "event_"
+            for i in range(nb_events):
+                ds = g.create_dataset(f"event_{i + 1}", data=stored[i])
+                ds.attrs["event_id"] = i + 1
+                ds.attrs["event_num"] = i + 1
+                ds.attrs["event_time"] = (
+                    start_time + (event_times[i] if event_times is not None
+                                  else i * nsamp / self.sample_rate))
+                ds.attrs["trigger_type"] = (
+                    int(trigger_types[i]) if trigger_types is not None else 1)
+            dc = f.create_group("detconfig1")
+            dc.attrs["channel_list"] = self.channels
+            for chan, cfg in self.detector_config.items():
+                cg = dc.create_group(chan)
+                for k, v in cfg.items():
+                    cg.attrs[k] = v
+        return fname
+
+
 class RawReader:
     """Event reader over a :class:`RawIndex` (or raw file paths, indexed
     with :meth:`RawIndex.from_files`)."""
@@ -544,6 +660,14 @@ class RawReader:
         return self.index.paths
 
     @property
+    def raw_path(self):
+        """The directory of the raw files, or the sorted list of their
+        directories where they are several."""
+        dirs = sorted({os.path.dirname(os.path.abspath(f))
+                       for f in self.files})
+        return dirs[0] if len(dirs) == 1 else dirs
+
+    @property
     def sample_rate(self) -> float:
         return self.index.sample_rate
 
@@ -556,6 +680,10 @@ class RawReader:
 
     def get_detector_config(self, file_name: Optional[str] = None) -> dict:
         return self.index.get_detector_config(file_name)
+
+    def nb_events(self, file_name: Optional[str] = None) -> int:
+        """The events of ``file_name`` (default: the first file)."""
+        return int(self.get_metadata(file_name)["nb_events"])
 
     def total_events(self) -> int:
         return len(self.index)
@@ -695,6 +823,10 @@ class RawData:
             if prefix.startswith(key):
                 return dtype
         return "unknown"
+
+    @property
+    def verbose(self) -> bool:
+        return getattr(self, "_verbose", True)
 
     def get_group_name(self) -> str:
         return os.path.basename(os.path.normpath(self.raw_path))

@@ -16,6 +16,9 @@ Adapters, importing h5py or pandas when called:
   ``/table/columns/{column}/data`` with h5py; :func:`write_table` also
   writes parquet (through pandas);
 - :func:`read_table` reads either back as a table;
+- :func:`write_parquet` and :func:`read_parquet` (:74, :78) on a table,
+  and :func:`count_rows` (:183), which counts a file's rows from its
+  metadata alone (npz too);
 
 and one form of the port's own, for machines without h5py or pandas:
 :func:`write_npz_table` writes a table as one ``numpy.savez`` of its
@@ -249,7 +252,7 @@ def write_table(table: Table, path: str, fmt: Optional[str] = None):
     if fmt == "hdf5":
         write_vaex_hdf5(table, path)
     elif fmt == "parquet":
-        to_dataframe(table).to_parquet(path)
+        write_parquet(table, path)
     elif fmt == "npz":
         write_npz_table(table, path)
     else:
@@ -284,11 +287,51 @@ def read_table(path: str) -> Table:
     if path.endswith(".npz"):
         return read_npz_table(path)
     if path.endswith(".parquet"):
-        import pandas as pd
-
-        df = pd.read_parquet(path)
-        return {c: df[c].to_numpy() for c in df.columns}
+        return read_parquet(path)
     return read_vaex_hdf5(path)
+
+
+def write_parquet(table: Table, path: str):
+    """Write a table (or a DataFrame) as parquet, through pandas."""
+    (table if hasattr(table, "to_parquet")
+     else to_dataframe(table)).to_parquet(path)
+
+
+def read_parquet(path: str) -> Table:
+    """A parquet file as a table, through pandas."""
+    import pandas as pd
+
+    df = pd.read_parquet(path)
+    return {c: df[c].to_numpy() for c in df.columns}
+
+
+def count_rows(path: str) -> int:
+    """The rows of a table file without reading its data: npz from its
+    first column's header, parquet from its metadata (pyarrow), HDF5 from
+    its first column's shape (h5py)."""
+    if path.endswith(".npz"):
+        import zipfile
+
+        with zipfile.ZipFile(path) as zf:
+            if "c0.npy" not in zf.namelist():
+                return 0
+            with zf.open("c0.npy") as f:
+                fmt = np.lib.format
+                read = (fmt.read_array_header_1_0
+                        if fmt.read_magic(f) == (1, 0)
+                        else fmt.read_array_header_2_0)
+                return int(read(f)[0][0])
+    if path.endswith(".parquet"):
+        import pyarrow.parquet as pq
+
+        return pq.ParquetFile(path).metadata.num_rows
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        cols = f["/table/columns"]
+        for name in cols:
+            return int(cols[name]["data"].shape[0])
+    return 0
 
 
 class AsyncWriter:

@@ -17,6 +17,7 @@ needed here.
   the lengths the kernel does not take.
 - :func:`irfft` is ``torch.fft.irfft`` on both, as the JAX package left
   its inverse transform to XLA.
+- ``fftfreq`` is ``utils/freq.fftfreq``, under its JAX path.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from detprocess_tpu_torch.ops import _kernels, cuda_fft
+from detprocess_tpu_torch.utils.freq import fftfreq  # noqa: F401
 
 
 def rfft(x: torch.Tensor) -> torch.Tensor:

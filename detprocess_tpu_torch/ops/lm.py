@@ -18,6 +18,9 @@ step was accepted get a new Jacobian.
   and stays within [1e-12, 1e12].
 - The covariance is (JᵀJ)⁻¹·2·cost/(R − P) at the result, in the user's
   parameters.
+
+:func:`complex_residuals` (JAX :113) makes real residuals of a
+complex-valued model.
 """
 
 from __future__ import annotations
@@ -34,6 +37,16 @@ class LMResult(NamedTuple):
     cov: torch.Tensor         # [B, P, P]
     niter: torch.Tensor       # [B] steps accepted
     success: torch.Tensor     # [B] bool
+
+
+def complex_residuals(model_fn: Callable) -> Callable:
+    """The residual function ``(params, x, data, weights) →
+    [Re d, Im d]`` with d = weights·(model_fn(params, x) − data), for a
+    complex-valued ``model_fn``."""
+    def residual(params, x, data, weights):
+        diff = (model_fn(params, x) - data) * weights
+        return torch.cat([diff.real, diff.imag])
+    return residual
 
 
 def batched_lm(residual_fn: Callable, x0_batch: torch.Tensor,

@@ -14,6 +14,14 @@ denom_inv_h, s_fft_h, bin_w) of ``ops/filterbank.bank_to_torch``:
 Delays are rolled by ``pretrigger`` so that absolute trace index i gives
 ``t0 = (i − pretrigger)/fs``. Shapes: ṽ_h [..., S, N/2+1], bank tensors
 [S, N/2+1] / [S], results [..., S].
+
+The full-spectrum forms of the JAX module (:func:`signal_fft`,
+:func:`chi2_base`, :func:`lowfreq_mask`, :func:`of1x1_nodelay`,
+:func:`of1x1_withdelay`, :func:`time_resolution` and :func:`of1x2`) are
+the same formulas over all N bins of a complex spectrum ṽ = FFT(trace)
+(``torch.fft``; the JAX four-step matmul FFT is a TPU workaround), with
+no assumption of Hermitian symmetry: a user API for spectra of any kind.
+No shell calls them; the shells read the half spectrum.
 """
 
 from __future__ import annotations
@@ -98,6 +106,88 @@ def interp_amp(q: torch.Tensor, norm, pick: DelayPick) -> torch.Tensor:
     a_denom = am1 - 2.0 * amp + ap1
     return (amp + 0.5 * (ap1 - am1) * pick.delta
             + 0.5 * a_denom * pick.delta * pick.delta)
+
+
+def signal_fft(traces: torch.Tensor) -> torch.Tensor:
+    """Full complex spectrum [..., N] of traces [..., N]."""
+    return torch.fft.fft(traces, dim=-1)
+
+
+def signal_rfft(traces: torch.Tensor) -> torch.Tensor:
+    """Half spectrum [..., N//2+1] of real traces (``ops/fft.rfft``: the
+    rFFT kernel on the card)."""
+    return fft.rfft(traces)
+
+
+def chi2_base(vfft: torch.Tensor, denom_inv: torch.Tensor) -> torch.Tensor:
+    """χ²₀ = Σ_k |ṽ_k|²·denom_inv_k over the full spectrum."""
+    return torch.sum((vfft.real ** 2 + vfft.imag ** 2) * denom_inv, dim=-1)
+
+
+def lowfreq_mask(n: int, fs: float, fcutoff: float) -> np.ndarray:
+    """Boolean mask [N] over the full spectrum: |f| < fcutoff, DC
+    excluded."""
+    f = np.fft.fftfreq(n, d=1.0 / fs)
+    mask = np.abs(f) < fcutoff
+    mask[0] = False
+    return mask
+
+
+def _residual_chi2(vfft, amp, shift, s_fft, denom_inv, mask):
+    """χ² of (ṽ − amp·s̃·e^{−2πik·shift/N}) over the masked bins of the
+    full spectrum."""
+    n = vfft.shape[-1]
+    k = torch.arange(n, dtype=amp.dtype, device=vfft.device)
+    angle = -2.0 * math.pi * k * shift[..., None] / n
+    resid = vfft - amp[..., None] * s_fft * torch.polar(
+        torch.ones_like(angle), angle)
+    mask = torch.as_tensor(mask, device=vfft.device)
+    return torch.sum((resid.real ** 2 + resid.imag ** 2) * denom_inv * mask,
+                     dim=-1)
+
+
+def of1x1_nodelay(vfft, phi, norm, denom_inv, s_fft,
+                  low_mask=None) -> OF1x1Result:
+    """No-delay OF fit on the full spectrum (JAX :171): ṽ [..., S, N],
+    bank rows [S, N] and [S], results [..., S]."""
+    q = torch.sum((phi * vfft).real, dim=-1)
+    amp = q / norm
+    c0 = chi2_base(vfft, denom_inv)
+    chi2 = c0 - q * q / norm
+    if low_mask is None:
+        lowchi2 = torch.full_like(chi2, -999999.0)
+    else:
+        lowchi2 = _residual_chi2(vfft, amp, torch.zeros_like(amp), s_fft,
+                                 denom_inv, low_mask)
+    return OF1x1Result(amp, torch.zeros_like(amp), chi2, lowchi2, c0)
+
+
+def of1x1_withdelay(vfft, phi, norm, denom_inv, s_fft, pretrigger: int,
+                    fs: float, window_mask=None, low_mask=None,
+                    interpolate_t0: bool = False) -> OF1x1Result:
+    """Delay-scan OF fit on the full spectrum (JAX :198), optionally
+    within ``window_mask`` (boolean [N] over absolute trace indices) and
+    with the parabolic refit of the Δχ² apex: q(d) = N·Re ifft(φ·ṽ)(d),
+    rolled by ``pretrigger``."""
+    n = vfft.shape[-1]
+    q_abs = torch.roll(torch.fft.ifft(phi * vfft, dim=-1).real * n,
+                       pretrigger, dims=-1)
+    c0 = chi2_base(vfft, denom_inv)
+    pick = pick_delay(q_abs * q_abs / norm[..., None], n, pretrigger,
+                      window_mask=window_mask, interpolate_t0=interpolate_t0)
+    if interpolate_t0:
+        chi2 = c0 - pick.gain
+        amp = interp_amp(q_abs, norm, pick)
+    else:
+        q_best = _take_last(q_abs, pick.idx)
+        amp = q_best / norm
+        chi2 = c0 - q_best * q_best / norm
+    if low_mask is None:
+        lowchi2 = torch.full_like(chi2, -999999.0)
+    else:
+        lowchi2 = _residual_chi2(vfft, amp, pick.shift, s_fft, denom_inv,
+                                 low_mask)
+    return OF1x1Result(amp, pick.shift / fs, chi2, lowchi2, c0)
 
 
 def lowfreq_mask_half(n: int, fs: float, fcutoff: float) -> np.ndarray:
@@ -267,8 +357,41 @@ def of1x2_half(vr, phi1_h, norm1, phi2_h, norm2, s_fft2_h, denom_inv_h,
                        pretrigger, fs, scan, scan_bytes)
 
 
+def of1x2(vfft, phi1, norm1, s_fft1, phi2, norm2, s_fft2, denom_inv,
+          pretrigger: int, fs: float,
+          delta_window: Optional[np.ndarray] = None,
+          scan_bytes: int = OF1X2_SCAN_BYTES) -> OF1x2Result:
+    """Joint two-template OF fit on the full spectrum (JAX :673): the
+    scan of :func:`of1x2_half` on the significance series
+    u_i = N·Re ifft(φ_i·ṽ)/√norm_i in absolute trace order (rolled by
+    ``pretrigger``), with c(Δ) = N·Re ifft(φ₁·s̃₂)(Δ)/√(norm₁·norm₂).
+    ``s_fft1`` is not read (the JAX signature's)."""
+    n = vfft.shape[-1]
+    norm1 = torch.as_tensor(norm1)
+    norm2 = torch.as_tensor(norm2)
+    sq1 = torch.sqrt(norm1)
+    sq2 = torch.sqrt(norm2)
+
+    def series(phi):
+        return torch.fft.ifft(phi * vfft, dim=-1).real * n
+
+    u1 = torch.roll(series(phi1), pretrigger, dims=-1) / sq1[..., None]
+    u2 = torch.roll(series(phi2), pretrigger, dims=-1) / sq2[..., None]
+    c_all = (torch.fft.ifft(phi1 * s_fft2, dim=-1).real * n
+             / (sq1 * sq2)[..., None])
+    c0 = chi2_base(vfft, denom_inv)
+    return _of1x2_scan(u1, u2, c_all.to(u1.dtype), sq1, sq2, c0, n,
+                       pretrigger, fs, delta_scan(delta_window, n,
+                                                  vfft.device),
+                       scan_bytes, delay_order=False)
+
+
 def _of1x2_scan(u1, u2, c_all, sq1, sq2, c0, n, pretrigger, fs,
-                scan: DeltaScan, scan_bytes) -> OF1x2Result:
+                scan: DeltaScan, scan_bytes,
+                delay_order: bool = True) -> OF1x2Result:
+    """The joint (d1, Δ) scan of u series in delay order (d1 read as a
+    delay), or in absolute trace order (``delay_order=False``: d1 read as
+    a trace index)."""
     rdt = u1.dtype
     dev = u1.device
     deltas = scan.deltas
@@ -322,9 +445,12 @@ def _of1x2_scan(u1, u2, c_all, sq1, sq2, c0, n, pretrigger, fs,
     amp1 = (u1b - c * u2b) / (sq1 * det)
     amp2 = (u2b - c * u1b) / (sq2 * det)
     chi2 = c0 - best_val
-    # d1 is a delay index: absolute i = (d1 + pretrigger) mod n
     d_f = d1.to(rdt)
-    shift1 = torch.where(d1 < n - pretrigger, d_f, d_f - n)
+    if delay_order:
+        # d1 is a delay index: absolute i = (d1 + pretrigger) mod n
+        shift1 = torch.where(d1 < n - pretrigger, d_f, d_f - n)
+    else:
+        shift1 = d_f - pretrigger
     shift2 = shift1 + best_sg.to(rdt)
     t0_1 = shift1 / fs
     t0_2 = shift2 / fs
@@ -334,6 +460,19 @@ def _of1x2_scan(u1, u2, c_all, sq1, sq2, c0, n, pretrigger, fs,
 def energy_resolution(norm: torch.Tensor) -> torch.Tensor:
     """σ_amp = 1/sqrt(norm), the OF amplitude resolution."""
     return 1.0 / torch.sqrt(norm)
+
+
+def time_resolution(amp: torch.Tensor, s_fft: torch.Tensor,
+                    denom_inv: torch.Tensor, fs: float) -> torch.Tensor:
+    """σ_t0 = 1/sqrt(amp² · Σ_k ω_k² |s̃_k|² denom_inv_k) over the full
+    spectrum (JAX :630): the curvature of χ²(t0) at its minimum."""
+    n = s_fft.shape[-1]
+    f = torch.fft.fftfreq(n, d=1.0 / fs, dtype=torch.float64,
+                          device=denom_inv.device).to(denom_inv.dtype)
+    omega2 = (2.0 * math.pi * f) ** 2
+    curv = torch.sum(omega2 * (s_fft.real ** 2 + s_fft.imag ** 2)
+                     * denom_inv, dim=-1)
+    return 1.0 / torch.sqrt(amp * amp * curv)
 
 
 def time_resolution_half(amp: torch.Tensor, s_fft_h: torch.Tensor,

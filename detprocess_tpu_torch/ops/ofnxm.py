@@ -19,6 +19,12 @@ half product; χ²₀ is the half sum with the weights w of
 ``filterbank.half_bin_weights`` (DC and Nyquist once). That is the
 argument of the trigger's FIR (``ops/trigger.make_trigger_kernel``), and
 it lets the NxM fits share the spectra of the other fits.
+
+The JAX full-spectrum forms (:func:`chi2_base_nxm`, :func:`ofnxm_nodelay`,
+:func:`ofnxm_withdelay`, :func:`ofnxmx2`) are here too, as the plain
+formulas over all N bins of complex spectra ṽ [..., C, N] with the full
+bank (φ [C, M, N], J⁻¹ [N, C, C], s̃ [C, M, N]) and ``torch.fft``, with
+no assumption of symmetry: a user API. The shells use the half forms.
 """
 
 from __future__ import annotations
@@ -43,6 +49,61 @@ class OFNxMx2Result(NamedTuple):
     amps: torch.Tensor     # [..., M]
     deltat: torch.Tensor   # [...] — t(group 1) − t(group 0), seconds
     chi2: torch.Tensor     # [...]
+
+
+def chi2_base_nxm(vfft, icsd, fs: float) -> torch.Tensor:
+    """χ²₀ = Σ_k Re ṽ_k† J_k⁻¹ ṽ_k / (N·fs) of ṽ [..., C, N] with J⁻¹
+    [N, C, C]: [...]."""
+    n = vfft.shape[-1]
+    tmp = torch.einsum("kab,...bk->...ak", icsd, vfft)
+    return torch.einsum("...ak,...ak->...", vfft.conj(), tmp).real / (n * fs)
+
+
+def ofnxm_nodelay(vfft, phi, iw_matrix, icsd, fs: float) -> OFNxMResult:
+    """No-delay NxM fit on the full spectrum (JAX :55); amps [..., M]."""
+    q = torch.einsum("cmk,...ck->...m", phi, vfft).real
+    amps = torch.einsum("ij,...j->...i", iw_matrix, q)
+    chi2 = chi2_base_nxm(vfft, icsd, fs) - torch.einsum(
+        "...i,ij,...j->...", q, iw_matrix, q)
+    return OFNxMResult(amps, torch.zeros_like(chi2), chi2)
+
+
+def q_timeseries(vfft, phi, pretrigger: int) -> torch.Tensor:
+    """q_m at every absolute trace index, N·Re ifft(Σ_c φ·ṽ) rolled by
+    ``pretrigger``: [..., M, N]."""
+    n = vfft.shape[-1]
+    prod = torch.einsum("cmk,...ck->...mk", phi, vfft)
+    return torch.roll(torch.fft.ifft(prod, dim=-1).real * n, pretrigger,
+                      dims=-1)
+
+
+def ofnxm_withdelay(vfft, phi, w_matrix, iw_matrix, icsd, pretrigger: int,
+                    fs: float, window_mask=None,
+                    interpolate_t0: bool = False) -> OFNxMResult:
+    """Delay-scan NxM fit on the full spectrum (JAX :180), all M
+    amplitudes sharing one shift, optionally within ``window_mask``
+    (boolean [N] over absolute trace indices). ``w_matrix`` is not read
+    (the JAX signature's)."""
+    q_scan = q_timeseries(vfft, phi, pretrigger)
+    return _withdelay_fit(q_scan, iw_matrix,
+                          chi2_base_nxm(vfft, icsd, fs), vfft.shape[-1],
+                          pretrigger, fs, window_mask, interpolate_t0)
+
+
+def _withdelay_fit(q_scan, iw_matrix, chi2_0, n, pretrigger, fs,
+                   window_mask, interpolate_t0) -> OFNxMResult:
+    """The delay pick and the amplitudes at it of q [..., M, N] in
+    absolute trace order."""
+    dchi2 = torch.einsum("...it,ij,...jt->...t", q_scan, iw_matrix, q_scan)
+    pick = pick_delay(dchi2, n, pretrigger, window_mask=window_mask,
+                      interpolate_t0=interpolate_t0)
+    q_best = torch.gather(
+        q_scan, -1, pick.idx[..., None, None].expand(
+            q_scan.shape[:-1] + (1,)))[..., 0]
+    amps = torch.einsum("ij,...j->...i", iw_matrix, q_best)
+    gain = (pick.gain if interpolate_t0
+            else torch.sum(amps * q_best, dim=-1))
+    return OFNxMResult(amps, pick.shift / fs, chi2_0 - gain)
 
 
 def chi2_base_nxm_half(vr, icsd_h, bin_w, fs: float, n: int) -> torch.Tensor:
@@ -77,18 +138,10 @@ def ofnxm_withdelay_half(vr, phi_h, iw_matrix, icsd_h, bin_w,
     ``ofnxm_withdelay`` :180), optionally within ``window_mask`` (boolean
     [N] over absolute trace indices) and with the parabolic refit of the
     Δχ² apex."""
-    q_scan = q_timeseries_half(vr, phi_h, pretrigger, n)
-    dchi2 = torch.einsum("...it,ij,...jt->...t", q_scan, iw_matrix, q_scan)
-    pick = pick_delay(dchi2, n, pretrigger, window_mask=window_mask,
-                      interpolate_t0=interpolate_t0)
-    q_best = torch.gather(
-        q_scan, -1, pick.idx[..., None, None].expand(
-            q_scan.shape[:-1] + (1,)))[..., 0]
-    amps = torch.einsum("ij,...j->...i", iw_matrix, q_best)
-    gain = (pick.gain if interpolate_t0
-            else torch.sum(amps * q_best, dim=-1))
-    chi2 = chi2_base_nxm_half(vr, icsd_h, bin_w, fs, n) - gain
-    return OFNxMResult(amps, pick.shift / fs, chi2)
+    return _withdelay_fit(q_timeseries_half(vr, phi_h, pretrigger, n),
+                          iw_matrix,
+                          chi2_base_nxm_half(vr, icsd_h, bin_w, fs, n), n,
+                          pretrigger, fs, window_mask, interpolate_t0)
 
 
 class NxMx2Plan(NamedTuple):
@@ -112,24 +165,35 @@ def nxmx2_plan(bank, group_ids, window1, window2) -> NxMx2Plan:
     the window product holds is inverted once here, in float64.
     ``window1``/``window2``: boolean [N] over absolute trace indices."""
     g = np.asarray(group_ids).astype(np.int64)
-    n = bank.nbins
-    fs = bank.fs
-    s_f = np.moveaxis(bank.s_fft, -1, 0)                    # [N, C, M]
-    js = np.einsum("kab,kbm->kam", bank.icsd, s_f)
-    cross_k = np.einsum("kci,kcj->ijk", np.conj(s_f), js)   # [M, M, N]
-    r_delta = np.fft.ifft(cross_k, axis=-1).real * n / (n * fs)
     idx1 = np.flatnonzero(np.asarray(window1))
     idx2 = np.flatnonzero(np.asarray(window2))
+    ip, ip_index = pair_inverses(
+        torch.as_tensor(np.asarray(bank.s_fft, np.complex128)),
+        torch.as_tensor(np.asarray(bank.icsd, np.complex128)), bank.fs,
+        torch.as_tensor(g), torch.as_tensor(idx1), torch.as_tensor(idx2))
+    return NxMx2Plan(g, idx1, idx2, ip.numpy(), ip_index.numpy())
+
+
+def pair_inverses(s_fft, icsd, fs: float, group_ids, idx1, idx2):
+    """(P(Δ)⁻¹ [U, M, M] for each Δ = (d2 − d1) mod N of the pairs of
+    ``idx1`` × ``idx2``, the row of each pair [W1, W2]) of templates
+    s̃ [C, M, N] under J⁻¹ [N, C, C], group ids [M] in {0, 1}; on the
+    tensors' device and in their precision."""
+    n = s_fft.shape[-1]
+    s_f = s_fft.movedim(-1, 0)                              # [N, C, M]
+    js = torch.einsum("kab,kbm->kam", icsd, s_f)
+    cross_k = torch.einsum("kci,kcj->ijk", s_f.conj(), js)  # [M, M, N]
+    r_delta = torch.fft.ifft(cross_k, dim=-1).real * n / (n * fs)
     delta = (idx2[None, :] - idx1[:, None]) % n              # [W1, W2]
-    uniq, ip_index = np.unique(delta, return_inverse=True)
+    uniq, ip_index = torch.unique(delta, return_inverse=True)
+    g = group_ids
     same = g[:, None] == g[None, :]
     lower = g[:, None] < g[None, :]
-    p = np.where(same, r_delta[..., 0][None],
-                 np.where(lower, np.moveaxis(r_delta[..., (n - uniq) % n],
-                                             -1, 0),
-                          np.moveaxis(r_delta[..., uniq], -1, 0)))
-    return NxMx2Plan(g, idx1, idx2, np.linalg.inv(p),
-                     ip_index.reshape(delta.shape))
+    p = torch.where(same, r_delta[..., 0][None],
+                    torch.where(lower,
+                                r_delta[..., (n - uniq) % n].movedim(-1, 0),
+                                r_delta[..., uniq].movedim(-1, 0)))
+    return torch.linalg.inv(p), ip_index
 
 
 # bytes of the [B, W1-chunk, W2, M] temporaries of the NxMx2 pair scan
@@ -155,7 +219,40 @@ def ofnxmx2_half(vr, phi_h, icsd_h, bin_w, consts: dict, pretrigger: int,
     first d2 maximum for each d1, then the first d1). ``consts``: the
     plan's tensors (:func:`nxmx2_tensors`). The scan runs over chunks of
     d1, vectorized over d2 and the batch."""
-    q_abs = q_timeseries_half(vr, phi_h, pretrigger, n)      # [..., M, N]
+    best_val, amps, i1, i2 = _nxmx2_scan(
+        q_timeseries_half(vr, phi_h, pretrigger, n), consts, scan_bytes)
+    chi2 = chi2_base_nxm_half(vr, icsd_h, bin_w, fs, n) - best_val
+    deltat = (consts["idx2"][i2] - consts["idx1"][i1]).to(chi2.dtype) / fs
+    return OFNxMx2Result(amps, deltat, chi2)
+
+
+def ofnxmx2(vfft, s_fft, icsd, group_ids, window1, window2,
+            pretrigger: int, fs: float,
+            scan_bytes: int = NXMX2_SCAN_BYTES):
+    """NxMx2 fit on the full spectrum (JAX :289): template group 0 shifts
+    by d1 within ``window1``, group 1 by d2 within ``window2`` (boolean
+    [N] over absolute trace indices), the amplitudes â = P(Δ)⁻¹q solved
+    at every pair with φ = conj(J⁻¹s̃)/(N·fs). Returns
+    (:class:`OFNxMx2Result`, (d1, d2)) as JAX does."""
+    n = vfft.shape[-1]
+    dev = vfft.device
+    phi = torch.einsum("kab,bmk->amk", icsd, s_fft).conj() / (n * fs)
+    idx1 = torch.as_tensor(np.flatnonzero(np.asarray(window1)), device=dev)
+    idx2 = torch.as_tensor(np.flatnonzero(np.asarray(window2)), device=dev)
+    g = torch.as_tensor(np.asarray(group_ids).astype(np.int64), device=dev)
+    ip, ip_index = pair_inverses(s_fft, icsd, fs, g, idx1, idx2)
+    consts = {"idx1": idx1, "idx2": idx2, "g0": g == 0,
+              "ip": ip.to(vfft.real.dtype), "ip_index": ip_index}
+    best_val, amps, i1, i2 = _nxmx2_scan(q_timeseries(vfft, phi, pretrigger),
+                                         consts, scan_bytes)
+    chi2 = chi2_base_nxm(vfft, icsd, fs) - best_val
+    d1, d2 = idx1[i1], idx2[i2]
+    return OFNxMx2Result(amps, (d2 - d1).to(chi2.dtype) / fs, chi2), (d1, d2)
+
+
+def _nxmx2_scan(q_abs, consts: dict, scan_bytes: int):
+    """(best Δχ², amps, index into idx1, index into idx2) of the pair scan
+    over q [..., M, N] in absolute trace order."""
     dev = q_abs.device
     idx1, idx2, g0 = consts["idx1"], consts["idx2"], consts["g0"]
     ip, ip_index = consts["ip"], consts["ip_index"]
@@ -190,7 +287,5 @@ def ofnxmx2_half(vr, phi_h, icsd_h, bin_w, consts: dict, pretrigger: int,
         best_amps = torch.where(upd[..., None], camps, best_amps)
         best_i1 = torch.where(upd, ci + start, best_i1)
         best_i2 = torch.where(upd, ci2, best_i2)
-    chi2 = chi2_base_nxm_half(vr, icsd_h, bin_w, fs, n) - best_val
-    deltat = (idx2[best_i2] - idx1[best_i1]).to(chi2.dtype) / fs
-    return OFNxMx2Result(best_amps, deltat, chi2)
+    return best_val, best_amps, best_i1, best_i2
 

@@ -14,6 +14,11 @@ of the trace, which on the card is the hand-written rFFT kernel's output:
   highest with ±distance suppression (scipy find_peaks semantics), or the
   band's largest bins when it holds no local maximum; missing peaks carry
   the framework's sentinel −999999.0.
+
+The JAX full-spectrum forms (:func:`event_psd_folded`, :func:`psd_amp`,
+:func:`psd_peaks`, :func:`phase_at_peaks`) take ṽ = FFT(trace) [..., N]:
+the folded PSD reads its first N//2+1 bins, as the JAX functions do, and
+the phase threshold is max|ṽ| over all N bins.
 """
 
 from __future__ import annotations
@@ -39,6 +44,19 @@ def event_psd_folded_half(vr_h: torch.Tensor, fs: float, n: int):
         scale[-1] = 1.0
     folded = psd * scale
     return torch.sqrt(folded[..., 1:]), torch.sqrt(folded[..., 0])
+
+
+def event_psd_folded(vfft: torch.Tensor, fs: float):
+    """(asd [..., N//2], dc [...]) of the full spectrum ``vfft`` [..., N]
+    (JAX :31)."""
+    n = vfft.shape[-1]
+    return event_psd_folded_half(vfft[..., :n // 2 + 1], fs, n)
+
+
+def psd_amp(vfft: torch.Tensor, fs: float, ind_ranges) -> torch.Tensor:
+    """:func:`psd_amp_half` of the full spectrum ``vfft`` [..., N]."""
+    n = vfft.shape[-1]
+    return psd_amp_half(vfft[..., :n // 2 + 1], fs, n, ind_ranges)
 
 
 def psd_amp_half(vr_h: torch.Tensor, fs: float, n: int,
@@ -115,6 +133,25 @@ def psd_peaks_half(vr_h: torch.Tensor, fs: float, n: int, band,
     return _peak_freqs(idxs, n, fs, asd.dtype), amps, dc_amp
 
 
+def psd_peaks(vfft: torch.Tensor, fs: float, band, npeaks: int,
+              distance_bins: int):
+    """:func:`psd_peaks_half` of the full spectrum ``vfft`` [..., N]."""
+    n = vfft.shape[-1]
+    return psd_peaks_half(vfft[..., :n // 2 + 1], fs, n, band, npeaks,
+                          distance_bins)
+
+
+def phase_at_peaks(vfft: torch.Tensor, fs: float, band, npeaks: int,
+                   distance_bins: int, pretrigger: int = 0,
+                   threshold_factor: float = 0.0):
+    """:func:`phase_at_peaks_half` of the full spectrum ``vfft`` [..., N]
+    (JAX :213), the threshold taken over all N bins."""
+    n = vfft.shape[-1]
+    thr = vfft.abs().max(dim=-1, keepdim=True).values * threshold_factor
+    return _phase_at_peaks(vfft[..., :n // 2 + 1], fs, n, band, npeaks,
+                           distance_bins, pretrigger, thr)
+
+
 def phase_at_peaks_half(vr_h: torch.Tensor, fs: float, n: int,
                         band, npeaks: int, distance_bins: int,
                         pretrigger: int = 0, threshold_factor: float = 0.0):
@@ -127,10 +164,18 @@ def phase_at_peaks_half(vr_h: torch.Tensor, fs: float, n: int,
     the angle formed in float64, so that the factor is exact to float64
     at every k (the JAX function forms k·(pretrigger/N) in the run's
     dtype, a few milliradians off in float32 at N = 32768)."""
+    thr = vr_h.abs().max(dim=-1, keepdim=True).values * threshold_factor
+    return _phase_at_peaks(vr_h, fs, n, band, npeaks, distance_bins,
+                           pretrigger, thr)
+
+
+def _phase_at_peaks(vr_h, fs, n, band, npeaks, distance_bins, pretrigger,
+                    thr):
+    """(peak freqs, phases) of the half spectrum ``vr_h`` with the
+    magnitude threshold ``thr`` [..., 1]."""
     asd, _ = event_psd_folded_half(vr_h, fs, n)
     idxs, _ = find_peaks_topk(asd, band, npeaks, distance_bins)
     mag = vr_h.abs()
-    thr = mag.max(dim=-1, keepdim=True).values * threshold_factor
     # the phases only at the peaks' bins (folded index + 1)
     safe = idxs.clamp(min=0) + 1
     v = torch.gather(vr_h, -1, safe)

@@ -3,7 +3,8 @@ traces after the ADC conversion.
 
 Port of ``detprocess_tpu/ops/saltinject.py`` (``SaltPlan`` :39,
 ``empty_plan`` :55, ``inject_salts`` :62, ``DeviceInjector`` :88;
-``adc_convert`` :26 is ``ops/adc.py``). The host plans each batch as small
+``adc_convert`` :26 is ``ops/adc.py``, imported here under its JAX
+path). The host plans each batch as small
 [E, K] arrays (start sample, channel row, template row, amplitude), and
 :func:`inject_salts` adds each event's scaled templates into its traces
 with one ``index_add_`` on the flat [E·C·N] view, so a salted run keeps the
@@ -33,6 +34,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from detprocess_tpu_torch.ops.adc import adc_convert  # noqa: F401
 
 
 class SaltPlan(NamedTuple):

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from detprocess_tpu_torch.ops import fft
+from detprocess_tpu_torch.utils.freq import fold_half
 
 
 def window_and_scale(n: int, name, dtype: torch.dtype, device):
@@ -97,14 +98,7 @@ def welch_csd(traces: torch.Tensor, fs: float, window=None) -> torch.Tensor:
 def fold_spectrum(psd: torch.Tensor, n: int | None = None) -> torch.Tensor:
     """Fold a two-sided PSD (last axis) onto the non-negative frequencies:
     every bin but DC, and Nyquist for even N, doubled."""
-    n = psd.shape[-1] if n is None else n
-    nfold = n // 2 + 1
-    scale = torch.full((nfold,), 2.0, dtype=psd.real.dtype,
-                       device=psd.device)
-    scale[0] = 1.0
-    if n % 2 == 0:
-        scale[-1] = 1.0
-    return psd[..., :nfold] * scale
+    return fold_half(psd, psd.shape[-1] if n is None else n)
 
 
 def lowpass_filter(traces: torch.Tensor, cut_off_freq: float, fs: float,

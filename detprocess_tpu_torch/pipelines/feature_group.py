@@ -35,9 +35,28 @@ permuted layouts are not ported). Per batch:
    - ``rftau``: the two-pole LM fit of ``ops/pulsefit`` on the low-pass of
      the step-2 spectrum;
    - ``baseline``, ``integral``, ``maximum``, ``minimum`` and
-     ``energyabsorbed`` over their windows.
+     ``energyabsorbed`` over their windows;
+   - an external extractor (``external_file``, JAX :1076-1088), once per
+     spec and batch, under the same ``run_layer`` hook as every spec.
 
-Columns carry the JAX names. On CUDA tensors step 2 and the fused fit
+Columns carry the JAX names.
+
+The external extractor contract. The extractor module's function is
+called as ``fn(traces, fs=fs, nb_pretrigger_samples=pretrigger,
+**kwargs)``:
+
+- ``traces`` is a ``torch.Tensor`` [B, N] of the spec's compound channel,
+  in the run's dtype (float32, or float64) on the batch's device (the
+  card, or a CPU for a run on the CPU), cut to the group's geometry;
+- ``pretrigger`` is the group's pretrigger; ``kwargs`` are the spec's
+  config keys but ``run``, ``base_algorithm``, ``feature_channel``,
+  ``nb_samples`` and ``nb_pretrigger_samples``;
+- it returns ``{name: tensor [B]}`` on that device; each ``name`` becomes
+  the column ``{name}_{feature channel}``. A value that is not such a
+  tensor is refused by name, never broadcast.
+
+A JAX-traceable function cannot run here: write it with torch ops
+(``examples/processing/custom_extractor_torch.py``). On CUDA tensors step 2 and the fused fit
 launch the hand-written kernels; on CPU tensors they run their plain
 twins.
 """
@@ -55,6 +74,10 @@ from detprocess_tpu_torch.ops import tracestats
 from detprocess_tpu_torch.ops.cuda_of import FusedNodelayOF
 from detprocess_tpu_torch.pipelines import feature_plan as fplan
 from detprocess_tpu_torch.utils import freq as frequtils
+
+# spec keys that an external extractor is not passed (JAX :1080-1083)
+EXTERNAL_DROPPED = ("base_algorithm", "feature_channel", "nb_samples",
+                    "nb_pretrigger_samples")
 
 # specs whose compound channel is read through its half spectrum
 SPECTRAL = fplan.OF_1X1_ALGORITHMS + ("of1x2x2", "rftau") \
@@ -312,6 +335,8 @@ class GroupStep(nn.Module):
             out[f"falltime_{name}_{fc}"] = r.falltime
             out[f"amplitud_{name}_{fc}"] = r.amplitude
             out[f"chisq_{name}_{fc}"] = r.chisq
+        elif spec.extractor is not None:
+            out.update(self._external(spec, chan[spec.chan_idx]))
         else:
             tr = chan[spec.chan_idx]
             lo, hi = spec.window
@@ -327,4 +352,26 @@ class GroupStep(nn.Module):
                 v = tracestats.energyabsorbed(tr, fs, kw["vb"], kw["i0"],
                                               kw["rl"], lo, hi)
             out[f"{name}_{fc}"] = v
+        return out
+
+    def _external(self, spec, traces) -> dict:
+        """One external extractor's columns for ``traces`` [B, N]."""
+        kwargs = {k: v for k, v in spec.kwargs.items()
+                  if k not in EXTERNAL_DROPPED}
+        res = spec.extractor(traces, fs=self.fs,
+                             nb_pretrigger_samples=self.pretrigger,
+                             **kwargs)
+        out = {}
+        for key, val in res.items():
+            if (not isinstance(val, torch.Tensor)
+                    or tuple(val.shape) != (traces.shape[0],)
+                    or val.device != traces.device):
+                got = (f"a tensor {list(val.shape)} on {val.device}"
+                       if isinstance(val, torch.Tensor)
+                       else type(val).__name__)
+                raise ValueError(
+                    f"external extractor {spec.base!r} on {spec.channel}: "
+                    f"{key!r} is {got}; the contract is a tensor "
+                    f"[{traces.shape[0]}] on {traces.device}")
+            out[f"{key}_{spec.feature_channel}"] = val
         return out

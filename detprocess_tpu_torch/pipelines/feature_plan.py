@@ -25,14 +25,22 @@ trigger-table mode, the trigger geometry:
   (``ops/filterbank.make_ofnxm_bank`` on the template and CSD stored
   under its '|' channel, :512-542) over the compound channels of its
   sub-channels;
-- the PSD features, ``rftau`` and the trace stats read one compound
-  channel each; external extractors and unknown names are refused.
+- the PSD features, ``rftau``, the trace stats and each external
+  extractor read one compound channel each (:542-547); an unknown name is
+  refused with the external names listed (:549-552).
+
+External extractors come from a user module (``external_file``) that
+:func:`load_external_extractors` loads with the rules of JAX
+``_load_external_extractors`` (:1855-1879): the module's
+``EXTRACTORS = {name: fn}``, else every public callable of the module;
+a name that duplicates a built-in algorithm is refused. The call contract
+is ``feature_group``'s.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -47,6 +55,9 @@ OF_NXM_ALGORITHMS = ("ofnxm", "ofnxmx2")
 PSD_ALGORITHMS = ("psd_amp", "psd_peaks", "phase")
 TRACE_ALGORITHMS = ("baseline", "integral", "maximum", "minimum",
                     "energyabsorbed")
+BUILTIN_ALGORITHMS = frozenset(OF_1X1_ALGORITHMS + OF_NXM_ALGORITHMS
+                               + PSD_ALGORITHMS + TRACE_ALGORITHMS
+                               + ("rftau",))
 
 
 @dataclass
@@ -64,6 +75,7 @@ class AlgoSpec:
     nxm_key: str = ""       # key of the group's NxM bank
     chan_idx: int = -1      # compound-channel row of the group's mix
     nxm_chan_idx: tuple = ()    # rows of the NxM sub-channels
+    extractor: Optional[Callable] = None    # an external extractor's fn
 
 
 @dataclass
@@ -90,17 +102,40 @@ class FeaturePlan:
     trigger_geometry: Optional[tuple] = None        # (n, pretrigger)
 
 
+def load_external_extractors(path: str) -> Dict[str, Callable]:
+    """The extractor registry ``{name: fn}`` of the python file at
+    ``path``: its ``EXTRACTORS`` dict, else every public callable it
+    defines or imports; a name of a built-in algorithm is refused."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "detprocess_tpu_torch_ext", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    if hasattr(module, "EXTRACTORS"):
+        registry = dict(module.EXTRACTORS)
+    else:
+        registry = {name: fn for name, fn in vars(module).items()
+                    if callable(fn) and not name.startswith("_")}
+    dupes = set(registry) & BUILTIN_ALGORITHMS
+    if dupes:
+        raise ValueError(
+            f"external extractors duplicate built-in algorithms: {dupes} "
+            "(features.py:1124-1128 duplicate rejection)")
+    return registry
+
+
 def build_plan(feature_config: dict, channels: List[str], fs: float,
                raw_geometry: tuple, filter_data,
-               trigger_mode: bool = False) -> FeaturePlan:
+               trigger_mode: bool = False,
+               extractors: Optional[Dict[str, Callable]] = None
+               ) -> FeaturePlan:
     """Compile the normalized ``feature`` section. ``raw_geometry`` is
-    (nb_samples, pretrigger) of the raw traces."""
+    (nb_samples, pretrigger) of the raw traces; ``extractors`` the
+    external registry (:func:`load_external_extractors`)."""
     channels_cfg = feature_config["channels"]
     weights_cfg = feature_config.get("weights", {}) or {}
     overall = feature_config.get("overall", {}) or {}
-    if overall.get("external_file"):
-        raise ValueError("external extractors (external_file "
-                         f"{overall['external_file']!r}) are not ported yet")
 
     trigger_geometry = None
     if trigger_mode:
@@ -170,7 +205,8 @@ def build_plan(feature_config: dict, channels: List[str], fs: float,
     plan = FeaturePlan([], raw_n, raw_pre,
                        trigger_geometry=trigger_geometry)
     for key in sorted(groups):
-        resolve_group(groups[key], weights_cfg, channels, fs, filter_data)
+        resolve_group(groups[key], weights_cfg, channels, fs, filter_data,
+                      extractors)
         plan.groups.append(groups[key])
 
     # channel-subset reads: a raw channel with an all-zero mix column
@@ -189,9 +225,11 @@ def build_plan(feature_config: dict, channels: List[str], fs: float,
 
 
 def resolve_group(group: TraceGroup, weights_cfg: dict,
-                  raw_channels: List[str], fs: float, filter_data) -> None:
+                  raw_channels: List[str], fs: float, filter_data,
+                  extractors: Optional[Dict[str, Callable]] = None) -> None:
     """Fill ``group``'s compound channels, mix matrix, 1x1 bank and NxM
-    banks."""
+    banks, and each external spec's function."""
+    extractors = extractors or {}
     compound: List[str] = []
     mix_rows: List[np.ndarray] = []
 
@@ -318,10 +356,14 @@ def resolve_group(group: TraceGroup, weights_cfg: dict,
         elif (spec.base in TRACE_ALGORITHMS or spec.base in PSD_ALGORITHMS
               or spec.base == "rftau"):
             spec.chan_idx = compound_index(spec.channel)
+        elif spec.base in extractors:
+            spec.extractor = extractors[spec.base]
+            spec.chan_idx = compound_index(spec.channel)
         else:
             raise ValueError(
                 f'Cannot find algorithm "{spec.base}" — check feature '
-                "extractor exists")
+                f"extractor exists (built-ins + external: "
+                f"{sorted(extractors)})")
 
     group.compound_channels = compound
     group.mix_matrix = (np.stack(mix_rows) if mix_rows

@@ -3,15 +3,18 @@ shell around the feature plan's group steps.
 
 Port of ``detprocess_tpu/pipelines/features.py::FeatureProcessing``
 (:112). The core imports torch, numpy and the standard library only: it
-takes a normalized or YAML-form config dict, a :class:`RawIndex` served
-by ``os.preadv`` and an in-memory :class:`FilterData`, and returns the
-feature table as a dict of numpy columns. File formats go through
-adapters that import yaml, h5py or pandas when called: a list of raw
-paths (``RawIndex.from_files``: pytesdaq HDF5, or flat dumps), a setup
-path (``config.yamlconfig.load_yaml``: JSON, or YAML), a filter-file
+takes a YAML-form config dict or a ``config.yamlconfig.YamlConfig``, a
+:class:`RawIndex` served by ``os.preadv`` and an in-memory
+:class:`FilterData`, and returns the feature table as a dict of numpy
+columns (None with ``lgc_output=False``, as JAX :1713-1715). File formats
+go through adapters that import yaml, h5py or pandas when called: a list
+of raw paths (``RawIndex.from_files``: pytesdaq HDF5, or flat dumps), a
+setup path (``config.yamlconfig.load_yaml``: JSON, or YAML), a filter-file
 path (``FilterData.load``: npz, or HDF5), a trigger-table path
 (``io.tables.read_table``), dumps (``io.tables.write_table``) and
-``io.tables.to_dataframe`` for the JAX table.
+``io.tables.to_dataframe`` for the JAX table. External extractors come
+from ``external_file`` (the argument wins over the config's, JAX
+:156-159) under the torch contract of ``feature_group``.
 
 A ``process()`` call:
 
@@ -73,7 +76,7 @@ import numpy as np
 import torch
 
 from detprocess_tpu_torch import device as dev
-from detprocess_tpu_torch.config.yamlconfig import load_yaml, normalize_config
+from detprocess_tpu_torch.config.yamlconfig import resolve_config
 from detprocess_tpu_torch.io import tables
 from detprocess_tpu_torch.io.fastio import FastReader
 from detprocess_tpu_torch.io.filterdata import FilterData
@@ -84,6 +87,8 @@ from detprocess_tpu_torch.ops.saltinject import split_injector
 from detprocess_tpu_torch.parallel.collectives import bounds, check_mesh
 from detprocess_tpu_torch.pipelines import feature_plan as fplan
 from detprocess_tpu_torch.pipelines.feature_group import GroupStep
+from detprocess_tpu_torch.pipelines.feature_plan import (  # noqa: F401
+    AlgoSpec, TraceGroup)
 from detprocess_tpu_torch.utils.misc import create_series_name
 
 TRIGGER_COLUMNS = ("trigger_index", "trigger_time", "trigger_delta_chi2",
@@ -102,6 +107,7 @@ class FeatureProcessing:
     READ_AHEAD = 1
 
     def __init__(self, raw, config, filter_data=None, trigger_table=None,
+                 external_file: Optional[str] = None,
                  processing_id: Optional[str] = None,
                  restricted: bool = False, calib: bool = False,
                  facility: int = 1, verbose: bool = True, device=None):
@@ -129,11 +135,15 @@ class FeatureProcessing:
                                {k: np.asarray(v)
                                 for k, v in trigger_table.items()})
 
-        if isinstance(config, str):
-            config = load_yaml(config)
-        self._config = normalize_config(config, self._available_channels,
-                                        self._fs)
+        self._config = resolve_config(config, self._available_channels,
+                                      self._fs)
         self._feature_config = self._config["feature"]
+
+        # the argument wins over the config's ``external_file``
+        ext = external_file or (self._feature_config.get("overall", {})
+                                or {}).get("external_file")
+        self._extractors = (fplan.load_external_extractors(ext) if ext
+                            else {})
 
         if isinstance(filter_data, str):
             filter_data = FilterData(verbose=verbose).load(filter_data)
@@ -150,7 +160,8 @@ class FeatureProcessing:
         self._plan = fplan.build_plan(
             self._feature_config, self._available_channels, self._fs,
             (raw_n, raw_pre), filter_data,
-            trigger_mode=self._trigger_table is not None)
+            trigger_mode=self._trigger_table is not None,
+            extractors=self._extractors)
         self._steps = {}
         self._injector = None
         self.stats: dict = {}
@@ -298,10 +309,12 @@ class FeatureProcessing:
                 series_name: Optional[str] = None,
                 group_name: str = "features",
                 nb_events_per_dump: Optional[int] = None,
-                memory_limit=None, resume: bool = False, mesh=None,
-                nreaders: int = 1, timer=None) -> dict:
+                memory_limit=None, resume: bool = False,
+                lgc_output: bool = True, mesh=None,
+                nreaders: int = 1, timer=None) -> Optional[dict]:
         """Run feature extraction; returns the table as a dict of numpy
-        columns (``io.tables.to_dataframe`` makes the JAX DataFrame).
+        columns (``io.tables.to_dataframe`` makes the JAX DataFrame), or
+        None with ``lgc_output=False`` (the rows are then not kept).
 
         ``nreaders`` reader threads read whole batches, in batch order.
         In full-trace mode ``nreaders > 1`` requires ``nevents=-1`` and no
@@ -400,6 +413,7 @@ class FeatureProcessing:
                       "upload_bytes": 0, "upload_samples": 0,
                       "batches": 0}
         state = {"dump": dump0, "pending": [], "frames": [],
+                 "keep": lgc_output,
                  "writer": tables.AsyncWriter() if lgc_save else None}
         inflight: List[tuple] = []
 
@@ -521,6 +535,8 @@ class FeatureProcessing:
                     "restricted": self._restricted,
                     "calib": self._calib,
                 })
+        if not lgc_output:
+            return None
         if not state["frames"]:
             return {}
         return tables.concat_tables(state["frames"])
@@ -537,7 +553,8 @@ class FeatureProcessing:
         frame = self._admin_columns(chunk[0], chunk[2])
         frame.update({k: arr[i][:nb] for i, k in enumerate(keys)})
         self.stats["events"] += nb
-        state["frames"].append(frame)
+        if state["keep"]:
+            state["frames"].append(frame)
         if lgc_save:
             state["pending"].append(frame)
             mem = _parse_memory_limit(memory_limit)

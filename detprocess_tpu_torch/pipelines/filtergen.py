@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from detprocess_tpu_torch import device as dev
-from detprocess_tpu_torch.config.yamlconfig import load_yaml, normalize_config
+from detprocess_tpu_torch.config.yamlconfig import resolve_config
 from detprocess_tpu_torch.io.filterdata import FilterData, records_table
 from detprocess_tpu_torch.io.rawdata import RawData, RawIndex, RawReader
 from detprocess_tpu_torch.models import didv as didv_models
@@ -107,9 +107,7 @@ class FilterDataProcessing:
         self._available_channels = probe.channels
         self._fs = probe.sample_rate
 
-        if isinstance(config, str):
-            config = load_yaml(config)
-        self._config = (None if config is None else normalize_config(
+        self._config = (None if config is None else resolve_config(
             config, self._available_channels, self._fs))
         self._filter_data = FilterData(verbose=verbose)
         self.stats: dict = {}

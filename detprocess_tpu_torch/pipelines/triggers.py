@@ -75,7 +75,7 @@ import numpy as np
 import torch
 
 from detprocess_tpu_torch import device as dev
-from detprocess_tpu_torch.config.yamlconfig import load_yaml, normalize_config
+from detprocess_tpu_torch.config.yamlconfig import resolve_config
 from detprocess_tpu_torch.io import tables
 from detprocess_tpu_torch.io.filterdata import FilterData, check_fs_consistent
 from detprocess_tpu_torch.io.prefetch import prefetch_events
@@ -800,10 +800,8 @@ class TriggerProcessing:
         self._fs = self._index.sample_rate
         self._available_channels = self._index.channels
 
-        if isinstance(config, str):
-            config = load_yaml(config)
-        self._config = normalize_config(config, self._available_channels,
-                                        self._fs)
+        self._config = resolve_config(config, self._available_channels,
+                                      self._fs)
         self._trigger_config = self._config["trigger"]
 
         if isinstance(filter_data, str):
@@ -881,6 +879,7 @@ class TriggerProcessing:
     def process(self, nevents: int = -1, capacity: int = DEFAULT_CAPACITY,
                 event_batch: int = DEFAULT_EVENT_BATCH,
                 pipeline_depth: int = 2,
+                prefetch_depth: int = PREFETCH_DEPTH,
                 dtype=np.float32, lgc_save: bool = False,
                 output_path: Optional[str] = None,
                 output_format: str = "hdf5",
@@ -889,10 +888,12 @@ class TriggerProcessing:
                 coincident_window_msec: Optional[float] = None,
                 coincident_window_samples: Optional[int] = None,
                 nb_events_per_dump: Optional[int] = None,
-                resume: bool = False, mesh=None,
-                nreaders: int = 1, timer=None) -> Table:
+                resume: bool = False, lgc_output: bool = True, mesh=None,
+                nreaders: int = 1, timer=None) -> Optional[Table]:
         """Trigger the continuous events; returns the trigger table (a
-        dict of numpy columns, {} without triggers).
+        dict of numpy columns, {} without triggers), or None with
+        ``lgc_output=False``. The reader threads keep ``prefetch_depth``
+        events (at least one) read ahead of the batches.
 
         ``nreaders`` reader threads split the files; ``> 1`` needs
         ``nevents=-1`` and no ``resume``. ``timer``: a
@@ -970,7 +971,7 @@ class TriggerProcessing:
                           pin=on_cuda)
         uploader = Uploader(self._device)
         reader = RawReader(self._index)
-        source = prefetch_events(reader, depth=self.PREFETCH_DEPTH,
+        source = prefetch_events(reader, depth=max(prefetch_depth, 1),
                                  raw=inject is None,
                                  dtype=None if inject is None else np.float64,
                                  nreaders=nreaders, channels=read_channels)
@@ -1120,7 +1121,7 @@ class TriggerProcessing:
                     "restricted": self._restricted,
                     "calib": self._calib,
                 })
-        return result
+        return result if lgc_output else None
 
     def _trigger_prefix(self) -> str:
         return tables.build_prefix("threshtrig", self._processing_id,

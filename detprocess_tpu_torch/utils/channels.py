@@ -1,8 +1,8 @@
-"""Channel-name algebra.
+"""Channel-name algebra, and series names as numbers.
 
-Copy of ``split_channel_name`` and ``channel_combination_weights`` from
-``detprocess_tpu/utils/channels.py`` (the reference's
-detprocess/utils/utils.py:70-184). The processing config addresses
+Copy of ``split_channel_name``, ``channel_combination_weights`` and
+``series_name_to_number`` from ``detprocess_tpu/utils/channels.py`` (the
+reference's detprocess/utils/utils.py:70-184). The processing config addresses
 channels with separators:
 
 - ``,``  apply independently to each listed channel
@@ -13,9 +13,22 @@ channels with separators:
 
 from __future__ import annotations
 
+import re
 from typing import Optional, Sequence
 
 ALLOWED_SEPARATORS = (",", "|", "+", "-")
+
+SERIES_RE = re.compile(r"I(\d+)_D(\d{8})_T(\d{6})")
+
+
+def series_name_to_number(series_name: str) -> int:
+    """'I{facility}_D{yyyymmdd}_T{hhmmss}' (found anywhere in the string)
+    as the sortable integer facility·10¹⁴ + date·10⁶ + time."""
+    m = SERIES_RE.search(series_name)
+    if not m:
+        raise ValueError(f"unrecognized series name: {series_name}")
+    fac, day, tme = m.groups()
+    return int(fac) * 10**14 + int(day) * 10**6 + int(tme)
 
 
 def split_channel_name(

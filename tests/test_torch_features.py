@@ -272,11 +272,34 @@ def test_each_algorithm_matches_jax(inputs, algo):
                                                                  cases.RTOL))
 
 
+EXAMPLES = os.path.join(os.path.dirname(__file__), os.pardir, "examples",
+                        "processing")
+
+
 def test_refuses_external_extractors(inputs):
-    cfg = {"feature": {**cases.CONFIG["feature"],
-                       "external_file": "/nonexistent/ext.py"}}
-    with pytest.raises(ValueError, match="external extractors.*not ported"):
-        _shell(inputs, cfg)
+    """External extractors run (they were refused before they were
+    ported): the shell's config with the example extractor on every
+    channel agrees with the JAX shell's with its jnp twin; an
+    ``external_file`` that does not exist is refused by both."""
+    def config(ext):
+        feat = {**cases.CONFIG["feature"], "external_file": ext}
+        for chan in ("chan1", "chan2", "chan1+chan2"):
+            feat[chan] = {**feat[chan], "pulse_shape": {"run": True}}
+        return {"feature": feat}
+
+    jpath = os.path.join(inputs["root"], "ext_jax.yaml")
+    with open(jpath, "w") as f:
+        yaml.safe_dump(config(os.path.abspath(os.path.join(
+            EXAMPLES, "custom_extractor.py"))), f)
+    jdf = JaxFP(inputs["raw"], jpath, filter_data=inputs["fpath"],
+                verbose=False).process(batch_size=8, dtype=np.float64)
+    got = _shell(inputs, config(os.path.abspath(os.path.join(
+        EXAMPLES, "custom_extractor_torch.py")))).process(
+        batch_size=8, dtype=np.float64)
+    assert "tail_fraction_sum12" in got
+    cases.assert_tables_equal(got, jdf, "external")
+    with pytest.raises(FileNotFoundError):
+        _shell(inputs, config("/nonexistent/ext.py"))
 
 
 def _filter_data(fs_template=cases.FS, template_n=cases.N):
