@@ -5,8 +5,9 @@ TriggerProcessing shell chained into it, every feature algorithm
 through FeatureProcessing, filter generation chained into it, salting
 through both shells, the dynamic and sub-tile trigger modes, the
 IV/dIdV sweep with the dIdV branch of filter generation, the command
-line over files, and the mesh (virtual shards on one card, and all the
-cards where there are several), on one card.
+line over files, the mesh (virtual shards on one card, and all the
+cards where there are several), and the direct windowed delay fits and
+float64 runs, on one card.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -332,6 +333,36 @@ p. the last of the API: (g)'s 8192 events in 4 flat dumps through
    events/s with and without the extractor (second calls), the
    extractor's CUDA-event ms a batch and its share of the batch's layers,
    and the phase's seconds.
+q. the direct windowed delay fits and float64 on the card, on (i)'s files
+   and configuration (kept from phases (h) and (i) until the run ends).
+   (i)'s ofnxm (chan1|chan2 at ±50 µs, 125 delays) through its shell, and
+   chan1 with only an of1x1_constrained fit at ±50 µs through a shell of
+   its own: on the spectra of each shell's own batches both routes' fits
+   (ops/of1x1.of1x1_windowed_direct_half against of1x1_withdelay_half with
+   the window mask; ops/ofnxm.ofnxm_withdelay_direct_half against
+   ofnxm_withdelay_half) must agree: amplitudes within 1e-5 of the
+   column's largest |value|, χ² within 1e-5 of χ²₀, t0 the same sample or
+   one sample apart where the two delays' Δχ² tie within 1e-5; each shell
+   must have taken the route that feature_plan.DIRECT_WINDOW_MAX and
+   ofnxm.DIRECT_UNION_MAX give (ofnxmx2's union of 681 shifts too), and
+   the constrained-only shell launches the rFFT kernel once a batch, the
+   fused kernel and every library route never. Both routes are timed
+   (CUDA events, in turns): the of1x1 fit at W = 127, 251, 512 and 1024
+   allowed delays on [2048, 32768] and [8192, 32768] float32 spectra,
+   (i)'s ofnxm at W = 127, and (i)'s NxMx2 fit at a union of 251 and 512
+   shifts (amplitudes within (i)'s 1e-4 for the joint fits where both
+   chose the same Δt, on at least 95 % of the events); it prints the widths at which the direct
+   route won and whether they are the port's constants. Then float64 on
+   the card: (i)'s 2048 events through FeatureProcessing(dtype=float64)
+   (batch 512) must launch neither kernel and take cufft_rfft_f64 once a
+   spectrum, and agree with (i)'s float64 CPU run on its rows within 1e-9
+   of each column's largest |value| (rftau's LM columns within 1e-7, the
+   tolerance tests/test_torch_features_coverage.py gives its LM); (h)'s
+   first 4 events through TriggerProcessing in float64 likewise (rFFT 0,
+   cufft_rfft_f64 6: the FIR's 4 transforms, chan1's residual and
+   low-pass) with the same rows as the float64 CPU run and every column
+   within 1e-9. It prints the float64 rows/s beside (i)'s float32 figure
+   and the phase's seconds.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} summary, each kernel with its bound (bytes over the HBM
@@ -352,8 +383,9 @@ cli_a, cli_b, cli_c: phase n's three command-line calls;
 mesh_trigger_static, mesh_trigger_dynamic, mesh_trigger_salted,
 mesh_chain, mesh_longtrace_w125, mesh_longtrace_w3, mesh_spectra: phase
 o's first mesh run of each on the virtual shards, with a _cards suffix on
-all the cards; api_rest: phase p's first call with the extractor), whose
-sum is
+all the cards; api_rest: phase p's first call with the extractor;
+constrained_direct: phase q's constrained-only shell; coverage_f64,
+trigger_shell_f64: its float64 runs on the card), whose sum is
 ``launches``, and the SM clocks of its phases from phase (d).
 Needs one CUDA device; imports no JAX.
 """
@@ -427,6 +459,8 @@ from detprocess_tpu_torch.pipelines.ivsweep import (  # noqa: E402
 from detprocess_tpu_torch.pipelines.salting import Salting  # noqa: E402
 from detprocess_tpu_torch.pipelines.noise import Noise  # noqa: E402
 from detprocess_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from detprocess_tpu_torch.ops import ofnxm  # noqa: E402
+from detprocess_tpu_torch.pipelines import feature_plan as fplan  # noqa: E402
 
 FS = 1.25e6
 N = 32768
@@ -1463,7 +1497,8 @@ def phase_e(device, card, errs):
             f"{library}")
         want = {"rfft": expect[mode]["rfft"] * TRIG_BATCHES,
                 "fused_nodelay_of": 0,
-                "cufft_rfft": expect[mode]["cufft_rfft"] * TRIG_BATCHES}
+                "cufft_rfft": expect[mode]["cufft_rfft"] * TRIG_BATCHES,
+                "cufft_rfft_f64": 0}
         if {**launches, **library} != want:
             raise RuntimeError(f"trigger {mode}: launches {launches}, "
                                f"library {library}, expected {want}")
@@ -1554,7 +1589,8 @@ def phase_f(device, card):
         launches, library = _kernels.launch_counts(), _kernels.library_counts()
         log(f"[f] FeatureStep N={n} B={OFF_KERNEL_B}: launches {launches}, "
             f"library route {library} (on {card})")
-        if any(launches.values()) or library["cufft_rfft"] != 1:
+        if (any(launches.values()) or library["cufft_rfft"] != 1
+                or library["cufft_rfft_f64"]):
             raise RuntimeError(f"N={n}: expected no kernel launch and one "
                                f"cuFFT call, got {launches}, {library}")
         for key, v in out.items():
@@ -1673,7 +1709,8 @@ def shell_physics(table, amps, shifts, phase="g", n=tentry.SHELL_N,
 
 def check_shell_launches(launches, library, nbatch, what, phase="g"):
     want = {"rfft": SHELL_SPECTRAL * nbatch,
-            "fused_nodelay_of": SHELL_SPECTRAL * nbatch, "cufft_rfft": 0}
+            "fused_nodelay_of": SHELL_SPECTRAL * nbatch, "cufft_rfft": 0,
+            "cufft_rfft_f64": 0}
     log(f"[{phase}] {what} launches: {launches}, library route {library} "
         f"({nbatch} batches)")
     if {**launches, **library} != want:
@@ -2138,14 +2175,30 @@ def tshell_batch_parts(shell, index, device, card, merge_window):
     return ms
 
 
-def phase_h(device, card, errs):
+# what phase (q) reads of phases (h) and (i): their files (kept until the
+# run ends, in KEPT_DIRS), indexes, configurations and references
+SHARED = {}
+KEPT_DIRS = []
+
+
+def keep_or_remove(tmp, keep):
+    """Keep ``tmp`` for phase (q) (removed when the run ends), or remove
+    it now."""
+    if keep:
+        KEPT_DIRS.append(tmp)
+    else:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_h(device, card, errs, keep=False):
     """The TriggerProcessing shell from flat int16 continuous files, then
-    its table through FeatureProcessing; returns each path's launches."""
+    its table through FeatureProcessing; returns each path's launches.
+    With ``keep`` its files stay for phase (q)."""
     tmp = tempfile.mkdtemp(prefix="detprocess_smoke_trigger_")
     try:
         return _phase_h(device, card, errs, tmp)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        keep_or_remove(tmp, keep)
 
 
 def _phase_h(device, card, errs, tmp):
@@ -2173,7 +2226,8 @@ def _phase_h(device, card, errs, tmp):
     launches = _kernels.launch_counts()
     library = _kernels.library_counts()
     want = {"rfft": (len(tentry.SHELL_CHANNELS) + 1) * nbatch,
-            "fused_nodelay_of": 0, "cufft_rfft": nbatch}
+            "fused_nodelay_of": 0, "cufft_rfft": nbatch,
+            "cufft_rfft_f64": 0}
     log(f"[h] launches: {launches}, library route {library} ({nbatch} "
         "batches; 4 FIR segment transforms and chan1's residual convolution"
         " a batch, chan1's low-pass through cuFFT)")
@@ -2230,6 +2284,9 @@ def _phase_h(device, card, errs, tmp):
     got = {k: np.asarray(v)[mine] for k, v in table.items()}
     compare_tshell_event(got, ref, shell.channels[0].chi2_threshold,
                          "event 1 vs the float64 CPU run of the shell")
+    SHARED["h"] = {"index": index, "config": config, "fd": fd,
+                   "per_batch": {k: v // nbatch for k, v in
+                                 {**launches, **library}.items()}}
 
     _, warm_s, _ = run_tshell(shell, "second call", card, **kw)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2517,15 +2574,15 @@ def compare_coverage(got, ref, rows, what, n=tentry.SHELL_N):
         f"{k} {v:.4f}" for k, v in sorted(notes.items())))
 
 
-def phase_i(device, card, errs):
+def phase_i(device, card, errs, keep=False):
     """Every feature algorithm through FeatureProcessing from flat int16
     files (entry.feature_coverage_entry); returns the kernels' launches
-    on its path."""
+    on its path. With ``keep`` its files stay for phase (q)."""
     tmp = tempfile.mkdtemp(prefix="detprocess_smoke_cov_")
     try:
         return _phase_i(device, card, errs, tmp)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        keep_or_remove(tmp, keep)
 
 
 def _phase_i(device, card, errs, tmp):
@@ -2545,7 +2602,8 @@ def _phase_i(device, card, errs, tmp):
                             **kw)
     launches, library = _kernels.launch_counts(), _kernels.library_counts()
     want = {"rfft": COV_SPECTRAL * nbatch,
-            "fused_nodelay_of": COV_FUSED * nbatch, "cufft_rfft": 0}
+            "fused_nodelay_of": COV_FUSED * nbatch, "cufft_rfft": 0,
+            "cufft_rfft_f64": 0}
     log(f"[i] launches: {launches}, library route {library} ({nbatch} "
         f"batches; expected {want})")
     if {**launches, **library} != want:
@@ -2589,6 +2647,8 @@ def _phase_i(device, card, errs, tmp):
                              phase="i", **kw)
     log(f"[i] second call: {COV_EVENTS / warm_s:.1f} rows/s (host clock, "
         f"process() call to returned columns); on {card}")
+    SHARED["i"] = {"index": index, "ref": ref, "pos": pos,
+                   "rows_per_s": COV_EVENTS / warm_s}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -2762,7 +2822,8 @@ def _phase_j(device, card, errs, tmp):
     log(f"[j] first call: {first_s:.4f} s; host stages " + str(
         {k: round(v["seconds"], 4)
          for k, v in timer.report(log=False).items()}) + f" s; on {card}")
-    want = {"rfft": FG_SPECTRAL, "fused_nodelay_of": 0, "cufft_rfft": 0}
+    want = {"rfft": FG_SPECTRAL, "fused_nodelay_of": 0, "cufft_rfft": 0,
+            "cufft_rfft_f64": 0}
     log(f"[j] launches: {launches}, library route {library} (expected "
         f"{want})")
     if {**launches, **library} != want:
@@ -2886,7 +2947,8 @@ def _phase_j(device, card, errs, tmp):
     chain = _kernels.launch_counts()
     nbatch = -(-FG_CHAIN_EVENTS // FG_CHAIN_BATCH)
     want = {"rfft": len(chans) * nbatch,
-            "fused_nodelay_of": len(chans) * nbatch, "cufft_rfft": 0}
+            "fused_nodelay_of": len(chans) * nbatch, "cufft_rfft": 0,
+            "cufft_rfft_f64": 0}
     log(f"[j] chain launches: {chain}, library route "
         f"{_kernels.library_counts()} (expected {want})")
     if {**chain, **_kernels.library_counts()} != want:
@@ -3094,7 +3156,8 @@ def _phase_k(device, card, errs, tmp):
     kw = dict(event_batch=TSHELL_BATCH, capacity=TSHELL_CAPACITY)
     nbatch = -(-SALT_EVENTS // TSHELL_BATCH)
     want = {"rfft": (len(chans) + 1) * nbatch, "fused_nodelay_of": 0,
-            "cufft_rfft": nbatch}
+            "cufft_rfft": nbatch,
+            "cufft_rfft_f64": 0}
     runs, launches, stats, secs = {}, {}, {}, {}
     for what, shell in (("device", tshell), ("host", host),
                         ("unsalted", plain)):
@@ -3178,7 +3241,8 @@ def _phase_k(device, card, errs, tmp):
     flaunch = _kernels.launch_counts()
     flib = _kernels.library_counts()
     fwant = {"rfft": len(chans) * nfb, "fused_nodelay_of": len(chans) * nfb,
-             "cufft_rfft": 0}
+             "cufft_rfft": 0,
+             "cufft_rfft_f64": 0}
     log(f"[k] salted feature shell launches: {flaunch}, library route "
         f"{flib} ({nfb} batches)")
     if {**flaunch, **flib} != fwant:
@@ -3330,7 +3394,8 @@ def _phase_l(device, card, errs, tmp):
         walks[what] = trigger.walk_counts()
         warned += w
         want = {"rfft": (len(chans) + 1) * nbatch, "fused_nodelay_of": 0,
-                "cufft_rfft": nbatch}
+                "cufft_rfft": nbatch,
+                "cufft_rfft_f64": 0}
         log(f"[l] {what}: launches {launches[what]}, library route {library}"
             f" ({nbatch} batches); dynamic walk {walks[what]}")
         if {**launches[what], **library} != want:
@@ -3626,7 +3691,8 @@ def _phase_m(device, card, errs, tmp):
         f"{sum(stages.get(k, 0.0) for k in fit_stages):.3f} s ("
         + ", ".join(f"{k} {stages.get(k, 0.0):.3f} s" for k in fit_stages)
         + f"); launches {launches}, library route {library}")
-    want = {"rfft": npoints, "fused_nodelay_of": 0, "cufft_rfft": 0}
+    want = {"rfft": npoints, "fused_nodelay_of": 0, "cufft_rfft": 0,
+            "cufft_rfft_f64": 0}
     if {**launches, **library} != want:
         raise RuntimeError(f"sweep: launches {launches}, library {library},"
                            f" expected {want}")
@@ -3893,7 +3959,8 @@ def _phase_n(device, card, errs, tmp):
 
     # call A: filter generation and randoms
     secs["A"], la, liba = cli_call(chain.a, "A (--calc-filter --enable-rand)")
-    want = {"rfft": len(chans), "fused_nodelay_of": 0, "cufft_rfft": 0}
+    want = {"rfft": len(chans), "fused_nodelay_of": 0, "cufft_rfft": 0,
+            "cufft_rfft_f64": 0}
     if {**la, **liba} != want:
         raise RuntimeError(f"call A: launches {la}, library {liba}, "
                            f"expected {want}")
@@ -3950,7 +4017,8 @@ def _phase_n(device, card, errs, tmp):
     nbt = -(-CLI_EVENTS // TSHELL_BATCH)
     nbf = -(-table_io.table_rows(feats) // CLI_BATCH)
     want = {"rfft": (len(chans) + 1) * nbt + len(chans) * nbf,
-            "fused_nodelay_of": len(chans) * nbf, "cufft_rfft": nbt}
+            "fused_nodelay_of": len(chans) * nbf, "cufft_rfft": nbt,
+            "cufft_rfft_f64": 0}
     if {**lb, **libb} != want:
         raise RuntimeError(f"call B: launches {lb}, library {libb}, "
                            f"expected {want} ({nbt} trigger batches, {nbf} "
@@ -4039,7 +4107,8 @@ def _phase_n(device, card, errs, tmp):
 
     # call C: the IV sweep
     secs["C"], lc, libc = cli_call(chain.c, "C (--enable-ivsweep)")
-    want = {"rfft": len(points), "fused_nodelay_of": 0, "cufft_rfft": 0}
+    want = {"rfft": len(points), "fused_nodelay_of": 0, "cufft_rfft": 0,
+            "cufft_rfft_f64": 0}
     if {**lc, **libc} != want:
         raise RuntimeError(f"call C: launches {lc}, library {libc}, "
                            f"expected {want}")
@@ -4607,7 +4676,8 @@ def mesh_spectra(device, card, mesh, tag, index):
         out[name] = ([noise.get_psd(c)[0] for c in chans],
                      noise.get_csd("|".join(chans))[0], noise.stats["kept"])
     want = {"rfft": (len(chans) + 1) * mesh.size, "fused_nodelay_of": 0,
-            "cufft_rfft": 0}
+            "cufft_rfft": 0,
+            "cufft_rfft_f64": 0}
     log(f"[o] {tag} spectra launches: without the mesh {launches['single']},"
         f" on it {launches['mesh']} (one a shard for each channel's PSD and "
         f"one a shard for the CSD, expected {want})")
@@ -5117,6 +5187,448 @@ def p_tie_gaps(vr, tb, t0_a, t0_b):
     return ((a - b).abs() / b.abs()).tolist()
 
 
+Q_WINDOW_USEC = 50.0      # (i)'s ofnxm window, ± µs: 125 delays
+Q_WINDOWS = (127, 251, 512, 1024)   # allowed delays of the timed windows
+Q_BATCHES = (2048, 8192)
+Q_UNIONS = (251, 512)     # |union| of the timed NxMx2 fit windows
+Q_REPS = 5
+Q_AMP_TOL = 1e-5          # direct vs irfft: of the column's largest |value|
+Q_CHI2_TOL = 1e-5         # … and χ² of the event's χ²₀
+Q_F64_TOL = 1e-9          # float64 card vs CPU: of the column's max |value|
+Q_F64_LM_TOL = 1e-7       # rftau's LM columns (tests/test_torch_features_
+#                           coverage.py: its steps' accept at rounding level)
+Q_TSHELL_EVENTS = 4
+Q_F64_BATCH = 512         # float64 buffers: 512 MiB a batch
+Q_RFTAU = ("risetime_rftau", "falltime_rftau", "amplitud_rftau",
+           "chisq_rftau")
+
+
+def q_constrained_config(n=tentry.SHELL_N, pretrig=tentry.SHELL_PRETRIG):
+    """(i)'s chan1 with only a constrained fit at ±Q_WINDOW_USEC: no other
+    spec on its slot computes the full delay series."""
+    return {"feature": {
+        "trace_length_samples": n, "pretrigger_length_samples": pretrig,
+        "chan1": {"of1x1_constrained": {
+            "run": True, "window_min_from_trig_usec": -Q_WINDOW_USEC,
+            "window_max_from_trig_usec": Q_WINDOW_USEC}}}}
+
+
+def q_window(width, n=N, centre=PRETRIG):
+    """A boolean delay mask of ``width`` allowed delays around ``centre``."""
+    mask = np.zeros(n, bool)
+    mask[centre - width // 2:centre - width // 2 + width] = True
+    return mask
+
+
+def q_tie_gap(dchi2, a, b):
+    """|Δχ²(a) − Δχ²(b)| / |Δχ²(b)| of the series ``dchi2`` [E, N] at the
+    absolute indices ``a``, ``b`` [E] (float64)."""
+    rows = torch.arange(len(a), device=dchi2.device)
+    x, y = dchi2[rows, a].double(), dchi2[rows, b].double()
+    return ((x - y).abs() / y.abs()).tolist()
+
+
+def q_compare(direct, irfft, dchi2, chi2_0, pretrig, what, amp="amp",
+              n=N):
+    """The direct route's fit against the irfft route's on the same
+    spectra: amplitudes within Q_AMP_TOL of the column's largest |value|,
+    χ² within Q_CHI2_TOL of χ²₀, t0 the same sample or one sample apart
+    where the two delays' Δχ² (``dchi2`` [E, N], the irfft route's) tie
+    within P_TIE_RTOL. ``chi2_0`` [E]: each event's χ²₀."""
+    a_d = getattr(direct, amp).reshape(len(direct.chi2), -1)
+    a_i = getattr(irfft, amp).reshape(len(irfft.chi2), -1)
+    c_d, c_i = direct.chi2.reshape(-1), irfft.chi2.reshape(-1)
+    t_d = (direct.t0.reshape(-1) * FS).round().long()
+    t_i = (irfft.t0.reshape(-1) * FS).round().long()
+    ties = torch.nonzero(t_d != t_i)[:, 0]
+    gap = q_tie_gap(dchi2[ties], (t_d[ties] + pretrig) % n,
+                    (t_i[ties] + pretrig) % n) if len(ties) else []
+    amp_err = float((a_d - a_i).abs().max() / a_i.abs().max())
+    chi2_err = float(((c_d - c_i).abs() / chi2_0.reshape(-1).abs()).max())
+    log(f"[q] {what}: amp {amp_err:.3e} of the largest (tol {Q_AMP_TOL:g}),"
+        f" χ² {chi2_err:.3e} of χ²₀ (tol {Q_CHI2_TOL:g}), t0 the same "
+        f"sample in {len(t_d) - len(ties)} events, one apart in {len(ties)}"
+        f" (ties within {max(gap, default=0.0):.3e}, tol {P_TIE_RTOL:g})")
+    if not (amp_err <= Q_AMP_TOL and chi2_err <= Q_CHI2_TOL
+            and bool(((t_d - t_i).abs() <= 1).all())
+            and all(g <= P_TIE_RTOL for g in gap)):
+        raise RuntimeError(f"{what}: the direct route disagrees")
+
+
+def q_read(paths, plan, device):
+    """(i)'s events of ``paths`` on the card in float32 amps [E, C, N], the
+    channels the plan reads."""
+    chans = list(plan.read_channels or tentry.SHELL_CHANNELS)
+    sel = [tentry.SHELL_CHANNELS.index(c) for c in chans]
+    conv = torch.as_tensor(tentry.shell_conv()[sel], dtype=torch.float32,
+                           device=device)
+    out = []
+    for path in paths:
+        codes = np.fromfile(path, np.int16).reshape(
+            -1, len(tentry.SHELL_CHANNELS), tentry.SHELL_N)[:, sel]
+        x = torch.as_tensor(np.ascontiguousarray(codes)).to(device)
+        out.append(adc_convert(x, conv.expand(len(x), -1)))
+    return torch.cat(out)
+
+
+def q_routes(device, card, errs, index):
+    """Both routes on the spectra of the shells' own batches, and the
+    route each shell picked; returns the constrained-only shell's
+    launches and (i)'s step, spectra and plan for the timings."""
+    fd = tentry.coverage_filter_data()
+    shells = {"coverage": FeatureProcessing(
+                  index, tentry.coverage_config(), fd, verbose=False,
+                  device=device),
+              "constrained": FeatureProcessing(
+                  index, q_constrained_config(), fd, verbose=False,
+                  device=device)}
+    bin_w = filterbank.half_bin_weights(tentry.SHELL_N)
+    n = tentry.SHELL_N
+    keep = {}
+    for name, shell in shells.items():
+        (group,) = shell._plan.groups
+        (step,) = shell.group_steps()
+        x = q_read(index.paths, shell._plan, device)
+        vh = step._spectra(step._mix(x))
+        if name == "constrained":
+            chan1 = x[:COV_BATCH, 0].contiguous()
+        pre = step.of_pretrigger
+        for spec in step.specs:
+            key = (spec.algorithm, spec.channel)
+            if spec.base == "of1x1_constrained":
+                mask = step.masks[key]
+                width = int(mask.sum())
+                picked = key in step.direct
+                b = step.bank
+                sl = slice(spec.slot, spec.slot + 1)
+                half = (b["phi_h"][sl], b["norm"][sl], b["denom_inv_h"][sl],
+                        b["s_fft_h"][sl], b["bin_w"])
+                vr = vh[spec.chan_idx][:, None, :]
+                low = step.low[float(spec.kwargs.get("lowchi2_fcutoff",
+                                                     10000))]
+                tab = of1x1.prepare_delay_window(mask.cpu().numpy(), pre, n,
+                                                 bin_w)
+                table = of1x1.direct_table(tab[2], tab[3], device,
+                                           torch.float32)
+                direct = of1x1.of1x1_windowed_direct_half(
+                    vr, *half, pre, FS, tab[0], tab[1], table, low_mask_h=low,
+                    n=n)
+                irfft = of1x1.of1x1_withdelay_half(
+                    vr, *half, pre, FS, window_mask=mask, low_mask_h=low, n=n)
+                q = torch.roll(fft.irfft(half[0] * vr, n) * n, pre, dims=-1)
+                dchi2 = (q * q / half[1][..., None])[:, 0]
+                chi2_0 = irfft.chi2_nopulse
+            elif spec.base == "ofnxm":
+                mask = step.masks[key]
+                width = int(mask.sum())
+                picked = key in step.direct
+                nb = step.nxm[spec.nxm_key]
+                vr = torch.stack([vh[c] for c in spec.nxm_chan_idx], dim=1)
+                args = (vr, nb["phi_h"], nb["iw_matrix"], nb["icsd_h"],
+                        nb["bin_w"], pre, FS, n)
+                tab = of1x1.prepare_delay_window(mask.cpu().numpy(), pre, n,
+                                                 bin_w)
+                direct = ofnxm.ofnxm_withdelay_direct_half(
+                    *args, tab[0], tab[1], of1x1.direct_table(
+                        tab[2], tab[3], device, torch.float32))
+                irfft = ofnxm.ofnxm_withdelay_half(*args, window_mask=mask)
+                q = ofnxm.q_timeseries_half(vr, nb["phi_h"], pre, n)
+                dchi2 = torch.einsum("...it,ij,...jt->...t", q,
+                                     nb["iw_matrix"], q)
+                chi2_0 = ofnxm.chi2_base_nxm_half(vr, nb["icsd_h"],
+                                                  nb["bin_w"], FS, n)
+                keep["nxm"] = (args, mask)
+            elif spec.base == "ofnxmx2":
+                consts = step.nxmx2[key]
+                union = np.union1d(consts["idx1"].cpu().numpy(),
+                                   consts["idx2"].cpu().numpy())
+                log(f"[q] {name} shell: {spec.algorithm} on {spec.channel}:"
+                    f" |union| {len(union)}, DIRECT_UNION_MAX "
+                    f"{ofnxm.DIRECT_UNION_MAX}: the shell took the "
+                    f"{'direct' if 'union' in consts else 'irfft'} route")
+                if ("union" in consts) != (len(union)
+                                           <= ofnxm.DIRECT_UNION_MAX):
+                    raise RuntimeError("ofnxmx2: the shell's route is not "
+                                       "the constant's")
+                keep["nxmx2"] = (spec, group, step, vh[spec.nxm_chan_idx[0]]
+                                 [:, None, :], pre)
+                continue
+            else:
+                continue
+            log(f"[q] {name} shell: {spec.algorithm} on {spec.channel}: "
+                f"{width} allowed delays, DIRECT_WINDOW_MAX "
+                f"{fplan.DIRECT_WINDOW_MAX}: the shell took the "
+                f"{'direct' if picked else 'irfft'} route")
+            if picked != (width <= fplan.DIRECT_WINDOW_MAX):
+                raise RuntimeError(f"{spec.algorithm}: the shell's route is "
+                                   "not the constant's")
+            q_compare(direct, irfft, dchi2, chi2_0, pre,
+                      f"{name} shell, {spec.algorithm} on {spec.channel}, "
+                      f"{len(x)} events, direct against irfft",
+                      amp="amps" if spec.base == "ofnxm" else "amp")
+        del x, vh
+    _kernels.reset_launch_counts()
+    nbatch = -(-COV_EVENTS // COV_BATCH)
+    table, _, _ = run_shell(shells["constrained"], "constrained-only chan1,"
+                            " first call", card, phase="q",
+                            batch_size=COV_BATCH, nreaders=SHELL_READERS)
+    launches = _kernels.launch_counts()
+    library = _kernels.library_counts()
+    want = {"rfft": nbatch, "fused_nodelay_of": 0, "cufft_rfft": 0,
+            "cufft_rfft_f64": 0}
+    log(f"[q] constrained-only shell: launches {launches}, library route "
+        f"{library} (expected {want})")
+    if {**launches, **library} != want:
+        raise RuntimeError("constrained-only shell: launches")
+    compare_rfft(chan1, errs, "q")
+    t0 = np.rint(table["t0_of1x1_constrained_chan1"] * FS)
+    half = int(Q_WINDOW_USEC * 1e-6 * FS)
+    if not (np.isfinite(table["amp_of1x1_constrained_chan1"]).all()
+            and np.all(np.abs(t0) <= half + 1)):
+        raise RuntimeError("constrained-only shell: t0 outside the window")
+    return launches, keep
+
+
+def q_timings(device, card, keep):
+    """Both routes timed at the widths and batches of Q_WINDOWS and
+    Q_BATCHES (of1x1), (i)'s ofnxm at W = 127, and the NxMx2 union scan at
+    Q_UNIONS; returns the largest W and |union| at which direct won."""
+    bank, template, _ = build_bank(N, PRETRIG, FS)
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    tmpl = torch.as_tensor(template, dtype=torch.float32, device=device)
+    psd_half = torch.as_tensor(bank.psd[0][:N // 2 + 1], dtype=torch.float32,
+                               device=device)
+    tr, _ = synth_batch(gen, torch.sqrt(psd_half * FS * N / 2.0), tmpl,
+                        max(Q_BATCHES), N)
+    tb = filterbank.bank_to_torch(bank, device, torch.float32)
+    half = (tb["phi_h"], tb["norm"], tb["denom_inv_h"], tb["s_fft_h"],
+            tb["bin_w"])
+    low = torch.as_tensor(of1x1.lowfreq_mask_half(N, FS, LOW_FCUT),
+                          device=device)
+    vr_all = fft.rfft(tr)[:, None, :]
+    del tr
+    bin_w = filterbank.half_bin_weights(N)
+    wins = {}
+    rows = []
+    for batch in Q_BATCHES:
+        vr = vr_all[:batch]
+        for width in Q_WINDOWS:
+            mask = q_window(width)
+            tab = of1x1.prepare_delay_window(mask, PRETRIG, N, bin_w)
+            eidx = torch.as_tensor(tab[0], dtype=torch.int64, device=device)
+            valid = torch.as_tensor(tab[1], device=device)
+            table = of1x1.direct_table(tab[2], tab[3], device, torch.float32)
+            mask_d = torch.as_tensor(mask, device=device)
+
+            def direct():
+                return of1x1.of1x1_windowed_direct_half(
+                    vr, *half, PRETRIG, FS, eidx, valid, table,
+                    low_mask_h=low, n=N)
+
+            def irfft():
+                return of1x1.of1x1_withdelay_half(
+                    vr, *half, PRETRIG, FS, window_mask=mask_d,
+                    low_mask_h=low, n=N)
+
+            d_ms, i_ms = time_pair(direct, irfft, reps=Q_REPS)
+            # the GEMM's operations and the tables' bytes beside the time
+            gflop = 2.0 * batch * 2 * (N // 2 + 1) * (width + 2) / 1e9
+            rows.append((batch, width, d_ms, i_ms))
+            wins.setdefault(width, []).append(d_ms < i_ms)
+            log(f"[q] of1x1 constrained [{batch}, {N}], W = {width}: direct "
+                f"{d_ms:.4f} ms ({gflop:.2f} GFLOP in its GEMM, "
+                f"{gflop / d_ms:.1f} TFLOP/s if it took all the time), irfft "
+                f"{i_ms:.4f} ms: {'direct' if d_ms < i_ms else 'irfft'} "
+                f"faster by {abs(i_ms - d_ms) / max(d_ms, i_ms) * 100:.1f}%; "
+                f"on {card}")
+            del table
+    del vr_all
+    window_max = max((w for w in Q_WINDOWS if all(
+        all(wins[v]) for v in Q_WINDOWS if v <= w)), default=0)
+
+    args, _ = keep["nxm"]
+    mask = q_window(Q_WINDOWS[0], tentry.SHELL_N, tentry.SHELL_PRETRIG)
+    pre = args[5]
+    tab = of1x1.prepare_delay_window(mask, pre, tentry.SHELL_N,
+                                     filterbank.half_bin_weights(
+                                         tentry.SHELL_N))
+    table = of1x1.direct_table(tab[2], tab[3], device, torch.float32)
+    mask_d = torch.as_tensor(mask, device=device)
+    d_ms, i_ms = time_pair(
+        lambda: ofnxm.ofnxm_withdelay_direct_half(*args, tab[0], tab[1],
+                                                  table),
+        lambda: ofnxm.ofnxm_withdelay_half(*args, window_mask=mask_d),
+        reps=Q_REPS)
+    nxm_ok = d_ms < i_ms
+    log(f"[q] ofnxm (i)'s chan1|chan2, C = {args[0].shape[1]}, M = "
+        f"{args[2].shape[0]}, [{args[0].shape[0]}, {tentry.SHELL_N}], W = "
+        f"{Q_WINDOWS[0]}: direct {d_ms:.4f} ms, irfft {i_ms:.4f} ms: "
+        f"{'direct' if nxm_ok else 'irfft'} faster; on {card}")
+    if not nxm_ok:
+        window_max = 0
+
+    spec, group, step, vr, pre = keep["nxmx2"]
+    nb = step.nxm[spec.nxm_key]
+    gids = np.asarray(spec.kwargs["template_group_ids"])
+    union_max, beat = 0, True
+    for width in Q_UNIONS:
+        lo = pre - 30
+        w1 = np.zeros(tentry.SHELL_N, bool)
+        w1[lo:pre + 31] = True
+        w2 = np.zeros(tentry.SHELL_N, bool)
+        w2[pre - 10:lo + width] = True
+        assert len(np.union1d(np.flatnonzero(w1), np.flatnonzero(w2))) \
+            == width
+        plan = ofnxm.nxmx2_plan(group.nxm_banks[spec.nxm_key], gids, w1, w2)
+        consts = {d: ofnxm.nxmx2_tensors(
+            plan, device, torch.float32, pre, tentry.SHELL_N,
+            filterbank.half_bin_weights(tentry.SHELL_N), direct=d)
+            for d in (True, False)}
+        fit = {d: (lambda c=c: ofnxm.ofnxmx2_half(
+            vr, nb["phi_h"], nb["icsd_h"], nb["bin_w"], c, pre, FS,
+            tentry.SHELL_N)) for d, c in consts.items()}
+        r_d, r_i = fit[True](), fit[False]()
+        same = r_d.deltat == r_i.deltat
+        amp_err = float((r_d.amps - r_i.amps)[same].abs().max()
+                        / r_i.amps.abs().max())
+        d_ms, i_ms = time_pair(fit[True], fit[False], reps=Q_REPS)
+        log(f"[q] ofnxmx2 (i)'s chan1, M = 2, [{vr.shape[0]}, "
+            f"{tentry.SHELL_N}], |union| = {width} (W1 61, W2 "
+            f"{int(w2.sum())}): direct {d_ms:.4f} ms, irfft {i_ms:.4f} ms: "
+            f"{'direct' if d_ms < i_ms else 'irfft'} faster; the same Δt in "
+            f"{float(same.double().mean()):.4f} of the events (at least "
+            f"{1 - COV_DELAY_MISMATCH:g}), amplitudes there within "
+            f"{amp_err:.3e} of the largest (tol {COV_RTOL['amp']:g}, (i)'s "
+            f"for the joint fits); on {card}")
+        if not (amp_err <= COV_RTOL["amp"]
+                and float(same.double().mean()) >= 1 - COV_DELAY_MISMATCH):
+            raise RuntimeError("ofnxmx2: the direct union disagrees")
+        beat = beat and d_ms < i_ms
+        if beat:
+            union_max = width
+    return window_max, union_max
+
+
+def q_compare_tables(got, ref, rows, what, rftau=False):
+    """Rows ``rows`` of the card's float64 table against the CPU's float64
+    table: every float column within Q_F64_TOL of its largest |value|
+    (rftau's LM columns within Q_F64_LM_TOL), the others exactly."""
+    worst, worst_lm = 0.0, 0.0
+    for key, r in ref.items():
+        g = np.asarray(got[key])[rows]
+        r = np.asarray(r)
+        if r.dtype.kind != "f":
+            same = [a == b or (a != a and b != b) for a, b in zip(g, r)]
+            if not all(same):
+                raise RuntimeError(f"{what}: {key} differs")
+            continue
+        g, r = g.astype(np.float64), r.astype(np.float64)
+        if not np.array_equal(np.isnan(g), np.isnan(r)):
+            raise RuntimeError(f"{what}: {key} missing on other rows")
+        ok = ~np.isnan(r)
+        scale = float(np.max(np.abs(r[ok]), initial=0.0)) or 1.0
+        err = float(np.max(np.abs(g[ok] - r[ok]), initial=0.0)) / scale
+        lm = rftau and key.startswith(Q_RFTAU)
+        tol = Q_F64_LM_TOL if lm else Q_F64_TOL
+        if lm:
+            worst_lm = max(worst_lm, err)
+        else:
+            worst = max(worst, err)
+        if not err <= tol:
+            raise RuntimeError(f"{what}: {key} off by {err:.3e} of its "
+                               f"largest value (tol {tol:g})")
+    log(f"[q] {what}: {len(rows)} rows; every column within {worst:.3e} of "
+        f"its largest |value| (tol {Q_F64_TOL:g})"
+        + (f", rftau's LM columns {worst_lm:.3e} (tol {Q_F64_LM_TOL:g})"
+           if rftau else ""))
+
+
+def q_float64(device, card):
+    """(i)'s events and (h)'s first events in float64 on the card against
+    the float64 CPU runs; returns each path's launches."""
+    shared = SHARED["i"]
+    index = shared["index"]
+    shell = FeatureProcessing(index, tentry.coverage_config(),
+                              tentry.coverage_filter_data(), verbose=False,
+                              device=device)
+    kw = dict(batch_size=Q_F64_BATCH, nreaders=2, dtype=np.float64)
+    nbatch = -(-COV_EVENTS // Q_F64_BATCH)
+    _kernels.reset_launch_counts()
+    t = time.perf_counter()
+    table = shell.process(**kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches, library = _kernels.launch_counts(), _kernels.library_counts()
+    want = {"rfft": 0, "fused_nodelay_of": 0, "cufft_rfft": 0,
+            "cufft_rfft_f64": COV_SPECTRAL * nbatch}
+    log(f"[q] coverage in float64 on the card: launches {launches}, library "
+        f"route {library} (expected {want}); first call {first_s:.3f} s")
+    if {**launches, **library} != want:
+        raise RuntimeError("float64 coverage: launches")
+    q_compare_tables(table, shared["ref"], shared["pos"],
+                     f"coverage in float64, (i)'s rows of its float64 CPU "
+                     "run",
+                     rftau=True)
+    t = time.perf_counter()
+    shell.process(**kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    log(f"[q] coverage in float64 on the card, second call: "
+        f"{COV_EVENTS / warm_s:.1f} rows/s beside (i)'s float32 "
+        f"{shared['rows_per_s']:.1f} rows/s (host clock, process() call to "
+        f"returned columns); on {card}")
+
+    h = SHARED["h"]
+    sub = h["index"].subset(h["index"].order[:Q_TSHELL_EVENTS])
+    tkw = dict(event_batch=Q_TSHELL_EVENTS, capacity=TSHELL_CAPACITY,
+               dtype=np.float64)
+    _kernels.reset_launch_counts()
+    t = time.perf_counter()
+    tcard = TriggerProcessing(sub, h["config"], h["fd"], verbose=False,
+                              device=device).process(**tkw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    tlaunches = _kernels.launch_counts()
+    tlibrary = _kernels.library_counts()
+    per = h["per_batch"]
+    twant = {"rfft": 0, "fused_nodelay_of": 0, "cufft_rfft": 0,
+             "cufft_rfft_f64": per["rfft"] + per["cufft_rfft"]}
+    log(f"[q] trigger shell in float64 on the card, (h)'s first "
+        f"{Q_TSHELL_EVENTS} events: {card_s:.3f} s; launches {tlaunches}, "
+        f"library route {tlibrary} (expected {twant})")
+    if {**tlaunches, **tlibrary} != twant:
+        raise RuntimeError("float64 trigger shell: launches")
+    t = time.perf_counter()
+    tcpu = TriggerProcessing(sub, h["config"], h["fd"], verbose=False,
+                             device="cpu").process(**tkw)
+    log(f"[q] the same on the CPU in float64: {time.perf_counter() - t:.1f} "
+        "s")
+    if list(tcard) != list(tcpu) or len(tcard["trigger_index"]) != len(
+            tcpu["trigger_index"]):
+        raise RuntimeError("float64 trigger shell: rows or columns differ")
+    q_compare_tables(tcard, tcpu, np.arange(len(tcpu["trigger_index"])),
+                     "trigger shell in float64 vs the float64 CPU run")
+    return {"coverage_f64": launches, "trigger_shell_f64": tlaunches}
+
+
+def phase_q(device, card, errs):
+    """The direct windowed delay fits against the irfft route, timed, and
+    float64 runs on the card; returns each path's launches."""
+    t_phase = time.perf_counter()
+    launches, keep = q_routes(device, card, errs, SHARED["i"]["index"])
+    window_max, union_max = q_timings(device, card, keep)
+    log(f"[q] this run: direct faster at every timed width up to "
+        f"{window_max} (of1x1 at B in {Q_BATCHES}, and ofnxm at W = "
+        f"{Q_WINDOWS[0]}) and every timed |union| up to {union_max}; the "
+        f"port's DIRECT_WINDOW_MAX {fplan.DIRECT_WINDOW_MAX}, "
+        f"DIRECT_UNION_MAX {ofnxm.DIRECT_UNION_MAX}: "
+        + ("supported" if (fplan.DIRECT_WINDOW_MAX, ofnxm.DIRECT_UNION_MAX)
+           == (window_max, union_max) else "not what this run supports"))
+    out = {"constrained_direct": launches, **q_float64(device, card)}
+    log(f"[q] phase seconds: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=os.path.abspath, default=None,
@@ -5131,13 +5643,22 @@ def main(argv=None):
         parent_fft = import_tree(args.parent, "ops.cuda_fft")
         parent_fft._kernels.build()
     regs = phase_b()
+    try:
+        return run_phases(device, card, regs, parent_fft)
+    finally:
+        for tmp in KEPT_DIRS:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(device, card, regs, parent_fft):
+    """Phases (c) to (q) and the summary lines."""
     errs = phase_c(device)
     launches, timings, clocks = phase_d(device, card, errs, regs, parent_fft)
     trig_launches, trig_timings = phase_e(device, card, errs)
     phase_f(device, card)
     shell_launches = phase_g(device, card, errs)
-    tshell_launches = phase_h(device, card, errs)
-    cov_launches = phase_i(device, card, errs)
+    tshell_launches = phase_h(device, card, errs, keep=True)
+    cov_launches = phase_i(device, card, errs, keep=True)
     fg_launches = phase_j(device, card, errs)
     salt_launches = phase_k(device, card, errs)
     mode_launches = phase_l(device, card, errs)
@@ -5145,6 +5666,7 @@ def main(argv=None):
     cli_launches = phase_n(device, card, errs)
     mesh_launches = phase_o(device, card, errs)
     api_launches = phase_p(device, card, errs)
+    q_launches = phase_q(device, card, errs)
     kernels = []
     for name in _kernels.KERNELS:
         b_ms, b_by = bound(name, N, BATCH)
@@ -5165,7 +5687,9 @@ def main(argv=None):
                        for path, counts in cli_launches.items()},
                     **{path: counts[name]
                        for path, counts in mesh_launches.items()},
-                    "api_rest": api_launches[name]}
+                    "api_rest": api_launches[name],
+                    **{path: counts[name]
+                       for path, counts in q_launches.items()}}
         rfft = name == "rfft"
         kernels.append({
             "name": name, "route": "cuda",

@@ -16,6 +16,15 @@ preallocated buffer:
 dataset to its block (h5py's own module is imported only when they are
 called, with a dataset of an open file); ``io/rawdata.py`` indexes
 pytesdaq files with them.
+
+A dataset that is not one such block (chunked, compressed, compact,
+big-endian or unallocated storage) is named by an :class:`H5Dataset`
+(path, dataset name, shape, native dtype) instead, and
+:meth:`FastReader.read` serves it through h5py hyperslabs, as the JAX
+reader falls back to h5py (JAX ``io/rawdata.py:502-520``), into the same
+destination buffers in the native form of the stored dtype: each thread
+keeps its own h5py handle a file. Only machines with h5py can index such
+a file, so this path adds no dependency.
 """
 
 from __future__ import annotations
@@ -31,6 +40,16 @@ import numpy as np
 class FastDataset(NamedTuple):
     path: str
     offset: int                     # absolute file offset of element 0
+    shape: Tuple[int, ...]
+    dtype: np.dtype                 # native-endian
+
+
+class H5Dataset(NamedTuple):
+    """An event dataset read through h5py (storage the pread path cannot
+    serve)."""
+
+    path: str
+    name: str                       # the dataset's path in the file
     shape: Tuple[int, ...]
     dtype: np.dtype                 # native-endian
 
@@ -81,6 +100,7 @@ class FastReader:
         self._lock = threading.Lock()
         self._thread_caches: list = []   # [(weakref(thread), fds dict)]
         self._entries: dict = {}         # (path, dataset) → entry or None
+        self._h5_files: list = []        # every h5py handle, for close()
 
     def resolve(self, path: str, ds) -> Optional[FastDataset]:
         """The :class:`FastDataset` of the h5py dataset ``ds`` of the file
@@ -137,21 +157,38 @@ class FastReader:
             self._all_fds.add(fd)
         return fd
 
-    def read(self, entry: FastDataset,
-             window: Optional[Tuple[int, int]] = None,
+    def _h5(self, path: str):
+        """This thread's h5py handle of ``path``."""
+        tls = self._tls
+        if getattr(tls, "h5_gen", None) != self._gen:
+            tls.h5, tls.h5_gen = {}, self._gen
+        f = tls.h5.get(path)
+        if f is None:
+            import h5py
+
+            f = tls.h5[path] = h5py.File(path, "r")
+            with self._lock:
+                self._h5_files.append(f)
+        return f
+
+    def read(self, entry, window: Optional[Tuple[int, int]] = None,
              rows=None, out: Optional[np.ndarray] = None) -> np.ndarray:
         """Read the whole dataset, or ``window=(start, length)`` sample
         columns of a [C, N] dataset (a negative start clamps to 0, an
         overrun truncates at N), or only the channel ``rows`` (each row is
         contiguous, so bytes read follow the rows asked for); both
         combine. ``out``: a C-contiguous array of the result's shape and
-        the dataset's dtype to read into."""
-        fd = self._fd(entry.path)
-        itemsize = entry.dtype.itemsize
+        the dataset's dtype to read into. ``entry`` is a
+        :class:`FastDataset` (pread) or an :class:`H5Dataset` (h5py)."""
+        h5 = isinstance(entry, H5Dataset)
         if window is None and rows is None:
             out = _out(out, entry.shape, entry.dtype)
-            self._pread_into(fd, out.reshape(-1).view(np.uint8),
-                             entry.offset, path=entry.path)
+            if h5:
+                self._h5(entry.path)[entry.name].read_direct(out)
+            else:
+                self._pread_into(self._fd(entry.path),
+                                 out.reshape(-1).view(np.uint8),
+                                 entry.offset, path=entry.path)
             return out
         if len(entry.shape) != 2:
             raise ValueError("windowed/row-subset fast reads need a "
@@ -167,6 +204,14 @@ class FastReader:
             stop = min(nsamp, start + max(0, int(length)))
             width = max(0, stop - start)
         out = _out(out, (len(row_list), width), entry.dtype)
+        if h5:
+            # one hyperslab of the window, then the rows asked for
+            if width and row_list:
+                ds = self._h5(entry.path)[entry.name]
+                out[...] = ds[:, start:start + width][row_list]
+            return out
+        fd = self._fd(entry.path)
+        itemsize = entry.dtype.itemsize
         row_bytes = nsamp * itemsize
         flat = out.view(np.uint8).reshape(len(row_list), -1)
         for i, c in enumerate(row_list):
@@ -198,6 +243,12 @@ class FastReader:
             self._gen += 1
             fds, self._all_fds = self._all_fds, set()
             self._thread_caches = []
+            h5_files, self._h5_files = self._h5_files, []
+        for f in h5_files:
+            try:
+                f.close()
+            except Exception:
+                pass
         for fd in fds:
             try:
                 os.close(fd)

@@ -10,9 +10,11 @@ every run, the port resolves each event once into a :class:`RawIndex`:
   stamps), detector config and the metadata dict of the JAX reader's
   ``get_metadata``;
 - per event: a :class:`~detprocess_tpu_torch.io.fastio.FastDataset`
-  (path, offset, shape, stored dtype) and ``event_id``, ``event_number``,
-  ``event_time``, ``trigger_type`` as numpy arrays, so that a batch's
-  admin columns are gathers, not dicts.
+  (path, offset, shape, stored dtype), or an
+  :class:`~detprocess_tpu_torch.io.fastio.H5Dataset` for storage that
+  pread cannot serve, and ``event_id``, ``event_number``, ``event_time``,
+  ``trigger_type`` as numpy arrays, so that a batch's admin columns are
+  gathers, not dicts.
 
 Two ways to build one:
 
@@ -20,8 +22,9 @@ Two ways to build one:
   imported when it is called, with the JAX reader's event naming and
   fallback (``RawReader._event_dataset`` :249, ``_read_event``
   :456-560). A dataset that is not contiguous, unfiltered little-endian
-  storage (chunked, compressed) is refused by name: the reader has no
-  h5py to fall back on;
+  storage (chunked, compressed, compact, big-endian, unallocated) gets an
+  ``fastio.H5Dataset`` entry, which every reader serves through h5py
+  hyperslabs, as the JAX reader does;
 - :meth:`RawIndex.from_flat` indexes flat dump files (:func:`write_flat_dump`:
   events back to back, each a C-order [C, N] block of the stored dtype),
   which need no HDF5 at all.
@@ -65,7 +68,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from detprocess_tpu_torch.io.fastio import (FastDataset, FastReader,
-                                            dataset_storage)
+                                            H5Dataset, dataset_storage)
 from detprocess_tpu_torch.utils.channels import (SERIES_RE,
                                                  series_name_to_number)
 
@@ -124,8 +127,9 @@ class RawIndex:
     ``files`` in path order; ``events`` holds ``file`` (index into
     ``files``), ``event_id``, ``event_number``, ``trigger_type`` (int64)
     and ``event_time`` (float64) arrays and the ``datasets`` list of
-    FastDataset. ``order`` is the sequential reading order (default: row
-    order); ``lookup`` maps (file index, event number) to a row.
+    FastDataset or H5Dataset entries. ``order`` is the sequential reading
+    order (default: row order); ``lookup`` maps (file index, event number)
+    to a row.
     """
 
     EVENT_KEYS = ("file", "event_id", "event_number", "event_time",
@@ -428,16 +432,16 @@ def _file_admin(md: dict, path: str) -> dict:
     return admin
 
 
-def _fast_dataset(ds, path: str) -> FastDataset:
-    """The FastDataset of an h5py dataset, or a ValueError naming it when
-    its storage is not contiguous, allocated, unfiltered and
-    little-endian (``fastio.dataset_storage``)."""
+def _fast_dataset(ds, path: str):
+    """The FastDataset of an h5py dataset stored as one contiguous,
+    allocated, unfiltered, little-endian block
+    (``fastio.dataset_storage``), else its H5Dataset, which the readers
+    serve through h5py (chunked, compressed, compact, big-endian or
+    unallocated storage)."""
     storage = dataset_storage(ds)
     if storage is None:
-        raise ValueError(
-            f"raw file '{path}': dataset {ds.name} is not stored as a "
-            "contiguous, unfiltered, little-endian block (chunked or "
-            "compressed?); the pread reader cannot serve it")
+        return H5Dataset(path, ds.name, tuple(int(s) for s in ds.shape),
+                         ds.dtype.newbyteorder("="))
     return FastDataset(path, *storage)
 
 

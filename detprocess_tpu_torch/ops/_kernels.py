@@ -14,7 +14,8 @@ non-zero code. Each kernel has a plain-integer launch count, bumped by
 its wrapper right after an accepted launch and nowhere else. Beside them,
 each library route (a PyTorch call that serves a CUDA tensor the kernels
 do not take, such as cuFFT for a trace length outside the rFFT kernel's
-domain) has a count of its own, bumped where the route is taken.
+domain, or for float64 traces) has a count of its own, bumped where the
+route is taken.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
 
 KERNELS = ("rfft", "fused_nodelay_of")
-LIBRARY_ROUTES = ("cufft_rfft",)
+LIBRARY_ROUTES = ("cufft_rfft", "cufft_rfft_f64")
 
 _launches = {name: 0 for name in KERNELS}
 _library_calls = {name: 0 for name in LIBRARY_ROUTES}

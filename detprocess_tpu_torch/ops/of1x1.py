@@ -15,6 +15,14 @@ Delays are rolled by ``pretrigger`` so that absolute trace index i gives
 ``t0 = (i − pretrigger)/fs``. Shapes: ṽ_h [..., S, N/2+1], bank tensors
 [S, N/2+1] / [S], results [..., S].
 
+A constrained fit of a narrow window has two routes with the same
+results: the irfft route (:func:`of1x1_withdelay_half` with
+``window_mask``) evaluates q at all N delays by one inverse transform;
+the direct route (:func:`of1x1_windowed_direct_half`, JAX :566) evaluates
+it at the window's W delays only, one [B, 2K] × [2K, W] GEMM over the
+tables of :func:`prepare_delay_window`. The feature plan picks the direct
+route up to ``pipelines/feature_plan.DIRECT_WINDOW_MAX`` delays.
+
 The full-spectrum forms of the JAX module (:func:`signal_fft`,
 :func:`chi2_base`, :func:`lowfreq_mask`, :func:`of1x1_nodelay`,
 :func:`of1x1_withdelay`, :func:`time_resolution` and :func:`of1x2`) are
@@ -266,6 +274,107 @@ def of1x1_withdelay_half(vr, phi_h, norm, denom_inv_h, s_fft_h, bin_w,
         lowchi2 = _residual_chi2_half(vr, amp, shift, s_fft_h, denom_inv_h,
                                       bin_w, low_mask_h, n)
     return OF1x1Result(amp, t0, chi2, lowchi2, c0)
+
+
+def prepare_delay_window(window_mask, pretrigger: int, n: int,
+                         bin_w: Optional[np.ndarray] = None):
+    """Host tables of the direct windowed delay fits (JAX :525): ``(eval_idx
+    [W], valid [W], cos_mat [K, W], sin_mat [K, W])``.
+
+    ``window_mask`` is the boolean [N] over absolute trace indices. Each
+    contiguous run of allowed indices is extended by one guard sample on
+    each side (modulo N, the irfft route's ``(idx ± 1) % n`` neighbours);
+    ``valid`` marks the allowed positions. With ``bin_w`` (the half
+    spectrum, K = N//2+1) the tables carry the bin weights, so that
+    q(eval_idx) = Re(prod)@cos − Im(prod)@sin with prod = φ_h·ṽ_h; without
+    it they span the full spectrum (K = N, unit weights)."""
+    window_mask = np.asarray(window_mask, bool)
+    if window_mask.shape[-1] != n:
+        raise ValueError("window_mask length != n")
+    idx = np.flatnonzero(window_mask)
+    if idx.size == 0:
+        raise ValueError("empty delay window")
+    eval_idx, valid = [], []
+    for run in np.split(idx, np.flatnonzero(np.diff(idx) > 1) + 1):
+        eval_idx.extend([(run[0] - 1) % n, *run, (run[-1] + 1) % n])
+        valid.extend([False, *([True] * len(run)), False])
+    eval_idx = np.asarray(eval_idx, np.int32)
+    return (eval_idx, np.asarray(valid, bool),
+            *delay_tables(eval_idx, pretrigger, n, bin_w))
+
+
+def delay_tables(idx, pretrigger: int, n: int, bin_w=None):
+    """(cos [K, W], sin [K, W]) of θ = 2πk·((idx − pretrigger) mod N)/N at
+    the absolute trace indices ``idx`` [W], times ``bin_w`` [K] (K = N//2+1)
+    where given, else over the full spectrum (K = N) unweighted."""
+    k = np.arange(n if bin_w is None else len(bin_w), dtype=np.float64)
+    d = (np.asarray(idx).astype(np.int64) - pretrigger) % n
+    theta = 2.0 * np.pi * k[:, None] * d[None, :] / n
+    w = (np.ones((1, 1)) if bin_w is None
+         else np.asarray(bin_w, np.float64)[:, None])
+    return np.cos(theta) * w, np.sin(theta) * w
+
+
+def direct_table(cos_mat, sin_mat, device, dtype) -> torch.Tensor:
+    """The cos/sin tables [K, W] of :func:`prepare_delay_window` as one
+    [2K, W] tensor whose rows interleave cos and −sin, so that
+    q = view_as_real(prod).flatten(-2) @ table: one GEMM."""
+    table = np.stack([np.asarray(cos_mat), -np.asarray(sin_mat)], axis=1)
+    return torch.as_tensor(table.reshape(-1, table.shape[-1]), dtype=dtype,
+                           device=device)
+
+
+def window_q(prod: torch.Tensor, table) -> torch.Tensor:
+    """q [..., W] of the complex products ``prod`` [..., K] at the window
+    samples of ``table`` ([2K, W] of :func:`direct_table`, or the pair
+    (cos [K, W], sin [K, W]) as numpy or tensors), in full float32 on the
+    card (TF32 off, ``device.set_full_f32``)."""
+    if isinstance(table, tuple):
+        table = direct_table(*table, prod.device, prod.real.dtype)
+    return torch.view_as_real(prod.contiguous()).flatten(-2) @ table
+
+
+def of1x1_windowed_direct_half(vr, phi_h, norm, denom_inv_h, s_fft_h, bin_w,
+                               pretrigger: int, fs: float, eval_idx, valid,
+                               cos_mat, sin_mat=None, low_mask_h=None,
+                               interpolate_t0: bool = False,
+                               n: Optional[int] = None) -> OF1x1Result:
+    """Constrained delay-scan OF fit by a direct windowed DFT (JAX :566):
+    q(d) = Σ_k w_k Re(φ_k ṽ_k e^{2πikd/N}) at the W window samples of
+    :func:`prepare_delay_window` only, one [B, 2K] × [2K, W] GEMM in place
+    of the irfft route's [N]-point inverse transform. Equal to
+    ``of1x1_withdelay_half(window_mask=...)``. ``cos_mat`` may be the
+    [2K, W] tensor of :func:`direct_table` (``sin_mat`` None)."""
+    nh = vr.shape[-1]
+    n = n if n is not None else 2 * (nh - 1)
+    table = cos_mat if sin_mat is None else (cos_mat, sin_mat)
+    qw = window_q(phi_h * vr, table)                       # [..., S, W]
+    c0 = chi2_base_half(vr, denom_inv_h, bin_w)
+    dchi2 = qw * qw / norm[..., None]
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=vr.device)
+    p = torch.argmax(torch.where(valid, dchi2,
+                                 torch.full_like(dchi2, -math.inf)), dim=-1)
+    eval_idx = torch.as_tensor(eval_idx, dtype=torch.int64, device=vr.device)
+    t0_idx = eval_idx[p].to(qw.dtype) - pretrigger
+    if interpolate_t0:
+        # the guard samples put the neighbours idx ± 1 (mod N) at window
+        # positions p ± 1 of every allowed winner: no wrap here
+        delta, gain = parabola_refit(dchi2, p, p - 1, p + 1)
+        pick = DelayPick(p, p - 1, p + 1, delta, gain, t0_idx + delta)
+        amp = interp_amp(qw, norm, pick)
+        chi2 = c0 - gain
+        shift = pick.shift
+    else:
+        q_best = _take_last(qw, p)
+        amp = q_best / norm
+        chi2 = c0 - q_best * q_best / norm
+        shift = t0_idx
+    if low_mask_h is None:
+        lowchi2 = torch.full_like(chi2, -999999.0)
+    else:
+        lowchi2 = _residual_chi2_half(vr, amp, shift, s_fft_h, denom_inv_h,
+                                      bin_w, low_mask_h, n)
+    return OF1x1Result(amp, shift / fs, chi2, lowchi2, c0)
 
 
 class OF1x2Result(NamedTuple):

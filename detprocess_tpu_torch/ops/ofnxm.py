@@ -20,8 +20,15 @@ half product; χ²₀ is the half sum with the weights w of
 argument of the trigger's FIR (``ops/trigger.make_trigger_kernel``), and
 it lets the NxM fits share the spectra of the other fits.
 
+A constrained NxM fit and the NxMx2 pair scan also have a direct route
+(:func:`ofnxm_withdelay_direct_half`; the ``union`` table of
+:func:`nxmx2_tensors`, up to :data:`DIRECT_UNION_MAX` shifts): q at the
+window's shifts only, one GEMM over ``of1x1.prepare_delay_window``'s
+tables in place of M inverse transforms, with the same results.
+
 The JAX full-spectrum forms (:func:`chi2_base_nxm`, :func:`ofnxm_nodelay`,
-:func:`ofnxm_withdelay`, :func:`ofnxmx2`) are here too, as the plain
+:func:`ofnxm_withdelay`, :func:`ofnxm_withdelay_direct`, :func:`ofnxmx2`)
+are here too, as the plain
 formulas over all N bins of complex spectra ṽ [..., C, N] with the full
 bank (φ [C, M, N], J⁻¹ [N, C, C], s̃ [C, M, N]) and ``torch.fft``, with
 no assumption of symmetry: a user API. The shells use the half forms.
@@ -36,7 +43,9 @@ import numpy as np
 import torch
 
 from detprocess_tpu_torch.ops import fft
-from detprocess_tpu_torch.ops.of1x1 import pick_delay
+from detprocess_tpu_torch.ops.of1x1 import (delay_tables, direct_table,
+                                           parabola_refit, pick_delay,
+                                           window_q)
 
 
 class OFNxMResult(NamedTuple):
@@ -144,6 +153,60 @@ def ofnxm_withdelay_half(vr, phi_h, iw_matrix, icsd_h, bin_w,
                           pretrigger, fs, window_mask, interpolate_t0)
 
 
+def ofnxm_withdelay_direct(vfft, phi, w_matrix, iw_matrix, icsd,
+                           pretrigger: int, fs: float, eval_idx, valid,
+                           cos_mat, sin_mat=None,
+                           interpolate_t0: bool = False) -> OFNxMResult:
+    """Constrained NxM delay scan on the full spectrum by a direct windowed
+    DFT (JAX :222): q_m(d) = Re Σ_k (φᵀṽ)_{m,k} e^{2πikd/N} at the W window
+    samples of ``of1x1.prepare_delay_window(mask, pretrigger, N)`` (no bin
+    weights), one [.., M, 2N] × [2N, W] GEMM in place of M inverse FFTs.
+    Equal to ``ofnxm_withdelay(window_mask=...)``; ``w_matrix`` is not
+    read (the JAX signature's)."""
+    table = cos_mat if sin_mat is None else (cos_mat, sin_mat)
+    qw = window_q(torch.einsum("cmk,...ck->...mk", phi, vfft), table)
+    return _direct_fit(qw, iw_matrix, chi2_base_nxm(vfft, icsd, fs),
+                       pretrigger, fs, eval_idx, valid, interpolate_t0)
+
+
+def ofnxm_withdelay_direct_half(vr, phi_h, iw_matrix, icsd_h, bin_w,
+                                pretrigger: int, fs: float, n: int,
+                                eval_idx, valid, table,
+                                interpolate_t0: bool = False) -> OFNxMResult:
+    """:func:`ofnxm_withdelay_direct` on the half spectrum: ``table`` is
+    the [2K, W] tensor of ``of1x1.direct_table`` over the bin-weighted
+    tables of ``prepare_delay_window(mask, pretrigger, n, bin_w)`` (or
+    their (cos, sin) pair). Equal to ``ofnxm_withdelay_half(window_mask=
+    ...)``."""
+    qw = window_q(torch.einsum("cmk,...ck->...mk", phi_h, vr), table)
+    return _direct_fit(qw, iw_matrix,
+                       chi2_base_nxm_half(vr, icsd_h, bin_w, fs, n),
+                       pretrigger, fs, eval_idx, valid, interpolate_t0)
+
+
+def _direct_fit(qw, iw_matrix, chi2_0, pretrigger, fs, eval_idx, valid,
+                interpolate_t0) -> OFNxMResult:
+    """The delay pick and the amplitudes at it of q [..., M, W] at the
+    window samples ``eval_idx`` (allowed where ``valid``)."""
+    dev = qw.device
+    dchi2 = torch.einsum("...iw,ij,...jw->...w", qw, iw_matrix, qw)
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+    p = torch.argmax(torch.where(valid, dchi2,
+                                 torch.full_like(dchi2, -math.inf)), dim=-1)
+    q_best = torch.gather(qw, -1, p[..., None, None].expand(
+        qw.shape[:-1] + (1,)))[..., 0]                       # [..., M]
+    amps = torch.einsum("ij,...j->...i", iw_matrix, q_best)
+    eval_idx = torch.as_tensor(eval_idx, dtype=torch.int64, device=dev)
+    shift = eval_idx[p].to(chi2_0.dtype) - pretrigger
+    if interpolate_t0:
+        # the guard samples hold idx ± 1 (mod N) at positions p ± 1
+        delta, gain = parabola_refit(dchi2, p, p - 1, p + 1)
+        shift = shift + delta
+    else:
+        gain = torch.gather(dchi2, -1, p[..., None])[..., 0]
+    return OFNxMResult(amps, shift / fs, chi2_0 - gain)
+
+
 class NxMx2Plan(NamedTuple):
     """The bank constants of one NxMx2 fit (host numpy, float64)."""
 
@@ -199,15 +262,39 @@ def pair_inverses(s_fft, icsd, fs: float, group_ids, idx1, idx2):
 # bytes of the [B, W1-chunk, W2, M] temporaries of the NxMx2 pair scan
 NXMX2_SCAN_BYTES = 1 << 28
 
+# Union of the two fit windows at or below which the NxMx2 fit evaluates
+# q by a direct windowed DFT at the union's shifts (one GEMM) in place of
+# M inverse FFTs (JAX :277-283, where 512 came from a TPU measurement):
+# the largest |union| at which the direct route beat the irfft route in
+# every chip run of chip_smoke.py's phase (q) (PERF.md §6).
+DIRECT_UNION_MAX = 251
 
-def nxmx2_tensors(plan: NxMx2Plan, device, dtype=torch.float32) -> dict:
+
+def nxmx2_tensors(plan: NxMx2Plan, device, dtype=torch.float32,
+                  pretrigger=None, n=None, bin_w=None,
+                  direct=None) -> dict:
     """``plan`` on ``device``: ``idx1``, ``idx2``, ``g0`` (group-0
-    templates), ``ip`` in ``dtype`` and ``ip_index``."""
-    return {"idx1": torch.as_tensor(plan.idx1, device=device),
-            "idx2": torch.as_tensor(plan.idx2, device=device),
-            "g0": torch.as_tensor(plan.group_ids == 0, device=device),
-            "ip": torch.as_tensor(plan.ip, dtype=dtype, device=device),
-            "ip_index": torch.as_tensor(plan.ip_index, device=device)}
+    templates), ``ip`` in ``dtype`` and ``ip_index``. Given ``pretrigger``
+    and ``n`` (and ``bin_w`` for the half spectrum), a union of the fit
+    windows of at most :data:`DIRECT_UNION_MAX` shifts (or any, with
+    ``direct`` True; none with False) also gets the direct route's
+    ``union`` table [2K, |union|] (``of1x1.direct_table``) and each
+    window's positions in it, ``pos1`` and ``pos2``."""
+    consts = {"idx1": torch.as_tensor(plan.idx1, device=device),
+              "idx2": torch.as_tensor(plan.idx2, device=device),
+              "g0": torch.as_tensor(plan.group_ids == 0, device=device),
+              "ip": torch.as_tensor(plan.ip, dtype=dtype, device=device),
+              "ip_index": torch.as_tensor(plan.ip_index, device=device)}
+    union = np.union1d(plan.idx1, plan.idx2)
+    if direct is None:
+        direct = n is not None and len(union) <= DIRECT_UNION_MAX
+    if direct:
+        consts["union"] = direct_table(
+            *delay_tables(union, pretrigger, n, bin_w), device, dtype)
+        for key, idx in (("pos1", plan.idx1), ("pos2", plan.idx2)):
+            consts[key] = torch.as_tensor(np.searchsorted(union, idx),
+                                          device=device)
+    return consts
 
 
 def ofnxmx2_half(vr, phi_h, icsd_h, bin_w, consts: dict, pretrigger: int,
@@ -217,10 +304,18 @@ def ofnxmx2_half(vr, phi_h, icsd_h, bin_w, consts: dict, pretrigger: int,
     d2 ∈ idx2, amplitudes â = P(Δ)⁻¹q solved jointly at every pair and
     Δχ² = qᵀP(Δ)⁻¹q maximized over the window product (JAX's order: the
     first d2 maximum for each d1, then the first d1). ``consts``: the
-    plan's tensors (:func:`nxmx2_tensors`). The scan runs over chunks of
-    d1, vectorized over d2 and the batch."""
-    best_val, amps, i1, i2 = _nxmx2_scan(
-        q_timeseries_half(vr, phi_h, pretrigger, n), consts, scan_bytes)
+    plan's tensors (:func:`nxmx2_tensors`); with a ``union`` table q is
+    evaluated at the union's shifts only (the direct route, JAX :333-345),
+    else at every sample by the inverse transform. The scan runs over
+    chunks of d1, vectorized over d2 and the batch."""
+    if "union" in consts:
+        q = window_q(torch.einsum("cmk,...ck->...mk", phi_h, vr),
+                     consts["union"])
+        cols = consts["pos1"], consts["pos2"]
+    else:
+        q = q_timeseries_half(vr, phi_h, pretrigger, n)
+        cols = consts["idx1"], consts["idx2"]
+    best_val, amps, i1, i2 = _nxmx2_scan(q, *cols, consts, scan_bytes)
     chi2 = chi2_base_nxm_half(vr, icsd_h, bin_w, fs, n) - best_val
     deltat = (consts["idx2"][i2] - consts["idx1"][i1]).to(chi2.dtype) / fs
     return OFNxMx2Result(amps, deltat, chi2)
@@ -237,30 +332,41 @@ def ofnxmx2(vfft, s_fft, icsd, group_ids, window1, window2,
     n = vfft.shape[-1]
     dev = vfft.device
     phi = torch.einsum("kab,bmk->amk", icsd, s_fft).conj() / (n * fs)
-    idx1 = torch.as_tensor(np.flatnonzero(np.asarray(window1)), device=dev)
-    idx2 = torch.as_tensor(np.flatnonzero(np.asarray(window2)), device=dev)
+    w1 = np.flatnonzero(np.asarray(window1))
+    w2 = np.flatnonzero(np.asarray(window2))
+    idx1, idx2 = (torch.as_tensor(w, device=dev) for w in (w1, w2))
     g = torch.as_tensor(np.asarray(group_ids).astype(np.int64), device=dev)
     ip, ip_index = pair_inverses(s_fft, icsd, fs, g, idx1, idx2)
     consts = {"idx1": idx1, "idx2": idx2, "g0": g == 0,
               "ip": ip.to(vfft.real.dtype), "ip_index": ip_index}
-    best_val, amps, i1, i2 = _nxmx2_scan(q_timeseries(vfft, phi, pretrigger),
-                                         consts, scan_bytes)
+    union = np.union1d(w1, w2)
+    if len(union) <= DIRECT_UNION_MAX:
+        # q only at the windows' shifts, one GEMM (JAX :339)
+        q = window_q(torch.einsum("cmk,...ck->...mk", phi, vfft),
+                     delay_tables(union, pretrigger, n))
+        cols = [torch.as_tensor(np.searchsorted(union, w), device=dev)
+                for w in (w1, w2)]
+    else:
+        q = q_timeseries(vfft, phi, pretrigger)
+        cols = idx1, idx2
+    best_val, amps, i1, i2 = _nxmx2_scan(q, *cols, consts, scan_bytes)
     chi2 = chi2_base_nxm(vfft, icsd, fs) - best_val
     d1, d2 = idx1[i1], idx2[i2]
     return OFNxMx2Result(amps, (d2 - d1).to(chi2.dtype) / fs, chi2), (d1, d2)
 
 
-def _nxmx2_scan(q_abs, consts: dict, scan_bytes: int):
+def _nxmx2_scan(q_abs, cols1, cols2, consts: dict, scan_bytes: int):
     """(best Δχ², amps, index into idx1, index into idx2) of the pair scan
-    over q [..., M, N] in absolute trace order."""
+    over q [..., M, X] whose columns ``cols1`` hold q at the shifts of
+    idx1 and ``cols2`` at those of idx2."""
     dev = q_abs.device
-    idx1, idx2, g0 = consts["idx1"], consts["idx2"], consts["g0"]
+    g0 = consts["g0"]
     ip, ip_index = consts["ip"], consts["ip_index"]
-    q1 = q_abs[..., idx1].transpose(-1, -2)                  # [..., W1, M]
-    q2 = q_abs[..., idx2].transpose(-1, -2)                  # [..., W2, M]
+    q1 = q_abs[..., cols1].transpose(-1, -2)                 # [..., W1, M]
+    q2 = q_abs[..., cols2].transpose(-1, -2)                 # [..., W2, M]
     batch = q_abs.shape[:-2]
     m = q_abs.shape[-2]
-    w1, w2 = len(idx1), len(idx2)
+    w1, w2 = len(cols1), len(cols2)
     rows = int(np.prod(batch)) if batch else 1
     chunk = max(1, min(w1, int(scan_bytes) // max(
         1, rows * w2 * m * q_abs.element_size())))

@@ -14,22 +14,27 @@ permuted layouts are not ported). Per batch:
    length outside its domain;
 3. the specs in plan order:
 
-   - ``of1x1_nodelay``: where the fused kernel takes N, its amp and χ²
-     (``ops/cuda_of.FusedNodelayOF``, one launch per spec, slot-sliced)
-     and lowchi2 on the step-2 spectrum; elsewhere
-     ``of1x1_nodelay_half``;
+   - ``of1x1_nodelay``: in a float32 run where the fused kernel takes N,
+     its amp and χ² (``ops/cuda_of.FusedNodelayOF``, one launch per spec,
+     slot-sliced) and lowchi2 on the step-2 spectrum; elsewhere, and in
+     every float64 run, ``of1x1_nodelay_half``;
    - ``of1x1_unconstrained`` and ``of1x1_constrained``: the delay scan
      ``of1x1_withdelay_half`` with the spec's ``lowchi2_fcutoff`` and
      ``interpolate``, aligned on the templates' own pretrigger; the
      constrained fit within its window mask, with its ``chi2nopulse``,
-     ``ampres`` and ``timeres`` columns;
+     ``ampres`` and ``timeres`` columns, or, where the plan says
+     (``feature_plan.direct_windows``), by the direct windowed fit
+     ``of1x1_windowed_direct_half`` on cos/sin tables built here;
    - ``of1x2x2``: the joint two-template scan ``of1x1.of1x2_half`` over
      the spec's Δ window (``delta_window_*_usec``), its template overlap
      computed once here;
    - ``ofnxm``: the no-delay and delay-scan NxM fits on the stacked
-     spectra of its sub-channels (``interpolate_t0``, window mask);
+     spectra of its sub-channels (``interpolate_t0``, window mask; the
+     direct ``ofnxm_withdelay_direct_half`` where the plan says);
    - ``ofnxmx2``: the pair scan ``ops/ofnxm.ofnxmx2_half``, each weight
-     matrix of its fit windows inverted once here;
+     matrix of its fit windows inverted once here, q by the direct route
+     where the union of its windows is at most
+     ``ofnxm.DIRECT_UNION_MAX`` shifts;
    - ``psd_amp``, ``psd_peaks`` and ``phase`` (``ops/psdfeatures``) per
      frequency range of ``f_lims``;
    - ``rftau``: the two-pole LM fit of ``ops/pulsefit`` on the low-pass of
@@ -125,11 +130,23 @@ class GroupStep(nn.Module):
         self.nxm = {}
         self.nxmx2 = {}
         self.psd = {}
+        # (eval_idx, valid, [2K, W] cos/sin table) of each spec on the
+        # direct windowed delay route, built once here
+        self.direct = {}
+        bin_w = filterbank.half_bin_weights(n)
+        direct = fplan.direct_windows(group, self.fs)
         if group.bank_1x1 is not None:
             self.bank = bank = filterbank.bank_to_torch(group.bank_1x1,
                                                         device, dtype)
-        for s in self.specs:
+        for i, s in enumerate(self.specs):
             key = (s.algorithm, s.channel)
+            if i in direct:
+                eidx, valid, cos_m, sin_m = of1x1.prepare_delay_window(
+                    direct[i], self.of_pretrigger, n, bin_w)
+                self.direct[key] = (
+                    torch.as_tensor(eidx, dtype=torch.int64, device=device),
+                    torch.as_tensor(valid, device=device),
+                    of1x1.direct_table(cos_m, sin_m, device, dtype))
             if s.base in fplan.OF_1X1_ALGORITHMS:
                 fc = float(s.kwargs.get("lowchi2_fcutoff", 10000))
                 if fc not in self.low:
@@ -140,7 +157,10 @@ class GroupStep(nn.Module):
                     self.masks[key] = torch.as_tensor(
                         fplan.window_mask(s, n, self.pretrigger, self.fs),
                         device=device)
+                # the fused kernel takes float32 only: a float64 run fits
+                # with of1x1_nodelay_half (JAX's float64 path is XLA too)
                 if (s.base == "of1x1_nodelay" and n in cuda_fft.SUPPORTED_N
+                        and dtype == torch.float32
                         and str(s.slot) not in self.nodelay):
                     self.nodelay[str(s.slot)] = FusedNodelayOF.from_bank(
                         bank, slots=[s.slot])
@@ -165,8 +185,8 @@ class GroupStep(nn.Module):
                     # each P(Δ)⁻¹ of the fit windows, inverted once
                     plan = ofnxm.nxmx2_plan(group.nxm_banks[s.nxm_key],
                                             *fplan.nxmx2_windows(s, n))
-                    self.nxmx2[key] = ofnxm.nxmx2_tensors(plan, device,
-                                                          dtype)
+                    self.nxmx2[key] = ofnxm.nxmx2_tensors(
+                        plan, device, dtype, self.of_pretrigger, n, bin_w)
             elif s.base in fplan.PSD_ALGORITHMS:
                 self.psd[key] = self._psd_setup(s, device)
 
@@ -243,12 +263,19 @@ class GroupStep(nn.Module):
                 out[f"lowchi2_{name}_{fc}"] = low[:, 0]
                 return out
             constrained = base == "of1x1_constrained"
-            r = of1x1.of1x1_withdelay_half(
-                vr, phi, norm, dinv, s_fft, b["bin_w"],
-                self.of_pretrigger, fs,
-                window_mask=self.masks[key] if constrained else None,
-                low_mask_h=lmask,
-                interpolate_t0=bool(kw.get("interpolate", False)), n=n)
+            interp = bool(kw.get("interpolate", False))
+            if key in self.direct:
+                eidx, valid, table = self.direct[key]
+                r = of1x1.of1x1_windowed_direct_half(
+                    vr, phi, norm, dinv, s_fft, b["bin_w"],
+                    self.of_pretrigger, fs, eidx, valid, table,
+                    low_mask_h=lmask, interpolate_t0=interp, n=n)
+            else:
+                r = of1x1.of1x1_withdelay_half(
+                    vr, phi, norm, dinv, s_fft, b["bin_w"],
+                    self.of_pretrigger, fs,
+                    window_mask=self.masks[key] if constrained else None,
+                    low_mask_h=lmask, interpolate_t0=interp, n=n)
             out[f"amp_{name}_{fc}"] = r.amp[:, 0]
             out[f"t0_{name}_{fc}"] = r.t0[:, 0]
             out[f"chi2_{name}_{fc}"] = r.chi2[:, 0]
@@ -282,11 +309,17 @@ class GroupStep(nn.Module):
                 r_nd = ofnxm.ofnxm_nodelay_half(
                     vr, nb["phi_h"], nb["iw_matrix"], nb["icsd_h"],
                     nb["bin_w"], fs, n)
-                r_wd = ofnxm.ofnxm_withdelay_half(
-                    vr, nb["phi_h"], nb["iw_matrix"], nb["icsd_h"],
-                    nb["bin_w"], self.of_pretrigger, fs, n,
-                    window_mask=self.masks[key],
-                    interpolate_t0=bool(kw.get("interpolate_t0", False)))
+                interp = bool(kw.get("interpolate_t0", False))
+                if key in self.direct:
+                    r_wd = ofnxm.ofnxm_withdelay_direct_half(
+                        vr, nb["phi_h"], nb["iw_matrix"], nb["icsd_h"],
+                        nb["bin_w"], self.of_pretrigger, fs, n,
+                        *self.direct[key], interpolate_t0=interp)
+                else:
+                    r_wd = ofnxm.ofnxm_withdelay_half(
+                        vr, nb["phi_h"], nb["iw_matrix"], nb["icsd_h"],
+                        nb["bin_w"], self.of_pretrigger, fs, n,
+                        window_mask=self.masks[key], interpolate_t0=interp)
                 for i, an in enumerate(names):
                     out[f"{an}_{name}_constrained_{fc}"] = r_wd.amps[:, i]
                     out[f"{an}_{name}_nodelay_{fc}"] = r_nd.amps[:, i]

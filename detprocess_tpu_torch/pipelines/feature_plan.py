@@ -27,7 +27,9 @@ trigger-table mode, the trigger geometry:
   sub-channels;
 - the PSD features, ``rftau``, the trace stats and each external
   extractor read one compound channel each (:542-547); an unknown name is
-  refused with the external names listed (:549-552).
+  refused with the external names listed (:549-552);
+- :func:`direct_windows` picks the constrained fits that take the direct
+  windowed route (:716-758).
 
 External extractors come from a user module (``external_file``) that
 :func:`load_external_extractors` loads with the rules of JAX
@@ -58,6 +60,14 @@ TRACE_ALGORITHMS = ("baseline", "integral", "maximum", "minimum",
 BUILTIN_ALGORITHMS = frozenset(OF_1X1_ALGORITHMS + OF_NXM_ALGORITHMS
                                + PSD_ALGORITHMS + TRACE_ALGORITHMS
                                + ("rftau",))
+
+# Constrained windows of at most this many allowed delays take the direct
+# windowed DFT (ops/of1x1.of1x1_windowed_direct_half, ops/ofnxm.
+# ofnxm_withdelay_direct_half) in place of the inverse transform (JAX
+# features.py:64, where 1024 came from a TPU measurement): the largest
+# window at which the direct route beat the irfft route in every chip run
+# of chip_smoke.py's phase (q) (PERF.md §6).
+DIRECT_WINDOW_MAX = 251
 
 
 @dataclass
@@ -434,6 +444,32 @@ def window_mask(spec: AlgoSpec, n: int, pretrig: int,
             "no delays — fix window_min/max_index or "
             "window_*_from_trig_usec in the processing config")
     return mask
+
+
+def direct_windows(group: TraceGroup, fs: float,
+                   window_max: Optional[int] = None) -> Dict[int, np.ndarray]:
+    """{spec index: window mask} of the group's specs that take the direct
+    windowed delay fit (JAX features.py:716-758): an ``of1x1_constrained``
+    or ``ofnxm`` spec whose window allows at most ``window_max`` delays
+    (default :data:`DIRECT_WINDOW_MAX`), unless its OF filter's full delay
+    series is computed anyway, for an ``of1x1_unconstrained`` spec or a
+    wider constrained one on the same slot (or NxM bank)."""
+    window_max = DIRECT_WINDOW_MAX if window_max is None else window_max
+    n, pre = group.nb_samples, group.nb_pretrigger
+    masks = {i: window_mask(s, n, pre, fs) for i, s in enumerate(group.specs)
+             if s.base in ("of1x1_constrained", "ofnxm")}
+    narrow = {i for i, m in masks.items()
+              if m is not None and int(m.sum()) <= window_max}
+    full_slots = {s.slot for i, s in enumerate(group.specs)
+                  if s.base == "of1x1_unconstrained"
+                  or (s.base == "of1x1_constrained" and i not in narrow)}
+    full_nxm = {s.nxm_key for i, s in enumerate(group.specs)
+                if s.base == "ofnxm" and i not in narrow}
+    spec = group.specs
+    return {i: masks[i] for i in sorted(narrow)
+            if (spec[i].slot not in full_slots
+                if spec[i].base == "of1x1_constrained"
+                else spec[i].nxm_key not in full_nxm)}
 
 
 def delta_window(spec: AlgoSpec, fs: float) -> Optional[np.ndarray]:

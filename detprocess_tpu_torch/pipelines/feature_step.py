@@ -8,13 +8,14 @@ Per batch and feature channel:
 
 1. the compound-channel mix ``[C_c, C_r] × [B, C_r, N]`` (TF32 off);
 2. the half spectrum by ``ops/fft.rfft`` (the rFFT kernel, or cuFFT for
-   a length outside its domain);
-3. ``of1x1_nodelay``: where the fused kernel takes the trace length
-   (``cuda_fft.SUPPORTED_N``), amp and χ² from the fused rFFT + no-delay
-   kernel (``ops/cuda_of.FusedNodelayOF``) and lowchi2 on the step-2
-   spectrum; at any other length ``ops/of1x1.of1x1_nodelay_half`` on the
-   step-2 spectrum, the JAX feature step's own route
-   (pipelines/features.py:842). The route is chosen once, from ``n``;
+   a length outside its domain or float64 traces);
+3. ``of1x1_nodelay``: in float32 where the fused kernel takes the trace
+   length (``cuda_fft.SUPPORTED_N``), amp and χ² from the fused rFFT +
+   no-delay kernel (``ops/cuda_of.FusedNodelayOF``) and lowchi2 on the
+   step-2 spectrum; at any other length, and in float64,
+   ``ops/of1x1.of1x1_nodelay_half`` on the step-2 spectrum, the JAX
+   feature step's own route (pipelines/features.py:842). The route is
+   chosen once, from ``n`` and the bank's dtype;
 4. ``of1x1_unconstrained``: the delay scan of ``ops/of1x1`` on the step-2
    spectrum;
 5. ``baseline`` and ``integral``.
@@ -91,11 +92,13 @@ class FeatureStep(nn.Module):
         lmask = of1x1.lowfreq_mask_half(self.n, self.fs, lowchi2_fcutoff)
         self.register_buffer("low_mask_h",
                              torch.as_tensor(lmask, device=device))
-        # the no-delay route, from the length alone: the fused kernel
-        # where it takes n, else the half-spectrum fit (nodelay is None)
+        # the no-delay route, from the length and the dtype: the fused
+        # kernel where it takes n in float32, else the half-spectrum fit
+        # (nodelay is None), as in every float64 run
         self.nodelay = (nn.ModuleList(
             FusedNodelayOF.from_bank(bank, slots=[s]) for s in self.slots)
-            if self.n in cuda_fft.SUPPORTED_N else None)
+            if self.n in cuda_fft.SUPPORTED_N and dtype == torch.float32
+            else None)
 
     def forward(self, raw_traces: torch.Tensor) -> dict:
         """``raw_traces`` [B, C_r, N] → dict of [B] feature columns."""

@@ -24,7 +24,8 @@ A ``process()`` call:
    window leaves the trace (counted and reported), and packs the kept
    rows into batches of ``batch_size`` (only the last may be shorter).
 2. **Reads.** ``nreaders`` threads (``io/prefetch.OrderedChunkPrefetcher``)
-   read whole batches by pread into buffers of their own, yielded in
+   read whole batches by pread (or h5py hyperslabs, for storage that
+   pread cannot serve) into buffers of their own, yielded in
    batch order. Only the raw channels the plan mixes are read. In a
    window-dense event (the batch's windows cover at least
    ``COALESCE_FRACTION`` of its trace) the event is read once and sliced.
@@ -33,7 +34,10 @@ A ``process()`` call:
    side stream behind an event that the compute stream waits on, and
    converted there (``io/upload.py``); a buffer is read into again only
    after its copy's event has completed. Float64 reads convert on the
-   host (the golden-precision path), as the JAX shell does.
+   host (the golden-precision path), as the JAX shell does; on the card
+   a float64 run takes cuFFT for its spectra (``ops/fft.rfft``'s counted
+   ``cufft_rfft_f64`` route) and no hand-written kernel, whose type is
+   float32.
 4. **Compute.** Each trace group's :class:`GroupStep` on the batch; the
    [B] columns are stacked into one [ncol, B] tensor and copied to pinned
    memory ``non_blocking`` behind an event. ``pipeline_depth`` batches

@@ -22,7 +22,9 @@ A ``process()`` call:
    on a side stream and converted there (``io/upload.Uploader``).
 3. **Compute.** Each trigger channel's :class:`TriggerStep` (built once
    per dtype and capacity) on its channel gather: base and residual trigger
-   sets, batched over events.
+   sets, batched over events. On the card a float32 run's FIR segments
+   and residual basis go through the rFFT kernel, a float64 run's
+   through cuFFT (``ops/fft.rfft``'s counted ``cufft_rfft_f64`` route).
 4. **Device to host.** The batch's trigger sets are packed on the card
    into one int64 and one float buffer of the run's dtype and copied to
    pinned memory ``non_blocking`` behind an event: one copy a batch, no

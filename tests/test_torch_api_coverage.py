@@ -35,9 +35,6 @@ _MARSHAL = ("TPU workaround (ROADMAP §2c): split re/im and device-bank "
 _FOUR_STEP = ("TPU workaround (ROADMAP §2c): the four-step matmul FFT and "
               "its precision contexts; the port uses torch.fft and the "
               "hand-written rFFT kernel")
-_DIRECT = ("the windowed direct fit (ROADMAP §2b item 5): the port always "
-           "takes the irfft route, with the same results, until an H100 "
-           "measurement at W ≤ 1024 says otherwise")
 _JAXCACHE = ("TPU workaround (ROADMAP §2c): JAX's persistent compilation "
              "cache; the port's kernels are built by nvcc (ops/_kernels)")
 
@@ -65,12 +62,9 @@ NOT_PORTED = {
         "signal_fft_perm", "signal_rfft_perm", "of1x1_withdelay_half_perm",
         "DevicePacked1x1", "device_packed_1x1", "chi2_base_packed",
         "of1x1_nodelay_packed", "of1x1_withdelay_packed")},
-    "ops/of1x1.py::prepare_delay_window": _DIRECT,
-    "ops/of1x1.py::of1x1_windowed_direct_half": _DIRECT,
     **{f"ops/ofnxm.py::{n}": _LAYOUTS for n in (
         "DevicePackedNxM", "device_packed_nxm", "chi2_base_nxm_packed",
         "ofnxm_nodelay_packed", "ofnxm_withdelay_packed")},
-    "ops/ofnxm.py::ofnxm_withdelay_direct": _DIRECT,
     **{f"ops/spectral.py::{n}": _LAYOUTS for n in (
         "periodogram_perm", "welch_psd_packed", "welch_csd_packed")},
     "pipelines/features.py::FeatureProcessing.device_banks": _MARSHAL,

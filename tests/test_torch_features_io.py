@@ -10,8 +10,9 @@
 - raw data: the pread index and reader against the JAX ``RawReader`` on
   RawWriter files and on the independent fixture
   tests/fixtures/raw_fixture (sequential, random-access, windowed,
-  channel-subset and stored-dtype reads, admin dicts), the refusal of a
-  chunked dataset, and the flat dump layout;
+  channel-subset and stored-dtype reads, admin dicts) and the flat dump
+  layout (storage the pread path cannot serve:
+  tests/test_torch_h5_storage.py);
 - prefetch: the three prefetchers' ordering against the JAX ones;
 - tables: the vaex-layout writer and reader against the JAX ones;
 - the raw fixture through the shell: int16 codes uploaded and converted
@@ -23,7 +24,6 @@ import os
 import threading
 import time
 
-import h5py
 import jax  # noqa: F401
 import numpy as np
 import pandas as pd
@@ -326,20 +326,6 @@ def test_ordered_chunks_match_jax():
 
     with pytest.raises(IOError, match="bad dump"):
         list(prefetch.OrderedChunkPrefetcher(fail, chunks, [0, 1]))
-
-
-def test_chunked_dataset_is_refused(tmp_path):
-    path = str(tmp_path / "cont_I1_D20260101_T000000_F0001.hdf5")
-    with h5py.File(path, "w") as f:
-        f.attrs["series_num"] = 1
-        g = f.create_group("adc1")
-        g.attrs.update({"nb_events": 1, "nb_samples": 64, "sample_rate": 1e6,
-                        "channel_list": ["c"]})
-        g.create_dataset("event_1", data=np.zeros((1, 64), np.int16),
-                         chunks=(1, 16), compression="gzip")
-    with pytest.raises(ValueError, match="event_1 is not stored as a "
-                                         "contiguous"):
-        RawIndex.from_pytesdaq([path])
 
 
 def test_flat_dumps(tmp_path):

@@ -142,7 +142,8 @@ def test_rfft_on_cpu_launches_no_kernel():
     _kernels.reset_launch_counts()
     fft.rfft(torch.ones(4, 256, dtype=torch.float32))
     assert _kernels.launch_counts() == {name: 0 for name in _kernels.KERNELS}
-    assert _kernels.library_counts() == {"cufft_rfft": 0}
+    assert _kernels.library_counts() == {"cufft_rfft": 0,
+                                         "cufft_rfft_f64": 0}
 
 
 @pytest.mark.parametrize("n,dtype,contiguous,route", [
@@ -151,14 +152,19 @@ def test_rfft_on_cpu_launches_no_kernel():
     (300, torch.float32, True, "cufft"),
     (25000, torch.float32, True, "cufft"),
     (65536, torch.float32, True, "cufft"),
-    (32768, torch.float64, True, "raises"),
+    (32768, torch.float64, True, "cufft_f64"),
+    (25000, torch.float64, True, "cufft_f64"),
+    (32768, torch.float64, False, "cufft_f64"),
+    (32768, torch.float16, True, "raises"),
     (32768, torch.float32, False, "kernel"),
 ])
 def test_rfft_cuda_route_by_shape(monkeypatch, n, dtype, contiguous, route):
-    """On a CUDA tensor ``ops/fft.rfft`` routes by length alone: the
-    kernel's lengths go to the kernel (a view made contiguous, another
-    type than float32 refused), any other to torch.fft.rfft, each route
-    counted: the kernel's launches and the library route's calls. The C
+    """On a CUDA tensor ``ops/fft.rfft`` routes by dtype and length: float32
+    at the kernel's lengths goes to the kernel (a view made contiguous),
+    float32 at any other length to torch.fft.rfft as ``cufft_rfft``,
+    float64 at any length to torch.fft.rfft as ``cufft_rfft_f64`` (the port
+    of JAX's float64 XLA FFT), another dtype is refused by name; each route
+    is counted: the kernel's launches and each library route's calls. The C
     library, the device check and the stream are stood in for on the
     CPU."""
     calls = []
@@ -175,15 +181,16 @@ def test_rfft_cuda_route_by_shape(monkeypatch, n, dtype, contiguous, route):
 
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: types.SimpleNamespace(cuda_stream=0))
-    x = torch.randn(3, 2 * n, dtype=dtype)[:, ::2] if not contiguous \
-        else torch.randn(3, n, dtype=dtype)
+    x = torch.randn(3, 2 * n)[:, ::2] if not contiguous \
+        else torch.randn(3, n)
+    x = x.to(dtype)
+    zero = {"cufft_rfft": 0, "cufft_rfft_f64": 0}
     _kernels.reset_launch_counts()
     if route == "raises":
-        # the real check refuses the type before it looks at the device
-        with pytest.raises(TypeError, match="float32"):
+        with pytest.raises(TypeError, match="float32 or float64"):
             fft.rfft_cuda(x)
         assert calls == []
-        assert _kernels.library_counts() == {"cufft_rfft": 0}
+        assert _kernels.library_counts() == zero
         return
     monkeypatch.setattr(cuda_fft, "check_kernel_input", check_contiguous)
     out = fft.rfft_cuda(x)
@@ -191,12 +198,26 @@ def test_rfft_cuda_route_by_shape(monkeypatch, n, dtype, contiguous, route):
     assert len(calls) == (route == "kernel")
     assert _kernels.launch_counts() == {"rfft": int(route == "kernel"),
                                         "fused_nodelay_of": 0}
-    assert _kernels.library_counts() == {"cufft_rfft": int(route == "cufft")}
-    if route == "cufft":
+    assert _kernels.library_counts() == {
+        "cufft_rfft": int(route == "cufft"),
+        "cufft_rfft_f64": int(route == "cufft_f64")}
+    if route != "kernel":
+        assert out.dtype == (torch.complex128 if dtype == torch.float64
+                             else torch.complex64)
         np.testing.assert_array_equal(out.numpy(),
                                       torch.fft.rfft(x).numpy())
     _kernels.reset_launch_counts()
-    assert _kernels.library_counts() == {"cufft_rfft": 0}
+    assert _kernels.library_counts() == zero
+
+
+def test_rfft_kernel_refuses_float64():
+    """The kernel's wrapper itself still refuses float64 traces with a
+    TypeError before it looks at the device; only ``ops/fft.rfft`` routes
+    them to cuFFT."""
+    _kernels.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32"):
+        cuda_fft.rfft_kernel(torch.zeros(3, 32768, dtype=torch.float64))
+    assert _kernels.launch_counts()["rfft"] == 0
 
 
 @pytest.mark.parametrize("method,batch,entry,counted", [
