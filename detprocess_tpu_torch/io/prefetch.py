@@ -12,7 +12,8 @@ Copy of ``detprocess_tpu/io/prefetch.py`` (pure threading):
 - :func:`prefetch_events`: the first or the second, by ``nreaders``.
 
 A reader error is raised on the consumer's side; ``close()`` stops the
-threads.
+threads. With a ``timer`` (``utils.logging.StageTimer``) the event
+prefetchers' threads time each read as a span ``read.fill``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Iterator, Optional, Sequence
+
+from detprocess_tpu_torch.utils.logging import span
 
 _SENTINEL = object()
 
@@ -30,11 +33,12 @@ class EventPrefetcher:
 
     def __init__(self, reader, depth: int = 32,
                  channels: Optional[Sequence[str]] = None,
-                 dtype=None, raw: bool = False):
+                 dtype=None, raw: bool = False, timer=None):
         self._reader = reader
         self._channels = channels
         self._dtype = dtype
         self._raw = raw
+        self._timer = timer
         self._queue: queue.Queue = queue.Queue(maxsize=max(depth, 1))
         self._error: Optional[BaseException] = None
         self._done = False
@@ -50,8 +54,9 @@ class EventPrefetcher:
                 else:
                     kw = ({} if self._dtype is None
                           else {"dtype": self._dtype})
-                traces, admin = self._reader.read_next_event(
-                    channels=self._channels, **kw)
+                with span(self._timer, "read.fill"):
+                    traces, admin = self._reader.read_next_event(
+                        channels=self._channels, **kw)
                 if traces is None:
                     break
                 while not self._stop.is_set():
@@ -116,11 +121,12 @@ class ParallelEventPrefetcher:
 
     def __init__(self, readers: Sequence, depth: int = 32,
                  channels: Optional[Sequence[str]] = None,
-                 dtype=None, raw: bool = False):
+                 dtype=None, raw: bool = False, timer=None):
         self._readers = list(readers)
         self._channels = channels
         self._dtype = dtype
         self._raw = raw
+        self._timer = timer
         self._queue: queue.Queue = queue.Queue(maxsize=max(depth, 1))
         self._error: Optional[BaseException] = None
         self._done = False
@@ -150,8 +156,9 @@ class ParallelEventPrefetcher:
                 else:
                     kw = ({} if self._dtype is None
                           else {"dtype": self._dtype})
-                traces, admin = reader.read_next_event(
-                    channels=self._channels, **kw)
+                with span(self._timer, "read.fill"):
+                    traces, admin = reader.read_next_event(
+                        channels=self._channels, **kw)
                 if traces is None:
                     break
                 while not self._stop.is_set():
@@ -301,15 +308,17 @@ class OrderedChunkPrefetcher:
 
 def prefetch_events(reader, depth: int = 32,
                     channels: Optional[Sequence[str]] = None,
-                    dtype=None, raw: bool = False, nreaders: int = 1):
+                    dtype=None, raw: bool = False, nreaders: int = 1,
+                    timer=None):
     """A read-ahead wrapper of ``reader``: ``raw=True`` reads stored-dtype
     traces with no conversion; ``nreaders > 1`` splits the files over that
-    many threads (``reader.split``), in no fixed event order."""
+    many threads (``reader.split``), in no fixed event order; ``timer``
+    times each read as a span ``read.fill``."""
     if nreaders > 1 and hasattr(reader, "split"):
         readers = reader.split(nreaders)
         if len(readers) > 1:
             return ParallelEventPrefetcher(
                 readers, depth=depth, channels=channels, dtype=dtype,
-                raw=raw)
+                raw=raw, timer=timer)
     return EventPrefetcher(reader, depth=depth, channels=channels,
-                           dtype=dtype, raw=raw)
+                           dtype=dtype, raw=raw, timer=timer)

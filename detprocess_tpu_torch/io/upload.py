@@ -35,35 +35,44 @@ import torch
 
 from detprocess_tpu_torch.io.fastio import FastReader
 from detprocess_tpu_torch.ops.adc import adc_convert
+from detprocess_tpu_torch.utils.logging import span
 
 
 class BufferRing:
     """Up to ``count`` host buffers of one batch for one reader, made when
     first needed: (tensor, its numpy view), pinned for the GPU. A buffer
     given back with the event of its copy to the card is handed out again
-    only after that event has completed."""
+    only after that event has completed.
 
-    def __init__(self, count: int, shape, dtype, pin: bool):
+    With a ``timer`` (``utils.logging.StageTimer``) a buffer's making is a
+    span ``upload.pin`` and taking a used one back (waiting for one to be
+    given back, then for its copy) a span ``read.ring_wait``.
+    ``pinned_bytes`` counts the pinned bytes made."""
+
+    def __init__(self, count: int, shape, dtype, pin: bool, timer=None):
         self._free: queue.Queue = queue.Queue()
         self._left = count
         self._shape = shape
         self._dtype = torch.from_numpy(np.empty(0, dtype)).dtype
         self._pin = pin
+        self._timer = timer
+        self.pinned_bytes = 0
 
     def acquire(self):
-        try:
-            events, buf = self._free.get_nowait()
-        except queue.Empty:
-            if self._left > 0:
-                self._left -= 1
+        if self._left > 0 and self._free.empty():
+            self._left -= 1
+            with span(self._timer, "upload.pin"):
                 t = torch.empty(self._shape, dtype=self._dtype,
                                 pin_memory=self._pin)
-                return t, t.numpy()
+            if self._pin:
+                self.pinned_bytes += t.nbytes
+            return t, t.numpy()
+        with span(self._timer, "read.ring_wait"):
             events, buf = self._free.get()
-        if buf is None:
-            raise RuntimeError("the batch buffers were closed")
-        for event in events:
-            event.synchronize()
+            if buf is None:
+                raise RuntimeError("the batch buffers were closed")
+            for event in events:
+                event.synchronize()
         return buf
 
     def release(self, buf, event=None):
@@ -82,14 +91,18 @@ class BufferRing:
 class Uploader:
     """Host batches [B, C, N] to ``device`` (or, per call, to another
     device of the same type: a mesh's shards), counted in ``bytes`` and
-    ``samples`` (as stored, before any conversion)."""
+    ``samples`` (as stored, before any conversion). The conversion
+    factors' pinned copy is a span ``upload.pin`` of ``timer``, and its
+    bytes are counted in ``pinned_bytes``."""
 
-    def __init__(self, device):
+    def __init__(self, device, timer=None):
         self.device = torch.device(device)
         self.on_cuda = self.device.type == "cuda"
         self._streams: dict = {}           # a side stream a device
+        self._timer = timer
         self.bytes = 0
         self.samples = 0
+        self.pinned_bytes = 0
 
     def upload(self, host: torch.Tensor, conv: Optional[np.ndarray] = None,
                dtype: torch.dtype = torch.float32, device=None):
@@ -110,8 +123,10 @@ class Uploader:
                                 device=target)
                 x.copy_(host, non_blocking=True)
                 if conv is not None:
-                    conv_d = torch.from_numpy(conv).pin_memory().to(
-                        target, non_blocking=True)
+                    with span(self._timer, "upload.pin"):
+                        pinned = torch.from_numpy(conv).pin_memory()
+                    self.pinned_bytes += pinned.nbytes
+                    conv_d = pinned.to(target, non_blocking=True)
                 copied = torch.cuda.Event(blocking=True)
                 copied.record(self._streams[target])
             compute.wait_event(copied)

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from detprocess_tpu_torch.ops import _kernels, cuda_fft
+from detprocess_tpu_torch.utils.logging import trace_span
 
 
 class FusedNodelayOF(nn.Module):
@@ -89,8 +90,10 @@ class FusedNodelayOF(nn.Module):
         return q / self.norm, c0 - q * q / self.norm
 
     def kernel(self, traces: torch.Tensor):
-        """The hand-written CUDA kernel (float32 traces on the GPU)."""
-        q, c0 = self._launch(traces, "dp_fused_nodelay_of_f32")
+        """The hand-written CUDA kernel (float32 traces on the GPU), its
+        launch a profiler span ``of.nodelay.fused``."""
+        with trace_span("of.nodelay.fused"):
+            q, c0 = self._launch(traces, "dp_fused_nodelay_of_f32")
         norm = self.norm.to(torch.float64)
         amp = q / norm
         chi2 = c0 - q * q / norm

@@ -28,6 +28,7 @@ import torch
 
 from detprocess_tpu_torch.ops import _kernels, cuda_fft
 from detprocess_tpu_torch.utils.freq import fftfreq  # noqa: F401
+from detprocess_tpu_torch.utils.logging import trace_span
 
 
 def rfft(x: torch.Tensor) -> torch.Tensor:
@@ -42,16 +43,22 @@ def rfft(x: torch.Tensor) -> torch.Tensor:
 def rfft_cuda(x: torch.Tensor) -> torch.Tensor:
     """The CUDA route of :func:`rfft`: float32 traces to the kernel for
     the lengths it takes, else to cuFFT; float64 traces to cuFFT; another
-    dtype raises. A kernel that fails to build or launch raises."""
+    dtype raises. A kernel that fails to build or launch raises. Each
+    route is a profiler span (``fft.rfft.kernel``, ``fft.rfft.cufft``,
+    ``fft.rfft.cufft_f64``) where the profiler records this thread, so
+    that a trace carries the transform's work whatever implements it."""
     if x.dtype == torch.float64:
         _kernels.count_library_call("cufft_rfft_f64")
-        return torch.fft.rfft(x, dim=-1)
+        with trace_span("fft.rfft.cufft_f64"):
+            return torch.fft.rfft(x, dim=-1)
     if x.dtype != torch.float32:
         raise TypeError(f"rfft: float32 or float64 traces, got {x.dtype}")
     if x.shape[-1] in cuda_fft.SUPPORTED_N:
-        return cuda_fft.rfft_kernel(x.contiguous())
+        with trace_span("fft.rfft.kernel"):
+            return cuda_fft.rfft_kernel(x.contiguous())
     _kernels.count_library_call("cufft_rfft")
-    return torch.fft.rfft(x, dim=-1)
+    with trace_span("fft.rfft.cufft"):
+        return torch.fft.rfft(x, dim=-1)
 
 
 def irfft(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -93,6 +93,7 @@ from detprocess_tpu_torch.pipelines import feature_plan as fplan
 from detprocess_tpu_torch.pipelines.feature_group import GroupStep
 from detprocess_tpu_torch.pipelines.feature_plan import (  # noqa: F401
     AlgoSpec, TraceGroup)
+from detprocess_tpu_torch.utils.logging import layer_spans, span
 from detprocess_tpu_torch.utils.misc import create_series_name
 
 TRIGGER_COLUMNS = ("trigger_index", "trigger_time", "trigger_delta_chi2",
@@ -255,14 +256,23 @@ class FeatureProcessing:
         return (np.asarray(rows, np.int64), np.asarray(starts, np.int64),
                 np.asarray(trows, np.int64), ntab - len(rows))
 
-    def _fill(self, fast, ring, chunk, raw_mode, dtype):
-        """Read one batch (``chunk`` = event rows, window starts or None)
-        into a buffer of ``ring``; runs in a reader thread."""
+    def _fill(self, fast, ring, chunk, raw_mode, dtype, timer):
+        """Read one batch (``chunk`` = event rows, window starts or None,
+        table rows or None, batch index) into a buffer of ``ring``, the
+        reads a span ``read.fill``; runs in a reader thread. Returns the
+        ring, the buffer, the event count, the chunk and the batch's
+        (``preadv`` calls, bytes read)."""
+        buf = ring.acquire()
+        with span(timer, "read.fill", chunk[3]):
+            reads = self._read_batch(fast, buf[1], chunk, raw_mode, dtype)
+        return ring, buf, len(chunk[0]), chunk, reads
+
+    def _read_batch(self, fast, arr, chunk, raw_mode, dtype):
+        """Read one batch into ``arr``; returns its (``preadv`` calls,
+        bytes read), counted from its sizes once the events are read."""
         rows, starts = chunk[0], chunk[1]
         idx = self._index
         chan_rows = self._chan_rows
-        buf = ring.acquire()
-        arr = buf[1]
         n = arr.shape[-1]
         coalesce = set()
         if starts is not None:
@@ -271,6 +281,7 @@ class FeatureProcessing:
                         if c * n >= self.COALESCE_FRACTION
                         * idx.files[int(idx.file[r])].nb_samples}
         full = {}
+        whole = []                      # files of the coalesced reads
         inject, _ = split_injector(self._injector)
         for i, row in enumerate(rows):
             row = int(row)
@@ -283,6 +294,7 @@ class FeatureProcessing:
                     if len(full) >= 2:          # a few full traces at most
                         full.clear()
                     full[row] = fast.read(ds, None, rows=sel)
+                    whole.append(fi)
                 stored = full[row][:, window[0]:window[0] + n]
             elif raw_mode and ds.dtype == arr.dtype:
                 fast.read(ds, window, rows=sel, out=arr[i])
@@ -303,7 +315,30 @@ class FeatureProcessing:
             else:
                 np.multiply(stored.astype(dtype), conv[:, None].astype(dtype),
                             out=arr[i])
-        return ring, buf, len(rows), chunk
+        return self._read_counts(rows, starts, n, coalesce, whole)
+
+    def _read_counts(self, rows, starts, n, coalesce, whole):
+        """(``preadv`` calls, bytes read) of a batch read by
+        ``_read_batch``, as ``io/fastio.FastReader.read`` issues them: a
+        whole event of every channel in one call, else one call a channel
+        row (short reads retried aside; an h5py dataset counted as if read
+        so); a window, inside its trace (``_trigger_rows``), ``n`` samples
+        a row. ``whole``: the files of the coalesced whole-event reads,
+        which replace the windows of the ``coalesce`` rows."""
+        per_row, per_event, nsamp = self._read_geometry
+        fis = self._index.file[rows]
+        if starts is None:
+            calls = per_event[fis].sum()
+            items = (per_row[fis] * nsamp[fis]).sum()
+        else:
+            if coalesce:
+                fis = fis[~np.isin(rows, np.fromiter(coalesce, np.int64))]
+            calls = per_row[fis].sum()
+            items = calls * n
+            whole = np.asarray(whole, np.int64)
+            calls += per_event[whole].sum()
+            items += (per_row[whole] * nsamp[whole]).sum()
+        return int(calls), int(items) * self._read_itemsize
 
     # -- process -----------------------------------------------------------
     def process(self, nevents: int = -1, batch_size: int = 256,
@@ -324,7 +359,8 @@ class FeatureProcessing:
         In full-trace mode ``nreaders > 1`` requires ``nevents=-1`` and no
         ``resume``, as the JAX shell does. ``timer``: a
         ``utils.logging.StageTimer`` that adds up the host seconds of the
-        read, dispatch and drain stages. With ``lgc_save`` the table is
+        read, dispatch and drain stages and of the spans inside them
+        (README's port section names them). With ``lgc_save`` the table is
         written per dump to ``output_path`` (one dump a batch unless
         ``nb_events_per_dump`` or ``memory_limit`` say otherwise) with a
         job summary beside it; ``resume`` then skips the rows the newest
@@ -393,29 +429,43 @@ class FeatureProcessing:
         stored = (self._index.datasets[int(rows[0])].dtype if len(rows)
                   else dtype)
         buf_dtype = stored if raw_mode and stored.kind in "iu" else dtype
+        # per file: the channel rows an event reads, the calls that read a
+        # whole event, the samples of a row (``_read_counts``)
+        per_row = np.asarray([len(f.channels) if sel is None else len(sel)
+                              for f, sel in zip(self._index.files,
+                                                self._chan_rows)], np.int64)
+        self._read_geometry = (
+            per_row,
+            np.where([sel is None for sel in self._chan_rows], 1, per_row),
+            np.asarray([f.nb_samples for f in self._index.files], np.int64))
+        self._read_itemsize = np.dtype(stored).itemsize
         conv32 = [f.conv.astype(np.float32) if sel is None
                   else f.conv[sel].astype(np.float32)
                   for f, sel in zip(self._index.files, self._chan_rows)]
 
         chunks = [(rows[i:i + batch_size],
                    None if starts is None else starts[i:i + batch_size],
-                   None if trows is None else trows[i:i + batch_size])
-                  for i in range(0, len(rows), batch_size)]
+                   None if trows is None else trows[i:i + batch_size], k)
+                  for k, i in enumerate(range(0, len(rows), batch_size))]
         nworkers = max(1, min(nreaders, len(chunks)))
         shape = (min(batch_size, max(len(rows), 1)), nchan, n)
         rings = [BufferRing(self.READ_AHEAD + 1, shape, buf_dtype,
-                            pin=on_cuda) for _ in range(nworkers)]
+                            pin=on_cuda, timer=timer)
+                 for _ in range(nworkers)]
         fast = FastReader()
         reader = OrderedChunkPrefetcher(
             lambda ring, chunk: self._fill(fast, ring, chunk, raw_mode,
-                                           dtype),
+                                           dtype, timer),
             chunks, rings, depth=self.READ_AHEAD)
         batches = iter(reader)
-        uploader = Uploader(self._device)
+        uploader = Uploader(self._device, timer)
+        run_layer = layer_spans(timer, "spec.")
 
         self.stats = {"events": 0, "dropped": int(dropped),
                       "upload_bytes": 0, "upload_samples": 0,
-                      "batches": 0}
+                      "batches": 0, "read_calls": 0, "read_bytes": 0,
+                      "pinned_bytes": 0}
+        pinned_out = 0
         state = {"dump": dump0, "pending": [], "frames": [],
                  "keep": lgc_output,
                  "writer": tables.AsyncWriter() if lgc_save else None}
@@ -427,74 +477,81 @@ class FeatureProcessing:
 
         try:
             while (got := next_batch()) is not None:
-                t_disp = time.perf_counter()
-                ring, buf, nb, chunk = got
-                host_t, _ = buf
-                conv = None
-                if raw_mode:
-                    conv = np.stack([conv32[int(f)]
-                                     for f in self._index.file[chunk[0]]])
-                shards = [(d, lo, hi) for d, (lo, hi) in
-                          zip(devices, bounds(nb, len(devices)))
-                          if hi > lo]            # an empty shard is skipped
-                xs, copies = [], []
-                for d, lo, hi in shards:
-                    x, copied = uploader.upload(
-                        host_t[lo:hi], None if conv is None else conv[lo:hi],
-                        device=d)
-                    xs.append(x)
-                    copies.append(copied)
-                if on_cuda:
-                    ring.release(buf, copies)
-                self.stats["upload_bytes"] = uploader.bytes
-                self.stats["upload_samples"] = uploader.samples
-                parts = []
-                for x, (d, lo, hi) in zip(xs, shards):
-                    rows = chunk[0][lo:hi]
-                    if device_inject is not None:
-                        device_inject.inject(
-                            x, self._series[self._index.file[rows]],
-                            self._index.event_number[rows],
-                            window_starts=(None if chunk[1] is None
-                                           else chunk[1][lo:hi]),
-                            channels=self._read_names)
-                    feats = {}
-                    for step in steps[d]:
-                        feats.update(step(x))
-                    keys = list(feats)
-                    packed = (torch.stack([feats[k].to(torch_dtype)
-                                           for k in keys]) if keys else
-                              torch.empty((0, hi - lo), dtype=torch_dtype))
-                    done = None
-                    if on_cuda:
-                        out = torch.empty(packed.shape, dtype=packed.dtype,
-                                          pin_memory=True)
-                        out.copy_(packed, non_blocking=True)
-                        done = torch.cuda.Event(blocking=True)
-                        done.record(torch.cuda.current_stream(d))
-                    else:
-                        out = packed
-                    parts.append((out, done))
-                    del feats, packed
-                if not on_cuda:
-                    ring.release(buf)
-                del xs, x
-                inflight.append((keys, parts, chunk, nb))
-                self.stats["batches"] += 1
-                if timer is not None:
-                    timer.add_seconds("dispatch",
-                                      time.perf_counter() - t_disp)
+                with stage("dispatch"):
+                    ring, buf, nb, chunk, (calls, nbytes) = got
+                    self.stats["read_calls"] += calls
+                    self.stats["read_bytes"] += nbytes
+                    host_t, _ = buf
+                    conv = None
+                    if raw_mode:
+                        conv = np.stack([conv32[int(f)] for f in
+                                         self._index.file[chunk[0]]])
+                    shards = [(d, lo, hi) for d, (lo, hi) in
+                              zip(devices, bounds(nb, len(devices)))
+                              if hi > lo]        # an empty shard is skipped
+                    xs, copies = [], []
+                    with span(timer, "dispatch.upload"):
+                        for d, lo, hi in shards:
+                            x, copied = uploader.upload(
+                                host_t[lo:hi],
+                                None if conv is None else conv[lo:hi],
+                                device=d)
+                            xs.append(x)
+                            copies.append(copied)
+                        if on_cuda:
+                            ring.release(buf, copies)
+                    self.stats["upload_bytes"] = uploader.bytes
+                    self.stats["upload_samples"] = uploader.samples
+                    parts = []
+                    for x, (d, lo, hi) in zip(xs, shards):
+                        rows = chunk[0][lo:hi]
+                        if device_inject is not None:
+                            device_inject.inject(
+                                x, self._series[self._index.file[rows]],
+                                self._index.event_number[rows],
+                                window_starts=(None if chunk[1] is None
+                                               else chunk[1][lo:hi]),
+                                channels=self._read_names)
+                        feats = {}
+                        for step in steps[d]:
+                            feats.update(step(x, run_layer=run_layer))
+                        keys = list(feats)
+                        with span(timer, "dispatch.pack"):
+                            packed = (torch.stack([feats[k].to(torch_dtype)
+                                                   for k in keys]) if keys
+                                      else torch.empty((0, hi - lo),
+                                                       dtype=torch_dtype))
+                            done = None
+                            if on_cuda:
+                                with span(timer, "upload.pin"):
+                                    out = torch.empty(packed.shape,
+                                                      dtype=packed.dtype,
+                                                      pin_memory=True)
+                                pinned_out += out.nbytes
+                                out.copy_(packed, non_blocking=True)
+                                done = torch.cuda.Event(blocking=True)
+                                done.record(torch.cuda.current_stream(d))
+                            else:
+                                out = packed
+                        parts.append((out, done))
+                        del feats, packed
+                    if not on_cuda:
+                        ring.release(buf)
+                    del xs, x
+                    inflight.append((keys, parts, chunk, nb))
+                    self.stats["batches"] += 1
                 if len(inflight) > max(pipeline_depth, 0):
                     with stage("drain"):
                         self._emit(inflight.pop(0), state, lgc_save,
                                    output_path, output_format, out_series,
                                    group_name, nb_events_per_dump,
-                                   memory_limit)
+                                   memory_limit, timer)
             with stage("drain"):
                 while inflight:
                     self._emit(inflight.pop(0), state, lgc_save,
                                output_path, output_format, out_series,
-                               group_name, nb_events_per_dump, memory_limit)
+                               group_name, nb_events_per_dump, memory_limit,
+                               timer)
         except BaseException:
             if state["writer"] is not None:      # keep the first error
                 try:
@@ -508,6 +565,9 @@ class FeatureProcessing:
                 ring.close()
             reader.close()
             fast.close()
+            self.stats["pinned_bytes"] = (sum(r.pinned_bytes for r in rings)
+                                          + uploader.pinned_bytes
+                                          + pinned_out)
         if lgc_save and state["pending"]:
             self._flush_dump(state, output_path, output_format, out_series,
                              group_name)
@@ -547,30 +607,35 @@ class FeatureProcessing:
 
     # -- drain -------------------------------------------------------------
     def _emit(self, entry, state, lgc_save, output_path, output_format,
-              out_series, group_name, dump_size, memory_limit):
+              out_series, group_name, dump_size, memory_limit, timer=None):
+        """Drain one batch: wait for its columns' copies (span
+        ``drain.wait``), then make its frame and keep or write it (span
+        ``drain.host``)."""
         keys, parts, chunk, nb = entry
-        for _, done in parts:
-            if done is not None:
-                done.synchronize()
-        arr = np.concatenate([out.numpy() for out, _ in parts],
-                             axis=1).astype(np.float64)
-        frame = self._admin_columns(chunk[0], chunk[2])
-        frame.update({k: arr[i][:nb] for i, k in enumerate(keys)})
-        self.stats["events"] += nb
-        if state["keep"]:
-            state["frames"].append(frame)
-        if lgc_save:
-            state["pending"].append(frame)
-            mem = _parse_memory_limit(memory_limit)
-            if ((dump_size is None and mem is None)
-                    or (dump_size is not None
-                        and sum(tables.table_rows(t)
-                                for t in state["pending"]) >= dump_size)
-                    or (mem is not None
-                        and sum(tables.table_nbytes(t)
-                                for t in state["pending"]) >= mem)):
-                self._flush_dump(state, output_path, output_format,
-                                 out_series, group_name)
+        with span(timer, "drain.wait"):
+            for _, done in parts:
+                if done is not None:
+                    done.synchronize()
+        with span(timer, "drain.host"):
+            arr = np.concatenate([out.numpy() for out, _ in parts],
+                                 axis=1).astype(np.float64)
+            frame = self._admin_columns(chunk[0], chunk[2])
+            frame.update({k: arr[i][:nb] for i, k in enumerate(keys)})
+            self.stats["events"] += nb
+            if state["keep"]:
+                state["frames"].append(frame)
+            if lgc_save:
+                state["pending"].append(frame)
+                mem = _parse_memory_limit(memory_limit)
+                if ((dump_size is None and mem is None)
+                        or (dump_size is not None
+                            and sum(tables.table_rows(t)
+                                    for t in state["pending"]) >= dump_size)
+                        or (mem is not None
+                            and sum(tables.table_nbytes(t)
+                                    for t in state["pending"]) >= mem)):
+                    self._flush_dump(state, output_path, output_format,
+                                     out_series, group_name)
 
     def _admin_columns(self, rows, trows) -> dict:
         """Admin, provenance, trigger carry-over and detector columns of

@@ -89,6 +89,7 @@ from detprocess_tpu_torch.ops.saltinject import split_injector
 from detprocess_tpu_torch.parallel.collectives import bounds, check_mesh
 from detprocess_tpu_torch.pipelines.trigger_step import TriggerStep
 from detprocess_tpu_torch.utils import channels as chutils
+from detprocess_tpu_torch.utils.logging import layer_spans, span
 from detprocess_tpu_torch.utils.misc import create_series_name
 
 Table = tables.Table
@@ -900,7 +901,8 @@ class TriggerProcessing:
         ``nreaders`` reader threads split the files; ``> 1`` needs
         ``nevents=-1`` and no ``resume``. ``timer``: a
         ``utils.logging.StageTimer`` that adds up the host seconds of the
-        read, dispatch, drain and dump stages. With ``lgc_save`` the table
+        read, dispatch, drain and dump stages and of the spans inside them
+        (README's port section names them). With ``lgc_save`` the table
         is written to ``output_path`` every ``nb_events_per_dump``
         continuous events (default: once, at the end) with a job summary
         beside it; ``resume`` skips the events up to the newest dump's
@@ -970,13 +972,15 @@ class TriggerProcessing:
         buf_dtype = stored if stored.kind in "iu" and inject is None else dtype
         ring = BufferRing(max(pipeline_depth, 0) + 2,
                           (event_batch, len(needed), nb), buf_dtype,
-                          pin=on_cuda)
-        uploader = Uploader(self._device)
+                          pin=on_cuda, timer=timer)
+        uploader = Uploader(self._device, timer)
         reader = RawReader(self._index)
         source = prefetch_events(reader, depth=max(prefetch_depth, 1),
                                  raw=inject is None,
                                  dtype=None if inject is None else np.float64,
-                                 nreaders=nreaders, channels=read_channels)
+                                 nreaders=nreaders, channels=read_channels,
+                                 timer=timer)
+        run_layer = layer_spans(timer, "step.")
         writer = tables.AsyncWriter() if lgc_save else None
         state = DrainState()
         frames: List[Table] = []
@@ -984,16 +988,24 @@ class TriggerProcessing:
         inflight: list = []
         total = events_done = events_dumped = 0
         self.stats = {"events": 0, "batches": 0, "upload_bytes": 0,
-                      "upload_samples": 0}
+                      "upload_samples": 0, "read_calls": 0, "read_bytes": 0,
+                      "pinned_bytes": 0}
+        pinned_sets = 0
+        skipped = 0
+        event_bytes = len(read_channels) * nb * np.dtype(stored).itemsize
 
         def drain(entry):
             nonlocal events_done
             admins, packed = entry
             with stage("drain"):
-                sets = _merge_shards([_sets_to_host(p) for p in packed])
-                table = drain_batch(self._channels, sets, admins, nb,
-                                    self._fs, state, merge_window,
-                                    self._processing_id)
+                with span(timer, "drain.wait"):
+                    for p in packed:
+                        _wait(p)
+                with span(timer, "drain.host"):
+                    sets = _merge_shards([_sets_to_host(p) for p in packed])
+                    table = drain_batch(self._channels, sets, admins, nb,
+                                        self._fs, state, merge_window,
+                                        self._processing_id)
             if table is not None:
                 frames.append(table)
             events_done += len(admins)
@@ -1012,6 +1024,7 @@ class TriggerProcessing:
                         if resume_after is not None and (
                                 admin["series_number"],
                                 admin["event_number"]) <= resume_after:
+                            skipped += 1
                             continue
                         if traces.shape[-1] != nb:
                             raise ValueError(
@@ -1025,38 +1038,51 @@ class TriggerProcessing:
                                             channels=read_channels)
                         traces_list.append(traces)
                         admins.append(admin)
+                # each event read is one preadv a channel row
+                nread = len(traces_list) + skipped
+                self.stats["read_calls"] += nread * len(read_channels)
+                self.stats["read_bytes"] += nread * event_bytes
+                skipped = 0
                 if not traces_list:
                     if resume_after is not None and traces is not None:
                         continue          # a batch skipped whole
                     break
                 total += len(traces_list)
                 with stage("dispatch"):
-                    host_t, host_a = ring.acquire()
-                    for i, tr in enumerate(traces_list):
-                        host_a[i] = tr
-                    conv = np.stack(convs).astype(dtype) if convs else None
-                    packed, copies = [], []
-                    for d, (lo, hi) in zip(devices, bounds(len(traces_list),
-                                                           len(devices))):
-                        if hi == lo:
-                            continue              # an empty shard
-                        x, copied = uploader.upload(
-                            host_t[lo:hi], None if conv is None
-                            else conv[lo:hi], torch_dtype, device=d)
-                        if device_inject is not None:
-                            device_inject.inject(
-                                x, [a["series_number"] for a in admins[lo:hi]],
-                                [a["event_number"] for a in admins[lo:hi]],
-                                channels=read_channels)
-                        batch_sets = {tc.name: step(x.index_select(1, g))
-                                      for tc, step, g in zip(
-                                          self._channels, steps[d],
-                                          gathers[d])}
-                        packed.append(_pack_sets(batch_sets, torch_dtype))
-                        copies.append(copied)
-                        del x, batch_sets
-                    ring.release((host_t, host_a), copies)
-                    inflight.append((admins, packed))
+                    with span(timer, "dispatch.fill"):
+                        host_t, host_a = ring.acquire()
+                        for i, tr in enumerate(traces_list):
+                            host_a[i] = tr
+                        conv = (np.stack(convs).astype(dtype) if convs
+                                else None)
+                    with span(timer, "dispatch.enqueue"):
+                        packed, copies = [], []
+                        for d, (lo, hi) in zip(devices, bounds(
+                                len(traces_list), len(devices))):
+                            if hi == lo:
+                                continue              # an empty shard
+                            x, copied = uploader.upload(
+                                host_t[lo:hi], None if conv is None
+                                else conv[lo:hi], torch_dtype, device=d)
+                            if device_inject is not None:
+                                device_inject.inject(
+                                    x, [a["series_number"]
+                                        for a in admins[lo:hi]],
+                                    [a["event_number"]
+                                     for a in admins[lo:hi]],
+                                    channels=read_channels)
+                            batch_sets = {
+                                tc.name: step(x.index_select(1, g),
+                                              run_layer=run_layer)
+                                for tc, step, g in zip(
+                                    self._channels, steps[d], gathers[d])}
+                            packed.append(_pack_sets(batch_sets, torch_dtype,
+                                                     timer))
+                            pinned_sets += _pinned_bytes(packed[-1])
+                            copies.append(copied)
+                            del x, batch_sets
+                        ring.release((host_t, host_a), copies)
+                        inflight.append((admins, packed))
                 self.stats["batches"] += 1
                 while len(inflight) > max(pipeline_depth, 0):
                     drain(inflight.pop(0))
@@ -1094,7 +1120,10 @@ class TriggerProcessing:
         if writer is not None:
             writer.close()
         self.stats.update(events=total, upload_bytes=uploader.bytes,
-                          upload_samples=uploader.samples)
+                          upload_samples=uploader.samples,
+                          pinned_bytes=(ring.pinned_bytes
+                                        + uploader.pinned_bytes
+                                        + pinned_sets))
 
         all_frames.extend(frames)
         result = tables.concat_tables(all_frames) if all_frames else {}
@@ -1154,11 +1183,12 @@ class TriggerProcessing:
         return series, dumps[-1][0], key
 
 
-def _pack_sets(batch_sets: dict, dtype: torch.dtype):
+def _pack_sets(batch_sets: dict, dtype: torch.dtype, timer=None):
     """A batch's trigger sets {name: (set, set or None)} packed on their
     device into one int64 and one ``dtype`` buffer, and on the GPU copied
-    to pinned memory ``non_blocking`` behind an event: (ints, floats,
-    layout, event or None)."""
+    to pinned memory ``non_blocking`` behind an event (the pinned buffers'
+    making a span ``upload.pin`` of ``timer``): (ints, floats, layout,
+    event or None)."""
     ints, floats, layout = [], [], []
     for name, pair in batch_sets.items():
         for si, ts in enumerate(pair):
@@ -1176,7 +1206,8 @@ def _pack_sets(batch_sets: dict, dtype: torch.dtype):
         return ibuf, fbuf, layout, None
     host = []
     for buf in (ibuf, fbuf):
-        h = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        with span(timer, "upload.pin"):
+            h = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
         h.copy_(buf, non_blocking=True)
         host.append(h)
     done = torch.cuda.Event(blocking=True)
@@ -1202,12 +1233,23 @@ def _merge_shards(shard_sets: List[dict]) -> dict:
             for name in shard_sets[0]}
 
 
+def _pinned_bytes(packed) -> int:
+    """The pinned bytes of :func:`_pack_sets`' output (none on the CPU)."""
+    ibuf, fbuf, _, done = packed
+    return 0 if done is None else ibuf.nbytes + fbuf.nbytes
+
+
+def _wait(packed):
+    """Block until :func:`_pack_sets`' copy to the host has completed."""
+    if packed[3] is not None:
+        packed[3].synchronize()
+
+
 def _sets_to_host(packed) -> dict:
     """Host trigger sets (numpy fields) from :func:`_pack_sets`' output,
     after its copy has completed."""
-    ibuf, fbuf, layout, done = packed
-    if done is not None:
-        done.synchronize()
+    ibuf, fbuf, layout, _ = packed
+    _wait(packed)
     bufs = {True: ibuf.numpy(), False: fbuf.numpy()}
     offs = {True: 0, False: 0}
     fields: dict = {}

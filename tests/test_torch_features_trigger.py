@@ -12,6 +12,9 @@ same table as written to a file by the JAX table writer. Same tolerances
 as tests/test_torch_features.py.
 """
 
+import os
+import threading
+
 import jax  # noqa: F401
 import numpy as np
 import pandas as pd
@@ -153,13 +156,29 @@ def test_coalesced_and_parallel_reads_leave_the_table(chain, monkeypatch,
                                                       batch_size, nreaders):
     """A batch holding more than 25 windows of event 1 reads it whole
     (COALESCE_FRACTION of its 100000 samples); the table stays that of
-    the JAX run, whatever the batch size and reader count."""
+    the JAX run, whatever the batch size and reader count. The shell's
+    ``read_calls`` and ``read_bytes``, counted from each batch's windows
+    and whole-event reads, are the ``os.preadv`` calls and their bytes."""
     monkeypatch.setattr(tfeatures, "FastReader", CountingReader)
     CountingReader.whole = 0
-    got = _port(chain).process(batch_size=batch_size, dtype=np.float64,
-                               nreaders=nreaders)
+    preadv, lock = [0, 0], threading.Lock()
+    real = os.preadv
+
+    def counting(*args):
+        n = real(*args)
+        with lock:
+            preadv[0] += 1
+            preadv[1] += n
+        return n
+
+    monkeypatch.setattr(os, "preadv", counting)
+    shell = _port(chain)
+    got = shell.process(batch_size=batch_size, dtype=np.float64,
+                        nreaders=nreaders)
     assert (CountingReader.whole > 0) == (batch_size >= 32)
     cases.assert_tables_equal(got, chain["jdf"], f"batch {batch_size}")
+    assert preadv[0] > 0
+    assert [shell.stats["read_calls"], shell.stats["read_bytes"]] == preadv
 
 
 def test_float32_windows_agree(chain):
