@@ -10,7 +10,10 @@ preallocated buffer:
   pointer and no library lock, so reader threads scale;
 - one copy: page cache → the destination buffer, which may be the
   caller's own (``out=``, e.g. a slot of a pinned upload buffer);
-- windowed and channel-subset reads are a few small positioned reads.
+- windowed and channel-subset reads are a few small positioned reads;
+- a run of whole events stored back to back in one file is read as one
+  :class:`FastDataset` of shape [k, C, N] at the first event's offset:
+  one call for the run.
 
 :func:`dataset_storage` and :meth:`FastReader.resolve` resolve an h5py
 dataset to its block (h5py's own module is imported only when they are

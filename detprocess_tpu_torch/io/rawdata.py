@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import glob
 import json
+import math
 import os
 import re
 from dataclasses import dataclass, field
@@ -156,6 +157,30 @@ class RawIndex:
                                    int(self.event_number[row])), row)
         self.lookup = lookup
         self._file_pos = {f.path: i for i, f in enumerate(self.files)}
+        self._extents = None
+
+    def extents(self):
+        """Per event, three int64 arrays built once: the number of its
+        (path, shape, dtype), its file offset (-1 for an ``H5Dataset``,
+        which has none) and its length in bytes. Two events ``a``, ``b``
+        of equal number with ``offset[b] == offset[a] + nbytes[a]`` lie
+        back to back in one file."""
+        if self._extents is None:
+            n = len(self.datasets)
+            key = np.empty(n, np.int64)
+            offset = np.full(n, -1, np.int64)
+            nbytes = np.empty(n, np.int64)
+            kinds = {}                  # (path, shape, dtype) → (key, bytes)
+            for i, ds in enumerate(self.datasets):
+                kind = (ds.path, tuple(ds.shape), np.dtype(ds.dtype))
+                if kind not in kinds:
+                    kinds[kind] = (len(kinds),
+                                   math.prod(kind[1]) * kind[2].itemsize)
+                key[i], nbytes[i] = kinds[kind]
+                if isinstance(ds, FastDataset):
+                    offset[i] = ds.offset
+            self._extents = (key, offset, nbytes)
+        return self._extents
 
     def __len__(self) -> int:
         return len(self.order)

@@ -26,9 +26,12 @@ A ``process()`` call:
 2. **Reads.** ``nreaders`` threads (``io/prefetch.OrderedChunkPrefetcher``)
    read whole batches by pread (or h5py hyperslabs, for storage that
    pread cannot serve) into buffers of their own, yielded in
-   batch order. Only the raw channels the plan mixes are read. In a
-   window-dense event (the batch's windows cover at least
-   ``COALESCE_FRACTION`` of its trace) the event is read once and sliced.
+   batch order. Only the raw channels the plan mixes are read. Where
+   whole events of every channel are read in the stored dtype, each run
+   of events that lie back to back in one file is one read straight
+   into the batch buffer's rows. In a window-dense event (the batch's
+   windows cover at least ``COALESCE_FRACTION`` of its trace) the event
+   is read once and sliced.
 3. **Upload.** In float32 the int16 ADC codes are read as stored into a
    ring of pinned host buffers, copied to the card ``non_blocking`` on a
    side stream behind an event that the compute stream waits on, and
@@ -82,7 +85,7 @@ import torch
 from detprocess_tpu_torch import device as dev
 from detprocess_tpu_torch.config.yamlconfig import resolve_config
 from detprocess_tpu_torch.io import tables
-from detprocess_tpu_torch.io.fastio import FastReader
+from detprocess_tpu_torch.io.fastio import FastDataset, FastReader
 from detprocess_tpu_torch.io.filterdata import FilterData
 from detprocess_tpu_torch.io.prefetch import OrderedChunkPrefetcher
 from detprocess_tpu_torch.io.rawdata import RawIndex
@@ -261,19 +264,54 @@ class FeatureProcessing:
         table rows or None, batch index) into a buffer of ``ring``, the
         reads a span ``read.fill``; runs in a reader thread. Returns the
         ring, the buffer, the event count, the chunk and the batch's
-        (``preadv`` calls, bytes read)."""
+        read counts (``_read_counts``)."""
         buf = ring.acquire()
         with span(timer, "read.fill", chunk[3]):
             reads = self._read_batch(fast, buf[1], chunk, raw_mode, dtype)
         return ring, buf, len(chunk[0]), chunk, reads
 
+    def _runs(self, rows, arr):
+        """[(a, b)]: the stretches of two or more batch rows ``a … b − 1``
+        whose events lie back to back in one file, as whole events of
+        ``arr``'s dtype and row shape, so that one positioned read fills
+        ``arr[a:b]``. Found with numpy on the index's extents; only the
+        stretches are visited in Python."""
+        idx = self._index
+        key, offset, nbytes = idx.extents()
+        k, off, nb = key[rows], offset[rows], nbytes[rows]
+        ok = (off >= 0) & self._whole_event[idx.file[rows]]
+        joined = (ok[1:] & ok[:-1] & (k[1:] == k[:-1])
+                  & (off[1:] == off[:-1] + nb[:-1]))
+        edges = np.flatnonzero(~joined) + 1
+        firsts = np.concatenate(([0], edges))
+        stops = np.concatenate((edges, [len(rows)]))
+        long = stops - firsts >= 2
+        runs = []
+        for a, b in zip(firsts[long].tolist(), stops[long].tolist()):
+            ds = idx.datasets[int(rows[a])]
+            if ds.dtype == arr.dtype and tuple(ds.shape) == arr.shape[1:]:
+                runs.append((a, b))
+        return runs
+
     def _read_batch(self, fast, arr, chunk, raw_mode, dtype):
-        """Read one batch into ``arr``; returns its (``preadv`` calls,
-        bytes read), counted from its sizes once the events are read."""
+        """Read one batch into ``arr``; returns its read counts
+        (``_read_counts``), counted from its sizes once the events are
+        read. In full-trace stored-dtype reads, each run of back-to-back
+        whole events (``_runs``) is one ``preadv`` straight into its rows
+        of ``arr``; every other row is read on its own."""
         rows, starts = chunk[0], chunk[1]
         idx = self._index
         chan_rows = self._chan_rows
         n = arr.shape[-1]
+        runs = (self._runs(rows, arr) if raw_mode and starts is None
+                else [])
+        single = np.ones(len(rows), bool)
+        for a, b in runs:
+            ds = idx.datasets[int(rows[a])]
+            fast.read(FastDataset(ds.path, ds.offset,
+                                  (b - a,) + tuple(ds.shape), ds.dtype),
+                      out=arr[a:b])
+            single[a:b] = False
         coalesce = set()
         if starts is not None:
             ev_rows, counts = np.unique(rows, return_counts=True)
@@ -283,8 +321,8 @@ class FeatureProcessing:
         full = {}
         whole = []                      # files of the coalesced reads
         inject, _ = split_injector(self._injector)
-        for i, row in enumerate(rows):
-            row = int(row)
+        for i in np.flatnonzero(single).tolist():
+            row = int(rows[i])
             fi = int(idx.file[row])
             ds = idx.datasets[row]
             sel = chan_rows[fi]
@@ -315,20 +353,23 @@ class FeatureProcessing:
             else:
                 np.multiply(stored.astype(dtype), conv[:, None].astype(dtype),
                             out=arr[i])
-        return self._read_counts(rows, starts, n, coalesce, whole)
+        return self._read_counts(rows, starts, n, coalesce, whole, runs)
 
-    def _read_counts(self, rows, starts, n, coalesce, whole):
-        """(``preadv`` calls, bytes read) of a batch read by
-        ``_read_batch``, as ``io/fastio.FastReader.read`` issues them: a
-        whole event of every channel in one call, else one call a channel
-        row (short reads retried aside; an h5py dataset counted as if read
-        so); a window, inside its trace (``_trigger_rows``), ``n`` samples
-        a row. ``whole``: the files of the coalesced whole-event reads,
-        which replace the windows of the ``coalesce`` rows."""
+    def _read_counts(self, rows, starts, n, coalesce, whole, runs):
+        """(``preadv`` calls, bytes read, calls that read a run, events
+        they read) of a batch read by ``_read_batch``, as
+        ``io/fastio.FastReader.read`` issues them: a run of back-to-back
+        whole events (``runs``) in one call, a whole event of every
+        channel in one call, else one call a channel row (short reads
+        retried aside; an h5py dataset counted as if read so); a window,
+        inside its trace (``_trigger_rows``), ``n`` samples a row.
+        ``whole``: the files of the coalesced whole-event reads, which
+        replace the windows of the ``coalesce`` rows."""
         per_row, per_event, nsamp = self._read_geometry
         fis = self._index.file[rows]
+        run_events = sum(b - a for a, b in runs)
         if starts is None:
-            calls = per_event[fis].sum()
+            calls = per_event[fis].sum() - run_events + len(runs)
             items = (per_row[fis] * nsamp[fis]).sum()
         else:
             if coalesce:
@@ -338,7 +379,8 @@ class FeatureProcessing:
             whole = np.asarray(whole, np.int64)
             calls += per_event[whole].sum()
             items += (per_row[whole] * nsamp[whole]).sum()
-        return int(calls), int(items) * self._read_itemsize
+        return (int(calls), int(items) * self._read_itemsize, len(runs),
+                run_events)
 
     # -- process -----------------------------------------------------------
     def process(self, nevents: int = -1, batch_size: int = 256,
@@ -434,9 +476,12 @@ class FeatureProcessing:
         per_row = np.asarray([len(f.channels) if sel is None else len(sel)
                               for f, sel in zip(self._index.files,
                                                 self._chan_rows)], np.int64)
+        self._whole_event = np.asarray([sel is None
+                                        for sel in self._chan_rows], bool)
+        if raw_mode and not trigger_mode:
+            self._index.extents()       # built once, before the readers
         self._read_geometry = (
-            per_row,
-            np.where([sel is None for sel in self._chan_rows], 1, per_row),
+            per_row, np.where(self._whole_event, 1, per_row),
             np.asarray([f.nb_samples for f in self._index.files], np.int64))
         self._read_itemsize = np.dtype(stored).itemsize
         conv32 = [f.conv.astype(np.float32) if sel is None
@@ -464,7 +509,7 @@ class FeatureProcessing:
         self.stats = {"events": 0, "dropped": int(dropped),
                       "upload_bytes": 0, "upload_samples": 0,
                       "batches": 0, "read_calls": 0, "read_bytes": 0,
-                      "pinned_bytes": 0}
+                      "read_runs": 0, "run_events": 0, "pinned_bytes": 0}
         pinned_out = 0
         state = {"dump": dump0, "pending": [], "frames": [],
                  "keep": lgc_output,
@@ -478,9 +523,10 @@ class FeatureProcessing:
         try:
             while (got := next_batch()) is not None:
                 with stage("dispatch"):
-                    ring, buf, nb, chunk, (calls, nbytes) = got
-                    self.stats["read_calls"] += calls
-                    self.stats["read_bytes"] += nbytes
+                    ring, buf, nb, chunk, reads = got
+                    for k, v in zip(("read_calls", "read_bytes",
+                                     "read_runs", "run_events"), reads):
+                        self.stats[k] += v
                     host_t, _ = buf
                     conv = None
                     if raw_mode:

@@ -7,7 +7,9 @@ shells' ``stats``) on the CPU.
   their tables bit-equal to a run without a timer;
 - ``stats["read_bytes"]`` and ``stats["read_calls"]``, which the shells
   count from the sizes of each batch, are the bytes of the channels read
-  and the ``os.preadv`` calls that read them, as counted at the call;
+  and the ``os.preadv`` calls that read them, as counted at the call
+  (in the feature shell one a run of back-to-back events: ``read_runs``,
+  ``run_events``);
 - with the profiler off no ``record_function`` is entered;
 - under ``device_trace(dir, timer=...)`` the exported trace holds the
   reader threads' ``read.fill`` spans on their own threads, each chunk's
@@ -194,8 +196,11 @@ def test_feature_shell_counts_its_reads(dumps, nreaders, preadv_calls):
     shell = feature_shell(dumps)
     run(shell, nreaders=nreaders)
     nchan = len(E.SHELL_CHANNELS)
-    # every channel is read: one preadv of the whole event each
-    assert shell.stats["read_calls"] == NEVENTS
+    # every channel is read, and each batch's events lie back to back in
+    # one of the 2 dumps of 12: one preadv a batch
+    assert shell.stats["read_calls"] == NEVENTS // BATCH
+    assert shell.stats["read_runs"] == NEVENTS // BATCH
+    assert shell.stats["run_events"] == NEVENTS
     assert shell.stats["read_bytes"] == NEVENTS * nchan * N * 2
     assert [shell.stats["read_calls"],
             shell.stats["read_bytes"]] == preadv_calls
