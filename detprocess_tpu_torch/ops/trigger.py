@@ -50,6 +50,7 @@ from detprocess_tpu_torch import device as dev
 from detprocess_tpu_torch.ops import fft, filterbank
 from detprocess_tpu_torch.ops.filterbank import OFNxMBank
 from detprocess_tpu_torch.parallel import collectives as col
+from detprocess_tpu_torch.utils.logging import span
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
@@ -297,6 +298,10 @@ class TriggerSet(NamedTuple):
                                # pre-merged runs of them); above the
                                # candidate capacity, later units were
                                # dropped and the winners may be wrong
+    n_vetoed: Optional[torch.Tensor] = None
+                               # [...] residual pass with a saturation
+                               # veto only: first-pass triggers the veto
+                               # kept out of the subtraction
 
 
 def _tile_size(pileup_window: int, cap: int = 2048) -> int:
@@ -815,7 +820,7 @@ def find_triggers_dynamic_kernel(dchi2: torch.Tensor, amps: torch.Tensor,
     ts = find_triggers_dynamic_batched(
         dchi2[None], amps[None], threshold, window_fn, capacity,
         candidate_capacity, amps_transform, premerge_window)
-    return TriggerSet(*(f[0] for f in ts))
+    return TriggerSet(*(None if f is None else f[0] for f in ts))
 
 
 def find_triggers_dynamic(dchi2: np.ndarray, amps: np.ndarray,
@@ -922,10 +927,18 @@ def saturation_mask(lpf_trace: torch.Tensor, sat_amplitudes, window: int,
     return _dilate(over.any(dim=-2).to(torch.int32), window) > 0
 
 
+def vetoed_count(triggers: TriggerSet,
+                 saturated: torch.Tensor) -> torch.Tensor:
+    """The triggers [...] of ``triggers`` that the saturation flags
+    ``saturated`` [..., L] keep out of the residual subtraction."""
+    idx = triggers.indices
+    return ((idx >= 0) & saturated.gather(-1, idx.clamp(min=0))).sum(-1)
+
+
 def residual_subtract_conv(dchi2: torch.Tensor, triggers: TriggerSet,
                            kernel: TriggerKernel, basis: ResidualBasis,
-                           saturated: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           saturated: Optional[torch.Tensor] = None,
+                           timer=None) -> torch.Tensor:
     """Subtract each trigger's best-fit Δχ² response from Δχ²
     (oftrigger.py:789-817), skipping saturated triggers.
 
@@ -936,7 +949,9 @@ def residual_subtract_conv(dchi2: torch.Tensor, triggers: TriggerSet,
     the trace to subtract. ``dchi2`` is [..., L] or [..., R, B] with the
     batch dimensions of ``triggers``; the result has its shape. Only the
     slots up to the last valid one of any event are aligned, which needs
-    one read of the trigger indices on the host."""
+    one read of the trigger indices on the host: a span
+    ``residual.index_read`` of ``timer`` (a ``StageTimer``), where the
+    caller waits for the first pass on the device."""
     nbatch = triggers.indices.ndim - 1
     batch = triggers.indices.shape[:-1]
     d_flat = dchi2.reshape(*batch, -1)
@@ -950,8 +965,9 @@ def residual_subtract_conv(dchi2: torch.Tensor, triggers: TriggerSet,
         valid = valid & ~saturated.gather(-1, triggers.indices.clamp(min=0))
     cap = valid.shape[-1]
     used = valid.reshape(-1, cap).any(dim=0)
-    k = int(torch.where(used, torch.arange(1, cap + 1, device=used.device),
-                        0).max())
+    with span(timer, "residual.index_read"):
+        k = int(torch.where(used, torch.arange(1, cap + 1,
+                                               device=used.device), 0).max())
     amps = triggers.amplitudes[..., :k]                  # [..., M, k]
     valid = valid[..., :k]
 
@@ -993,7 +1009,8 @@ def combine_trigger_sets(first: TriggerSet,
     truncated ones to the first pass's total; ``n_above`` is the sum of
     the passes' (None when neither has one)."""
     host = {name: [_host(getattr(ts, name)) for ts in (first, second)]
-            for name in TriggerSet._fields if name != "n_above"}
+            for name in TriggerSet._fields
+            if name not in ("n_above", "n_vetoed")}
     (idx1, idx2), (d1, d2), (a1, a2) = (host["indices"], host["dchi2"],
                                         host["amplitudes"])
     n1, n2 = (int(c) for c in host["count"])

@@ -13,7 +13,9 @@ builds (``run_one`` :632-655), batched over events. Per batch [E, C, L]:
 3. in residual mode: the saturation veto (50 kHz low-pass,
    ``saturation_mask`` over ±Nt/4), the subtraction of each first-pass
    trigger's Δχ² response (``residual_subtract_conv``: one more FIR, over
-   the residual basis) and a second merge on the residual Δχ².
+   the residual basis) and a second merge on the residual Δχ²; the
+   residual set's ``n_vetoed`` counts the first-pass triggers that the
+   veto kept out of the subtraction.
 
 The χ² threshold is ``chi2_threshold(threshold_sigma, M)``
 (triggers.py:523). Pileup windows below 7 samples run the same tiled
@@ -144,13 +146,15 @@ class TriggerStep(nn.Module):
             amps_transform=self.iw_matrix,
             premerge_window=self.premerge_window)
 
-    def forward(self, traces: torch.Tensor, run_layer=None):
+    def forward(self, traces: torch.Tensor, run_layer=None, timer=None):
         """``traces`` [E, C, L] → (first-pass TriggerSet, residual-pass
         TriggerSet or None), each batched over E.
 
         ``run_layer(name, fn, *args)``, if given, runs each layer in place
         of ``fn(*args)`` and returns its result, so that a caller can time
-        or keep the layers of this very path (names in :data:`LAYERS`)."""
+        or keep the layers of this very path (names in :data:`LAYERS`).
+        ``timer``: a ``StageTimer`` for the residual subtraction's host
+        read (span ``residual.index_read``)."""
         run = run_layer or _call
         kernel, basis = self.device_kernels()
         spec = run(LAYERS[0], trigger.fir_spectra, traces, kernel)
@@ -164,9 +168,11 @@ class TriggerStep(nn.Module):
             return ts, None
         sat = run(LAYERS[5], self.saturation, traces)
         resid = run(LAYERS[6], trigger.residual_subtract_conv, dchi2, ts,
-                    kernel, basis, sat)
-        return ts, run(LAYERS[7], self.merge, resid, q_blocks,
-                       traces.shape[-1])
+                    kernel, basis, sat, timer)
+        ts2 = run(LAYERS[7], self.merge, resid, q_blocks, traces.shape[-1])
+        if sat is not None:
+            ts2 = ts2._replace(n_vetoed=trigger.vetoed_count(ts, sat))
+        return ts, ts2
 
 
 def _call(name, fn, *args):

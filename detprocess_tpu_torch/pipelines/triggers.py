@@ -509,12 +509,16 @@ def build_channels(trigger_config: dict, filter_data: FilterData,
 @dataclass
 class DrainState:
     """What the drain carries from batch to batch: the event-time chain,
-    the last ``trigger_prod_id``, the livetime and the column order (the
-    first-appearance union over all batches)."""
+    the last ``trigger_prod_id``, the livetime, the column order (the
+    first-appearance union over all batches), the residual-pass triggers
+    kept after the combine and edge exclusion, and the first-pass
+    triggers the saturation veto kept out of the subtraction."""
 
     event_time: float = -np.inf
     trigger_id: int = 0
     livetime: float = 0.0
+    residual_triggers: int = 0
+    vetoed_triggers: int = 0
     col_order: list = field(default_factory=list)
     col_seen: set = field(default_factory=set)
 
@@ -575,7 +579,8 @@ def _event_view(ts: Optional[trig_ops.TriggerSet], e: int):
 
 def drain_batch(channels, sets: dict, admins: List[dict], nb_samples: int,
                 fs: float, state: DrainState, merge_window=0,
-                processing_id: Optional[str] = None) -> Optional[Table]:
+                processing_id: Optional[str] = None,
+                timer=None) -> Optional[Table]:
     """One batch of host trigger sets → one table, equal to the per-event
     ``EventBuilder`` path (triggers.py:1149-1435).
 
@@ -583,7 +588,9 @@ def drain_batch(channels, sets: dict, admins: List[dict], nb_samples: int,
     ``pileup_window``, ``edge_exclusion_msec``); ``sets``: {name: (first-
     pass set, residual set or None)}, numpy fields batched over the E
     events of ``admins``; ``nb_samples``: the events' length. Updates
-    ``state``; returns None when no trigger is left."""
+    ``state``; returns None when no trigger is left. A channel's
+    per-event residual combine and edge exclusion run in a span
+    ``drain.combine`` of ``timer``."""
     nev = len(admins)
     event_sec = nb_samples / fs
     max_edge = max((tc.edge_exclusion_msec or 0.0 for tc in channels),
@@ -607,25 +614,36 @@ def drain_batch(channels, sets: dict, admins: List[dict], nb_samples: int,
     for ci, tc in enumerate(channels):
         ts_b, ts2_b = sets[tc.name]
         evs, idxs, ds, ampss = [], [], [], []
-        for e in range(nev):
-            ts, ts2 = _event_view(ts_b, e), _event_view(ts2_b, e)
-            if ts2 is not None:
-                ts = trig_ops.combine_trigger_sets(ts, ts2)
-            idx, d, amps = trigger_set_arrays(tc, ts)
-            if idx is None:
-                continue
-            if tc.edge_exclusion_msec is not None:
-                tmin = tc.edge_exclusion_msec * 1e-3
-                tt = idx / fs
-                keep = (tt > tmin) & (tt < event_sec - tmin)
-                idx, d, amps = idx[keep], d[keep], amps[:, keep]
+        combine = ts2_b is not None or tc.edge_exclusion_msec is not None
+        with span(timer, "drain.combine") if combine else nullcontext():
+            for e in range(nev):
+                ts, ts2 = _event_view(ts_b, e), _event_view(ts2_b, e)
+                n1 = None                # the first pass's triggers
+                if ts2 is not None:
+                    n1 = int(ts.count)
+                    if ts2.n_vetoed is not None:
+                        state.vetoed_triggers += int(ts2.n_vetoed)
+                    ts = trig_ops.combine_trigger_sets(ts, ts2)
+                idx, d, amps = trigger_set_arrays(tc, ts)
+                if idx is None:
+                    continue
+                if tc.edge_exclusion_msec is not None:
+                    tmin = tc.edge_exclusion_msec * 1e-3
+                    tt = idx / fs
+                    keep = (tt > tmin) & (tt < event_sec - tmin)
+                    idx, d, amps = idx[keep], d[keep], amps[:, keep]
+                    if n1 is not None:
+                        n1 = int(keep[:n1].sum())
+                if n1 is not None:
+                    # the combine appends the residual pass's new ones
+                    state.residual_triggers += len(idx) - n1
                 if len(idx) == 0:
                     continue
-            present[e, ci] = True
-            evs.append(np.full(len(idx), e, np.int64))
-            idxs.append(idx.astype(np.int64))
-            ds.append(d.astype(np.float64))
-            ampss.append(amps.astype(np.float64))
+                present[e, ci] = True
+                evs.append(np.full(len(idx), e, np.int64))
+                idxs.append(idx.astype(np.int64))
+                ds.append(d.astype(np.float64))
+                ampss.append(amps.astype(np.float64))
         if evs:
             chan_flat.append((ci, tc, np.concatenate(evs),
                               np.concatenate(idxs), np.concatenate(ds),
@@ -776,7 +794,8 @@ def _suffixed(base_vals: np.ndarray, p: np.ndarray, n: int) -> np.ndarray:
 # the shell
 # ---------------------------------------------------------------------------
 
-INT_FIELDS = ("indices", "count", "count_total", "n_above")
+INT_FIELDS = ("indices", "count", "count_total", "n_above",
+              "n_vetoed")
 
 
 class TriggerProcessing:
@@ -989,7 +1008,8 @@ class TriggerProcessing:
         total = events_done = events_dumped = 0
         self.stats = {"events": 0, "batches": 0, "upload_bytes": 0,
                       "upload_samples": 0, "read_calls": 0, "read_bytes": 0,
-                      "pinned_bytes": 0}
+                      "pinned_bytes": 0, "residual_triggers": 0,
+                      "vetoed_triggers": 0}
         pinned_sets = 0
         skipped = 0
         event_bytes = len(read_channels) * nb * np.dtype(stored).itemsize
@@ -1005,7 +1025,7 @@ class TriggerProcessing:
                     sets = _merge_shards([_sets_to_host(p) for p in packed])
                     table = drain_batch(self._channels, sets, admins, nb,
                                         self._fs, state, merge_window,
-                                        self._processing_id)
+                                        self._processing_id, timer)
             if table is not None:
                 frames.append(table)
             events_done += len(admins)
@@ -1073,7 +1093,8 @@ class TriggerProcessing:
                                     channels=read_channels)
                             batch_sets = {
                                 tc.name: step(x.index_select(1, g),
-                                              run_layer=run_layer)
+                                              run_layer=run_layer,
+                                              timer=timer)
                                 for tc, step, g in zip(
                                     self._channels, steps[d], gathers[d])}
                             packed.append(_pack_sets(batch_sets, torch_dtype,
@@ -1123,7 +1144,9 @@ class TriggerProcessing:
                           upload_samples=uploader.samples,
                           pinned_bytes=(ring.pinned_bytes
                                         + uploader.pinned_bytes
-                                        + pinned_sets))
+                                        + pinned_sets),
+                          residual_triggers=state.residual_triggers,
+                          vetoed_triggers=state.vetoed_triggers)
 
         all_frames.extend(frames)
         result = tables.concat_tables(all_frames) if all_frames else {}

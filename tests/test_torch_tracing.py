@@ -10,6 +10,12 @@ shells' ``stats``) on the CPU.
   and the ``os.preadv`` calls that read them, as counted at the call
   (in the feature shell one a run of back-to-back events: ``read_runs``,
   ``run_events``);
+- in residual mode the trigger shell times the residual pass's host read
+  (``residual.index_read``) and the drain's combine (``drain.combine``),
+  and counts in ``stats`` the residual-pass triggers its table holds and
+  the first-pass triggers the saturation veto kept out of the
+  subtraction; in base mode neither span is placed and both counts
+  stay 0;
 - with the profiler off no ``record_function`` is entered;
 - under ``device_trace(dir, timer=...)`` the exported trace holds the
   reader threads' ``read.fill`` spans on their own threads, each chunk's
@@ -44,6 +50,11 @@ FEATURE_SPANS = {"read", "dispatch", "drain", "read.fill", "read.ring_wait",
 TRIGGER_SPANS = {"read", "dispatch", "drain", "read.fill", "read.ring_wait",
                  "upload.pin", "dispatch.fill", "dispatch.enqueue",
                  "drain.wait", "drain.host"}
+# what chan1's residual pass and edge exclusion add
+RESIDUAL_SPANS = {"residual.index_read", "drain.combine"}
+RESIDUAL_LAYERS = {"step." + name for name in trigger_step.LAYERS[5:]}
+RESIDUAL_OPTIONS = ("run_residual", "saturation_amplitudes",
+                    "edge_exclusion_msec")
 
 
 @pytest.fixture(scope="module")
@@ -71,6 +82,27 @@ def trigger_shell(dumps):
         E.trigger_shell_config(),
         E.shell_filter_data(E.TRIGGER_NT, E.TRIGGER_PRETRIG), verbose=False,
         device="cpu")
+
+
+def chan1_shell(dumps, drop):
+    """The trigger shell with the options ``drop`` taken off chan1."""
+    config = E.trigger_shell_config()
+    for key in drop:
+        del config["trigger"]["chan1"][key]
+    return TriggerProcessing(
+        E.trigger_shell_index(dumps["triggers"], LENGTH), config,
+        E.shell_filter_data(E.TRIGGER_NT, E.TRIGGER_PRETRIG), verbose=False,
+        device="cpu")
+
+
+def chan1_triggers(table) -> dict:
+    """{(dump, event): chan1's trigger indices} of a trigger table."""
+    idx = np.asarray(table["trigger_index_chan1"], np.float64)
+    out: dict = {}
+    for d, e, i in zip(table["dump_number"], table["event_number"], idx):
+        if np.isfinite(i):
+            out.setdefault((int(d), int(e)), set()).add(int(i))
+    return out
 
 
 def run(shell, timer=None, nreaders=None):
@@ -162,7 +194,7 @@ def test_trigger_shell_reports_every_span_and_leaves_the_table(dumps):
     assert_bit_equal(got, want)
     rep = {k: v["seconds"] for k, v in timer.report(log=False).items()}
     steps = {k for k in rep if k.startswith("step.")}
-    assert TRIGGER_SPANS == set(rep) - steps
+    assert TRIGGER_SPANS | RESIDUAL_SPANS == set(rep) - steps
     # the entry's chan1 runs the residual pass: every layer of the step,
     # each named in ASCII for the profiler
     assert steps == {"step." + name.replace("Δχ²", "delta chi2")
@@ -172,6 +204,37 @@ def test_trigger_shell_reports_every_span_and_leaves_the_table(dumps):
             <= rep["dispatch"])
     assert sum(rep[k] for k in steps) <= rep["dispatch.enqueue"]
     assert rep["drain.wait"] + rep["drain.host"] <= rep["drain"]
+
+
+def test_trigger_shell_counts_residual_and_vetoed_triggers(dumps):
+    """chan1's residual-pass triggers in the table are those a run
+    without the residual pass lacks, event by event; each event's
+    saturating pulse is kept out of the subtraction."""
+    shell, timer = trigger_shell(dumps), StageTimer()
+    got = chan1_triggers(run(shell, timer))
+    rep = timer.report(log=False)
+    assert RESIDUAL_SPANS | RESIDUAL_LAYERS <= set(rep)
+    first = chan1_shell(dumps, ["run_residual"])
+    want = chan1_triggers(run(first))
+    assert first.stats["residual_triggers"] == 0
+    assert first.stats["vetoed_triggers"] == 0
+    assert set(want) <= set(got)
+    added = 0
+    for key, idx in got.items():
+        assert want.get(key, set()) <= idx, key
+        added += len(idx) - len(want.get(key, ()))
+    assert shell.stats["residual_triggers"] == added > 0
+    assert shell.stats["vetoed_triggers"] >= TEVENTS
+
+
+def test_base_mode_places_no_residual_span_and_counts_nothing(dumps):
+    shell, timer = chan1_shell(dumps, RESIDUAL_OPTIONS), StageTimer()
+    run(shell, timer)
+    rep = timer.report(log=False)
+    assert not (RESIDUAL_SPANS | RESIDUAL_LAYERS) & set(rep)
+    assert TRIGGER_SPANS <= set(rep)
+    assert shell.stats["residual_triggers"] == 0
+    assert shell.stats["vetoed_triggers"] == 0
 
 
 @pytest.fixture
