@@ -182,6 +182,29 @@ class RawIndex:
             self._extents = (key, offset, nbytes)
         return self._extents
 
+    def runs(self, rows, whole_event, arr):
+        """[(a, b)]: the stretches of two or more batch rows ``a … b − 1``
+        whose events lie back to back in one file, as whole events of
+        ``arr``'s dtype and row shape, so that one positioned read fills
+        ``arr[a:b]``. ``whole_event``: per file, whether its events are
+        read whole (every channel). Found with numpy on the extents; only
+        the stretches are visited in Python."""
+        key, offset, nbytes = self.extents()
+        k, off, nb = key[rows], offset[rows], nbytes[rows]
+        ok = (off >= 0) & whole_event[self.file[rows]]
+        joined = (ok[1:] & ok[:-1] & (k[1:] == k[:-1])
+                  & (off[1:] == off[:-1] + nb[:-1]))
+        edges = np.flatnonzero(~joined) + 1
+        firsts = np.concatenate(([0], edges))
+        stops = np.concatenate((edges, [len(rows)]))
+        long = stops - firsts >= 2
+        runs = []
+        for a, b in zip(firsts[long].tolist(), stops[long].tolist()):
+            ds = self.datasets[int(rows[a])]
+            if ds.dtype == arr.dtype and tuple(ds.shape) == arr.shape[1:]:
+                runs.append((a, b))
+        return runs
+
     def __len__(self) -> int:
         return len(self.order)
 

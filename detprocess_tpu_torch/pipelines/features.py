@@ -270,41 +270,18 @@ class FeatureProcessing:
             reads = self._read_batch(fast, buf[1], chunk, raw_mode, dtype)
         return ring, buf, len(chunk[0]), chunk, reads
 
-    def _runs(self, rows, arr):
-        """[(a, b)]: the stretches of two or more batch rows ``a … b − 1``
-        whose events lie back to back in one file, as whole events of
-        ``arr``'s dtype and row shape, so that one positioned read fills
-        ``arr[a:b]``. Found with numpy on the index's extents; only the
-        stretches are visited in Python."""
-        idx = self._index
-        key, offset, nbytes = idx.extents()
-        k, off, nb = key[rows], offset[rows], nbytes[rows]
-        ok = (off >= 0) & self._whole_event[idx.file[rows]]
-        joined = (ok[1:] & ok[:-1] & (k[1:] == k[:-1])
-                  & (off[1:] == off[:-1] + nb[:-1]))
-        edges = np.flatnonzero(~joined) + 1
-        firsts = np.concatenate(([0], edges))
-        stops = np.concatenate((edges, [len(rows)]))
-        long = stops - firsts >= 2
-        runs = []
-        for a, b in zip(firsts[long].tolist(), stops[long].tolist()):
-            ds = idx.datasets[int(rows[a])]
-            if ds.dtype == arr.dtype and tuple(ds.shape) == arr.shape[1:]:
-                runs.append((a, b))
-        return runs
-
     def _read_batch(self, fast, arr, chunk, raw_mode, dtype):
         """Read one batch into ``arr``; returns its read counts
         (``_read_counts``), counted from its sizes once the events are
         read. In full-trace stored-dtype reads, each run of back-to-back
-        whole events (``_runs``) is one ``preadv`` straight into its rows
-        of ``arr``; every other row is read on its own."""
+        whole events (``RawIndex.runs``) is one ``preadv`` straight into
+        its rows of ``arr``; every other row is read on its own."""
         rows, starts = chunk[0], chunk[1]
         idx = self._index
         chan_rows = self._chan_rows
         n = arr.shape[-1]
-        runs = (self._runs(rows, arr) if raw_mode and starts is None
-                else [])
+        runs = (idx.runs(rows, self._whole_event, arr)
+                if raw_mode and starts is None else [])
         single = np.ones(len(rows), bool)
         for a, b in runs:
             ds = idx.datasets[int(rows[a])]

@@ -12,14 +12,23 @@ float64 and leaves NaN holes in an object column.
 
 A ``process()`` call:
 
-1. **Reads.** ``io/prefetch.prefetch_events`` threads read the events of
-   the :class:`RawIndex` in their stored dtype (int16 codes for pytesdaq
-   data), only the raw channels that the trigger channels filter.
-   ``nreaders > 1`` splits the files over that many threads, in no fixed
-   event order, so it needs ``nevents=-1`` and no ``resume``.
-2. **Upload.** ``event_batch`` events are stacked into a pinned buffer of a
-   :class:`~detprocess_tpu_torch.io.upload.BufferRing`, copied to the card
-   on a side stream and converted there (``io/upload.Uploader``).
+1. **Reads.** The events of the :class:`RawIndex` are read in its order,
+   in their stored dtype (int16 codes for pytesdaq data), only the raw
+   channels that the trigger channels filter. Where they store integer
+   codes and no host injector is set, ``nreaders`` threads
+   (``io/prefetch.OrderedChunkPrefetcher``) read whole batches of
+   ``event_batch`` events straight into pinned buffers of a
+   :class:`~detprocess_tpu_torch.io.upload.BufferRing` of their own,
+   yielded in batch order: each run of events that lie back to back in
+   one file is one read (``RawIndex.runs``), every other event one read
+   (one a channel row where only some channels are read).
+   Otherwise ``io/prefetch.prefetch_events`` threads read event by event
+   (``nreaders > 1`` splits the files over them, in no fixed event order)
+   and the main thread stacks ``event_batch`` events into a pinned buffer.
+   ``nreaders > 1`` needs ``nevents=-1`` and no ``resume``.
+2. **Upload.** The batch's buffer is copied to the card on a side stream
+   and converted there (``io/upload.Uploader``); it is read into again
+   only after its copy has completed.
 3. **Compute.** Each trigger channel's :class:`TriggerStep` (built once
    per dtype and capacity) on its channel gather: base and residual trigger
    sets, batched over events. On the card a float32 run's FIR segments
@@ -80,7 +89,9 @@ from detprocess_tpu_torch import device as dev
 from detprocess_tpu_torch.config.yamlconfig import resolve_config
 from detprocess_tpu_torch.io import tables
 from detprocess_tpu_torch.io.filterdata import FilterData, check_fs_consistent
-from detprocess_tpu_torch.io.prefetch import prefetch_events
+from detprocess_tpu_torch.io.fastio import FastDataset, FastReader
+from detprocess_tpu_torch.io.prefetch import (OrderedChunkPrefetcher,
+                                              prefetch_events)
 from detprocess_tpu_torch.io.rawdata import RawIndex, RawReader
 from detprocess_tpu_torch.io.upload import BufferRing, Uploader
 from detprocess_tpu_torch.ops import filterbank
@@ -796,6 +807,8 @@ def _suffixed(base_vals: np.ndarray, p: np.ndarray, n: int) -> np.ndarray:
 
 INT_FIELDS = ("indices", "count", "count_total", "n_above",
               "n_vetoed")
+# a batch's read counts, as the reader threads return them
+READ_COUNTS = ("read_calls", "read_bytes", "read_runs", "run_events")
 
 
 class TriggerProcessing:
@@ -897,6 +910,125 @@ class TriggerProcessing:
                                 for tc in self._channels]
         return self._steps[key]
 
+    # -- reads -------------------------------------------------------------
+    def _chunks(self, nevents, event_batch, resume_after):
+        """The index rows of each batch in reading order: ``event_batch``
+        events read at a time, at most ``nevents`` kept (all for -1), those
+        at or before ``resume_after`` (series, event) left out, and a batch
+        left empty dropped."""
+        idx = self._index
+        order = idx.order
+        keep = np.ones(len(order), bool)
+        if resume_after is not None:
+            series = np.asarray([f.admin["series_number"] for f in idx.files],
+                                np.int64)[idx.file[order]]
+            event = idx.event_number[order]
+            keep = (series > resume_after[0]) | (
+                (series == resume_after[0]) & (event > resume_after[1]))
+        chunks, pos, total = [], 0, 0
+        while pos < len(order) and (nevents < 0 or total < nevents):
+            want = (event_batch if nevents < 0
+                    else min(event_batch, nevents - total))
+            rows = order[pos:pos + want][keep[pos:pos + want]]
+            pos += want
+            if len(rows):
+                chunks.append(rows)
+                total += len(rows)
+        return chunks
+
+    def _read_chunk(self, fast, ring, chunk, sel, whole, conv, nb, timer):
+        """Read the events of ``chunk`` (index rows, batch index) into a
+        buffer of ``ring``, the reads a span ``read.fill``; runs in a
+        reader thread. Each run of back-to-back whole events
+        (``RawIndex.runs``) is one ``preadv`` straight into its rows; every
+        other event is read on its own into its row (``sel``: per file, the
+        channel rows read, None for all; ``whole``: per file, whether that
+        is None). Returns the ring, the buffer, the events' admin dicts,
+        their float32 conversion factors [n, C] (``conv``: per file) and
+        the read counts (``READ_COUNTS``)."""
+        rows, k = chunk
+        idx = self._index
+        buf = ring.acquire()
+        arr = buf[1]
+        with span(timer, "read.fill", k):
+            runs = idx.runs(rows, whole, arr)
+            single = np.ones(len(rows), bool)
+            for a, b in runs:
+                ds = idx.datasets[int(rows[a])]
+                fast.read(FastDataset(ds.path, ds.offset,
+                                      (b - a,) + tuple(ds.shape), ds.dtype),
+                          out=arr[a:b])
+                single[a:b] = False
+            nrun = int((~single).sum())
+            calls, nbytes = len(runs), nrun * arr[0].nbytes
+            for i in np.flatnonzero(single).tolist():
+                row = int(rows[i])
+                fi = int(idx.file[row])
+                ds = idx.datasets[row]
+                if ds.shape[-1] != nb:
+                    raise ValueError(
+                        f"event of {ds.shape[-1]} samples in "
+                        f"{idx.files[fi].path}; the run's events have {nb}")
+                if ds.dtype == arr.dtype:
+                    fast.read(ds, rows=sel[fi], out=arr[i])
+                else:
+                    arr[i] = fast.read(ds, rows=sel[fi])
+                calls += 1 if sel[fi] is None else len(sel[fi])
+                nbytes += arr[i].size * ds.dtype.itemsize
+        admins = []
+        for row in rows.tolist():
+            admin = dict(idx.files[int(idx.file[row])].admin)
+            admin.update(event_id=int(idx.event_id[row]),
+                         event_number=int(idx.event_number[row]),
+                         event_time=float(idx.event_time[row]),
+                         trigger_type=int(idx.trigger_type[row]))
+            admins.append(admin)
+        return (ring, buf, admins, conv[idx.file[rows]],
+                (calls, nbytes, len(runs), nrun))
+
+    def _event_batches(self, source, nevents, event_batch, resume_after, nb,
+                       inject, read_channels, stored):
+        """(traces, admin dicts, float32 conversion factors) of each batch
+        of events that ``source`` (``io/prefetch.prefetch_events``) reads
+        one by one, converted and salted on the host by a host injector
+        ``inject``; each event read is one ``preadv`` a channel row."""
+        event_bytes = len(read_channels) * nb * np.dtype(stored).itemsize
+        total = 0
+        while nevents < 0 or total < nevents:
+            want = (event_batch if nevents < 0
+                    else min(event_batch, nevents - total))
+            traces_list, admins, convs = [], [], []
+            traces = None
+            skipped = 0
+            for _ in range(want):
+                traces, admin = source.read_next_event()
+                if traces is None:
+                    break
+                if resume_after is not None and (
+                        admin["series_number"],
+                        admin["event_number"]) <= resume_after:
+                    skipped += 1
+                    continue
+                if traces.shape[-1] != nb:
+                    raise ValueError(
+                        f"event of {traces.shape[-1]} samples in "
+                        f"{admin.get('file_name')}; the run's "
+                        f"events have {nb}")
+                if inject is None:
+                    convs.append(admin.pop("adc_conv"))
+                else:
+                    traces = inject(traces, admin, channels=read_channels)
+                traces_list.append(traces)
+                admins.append(admin)
+            nread = len(traces_list) + skipped
+            self.stats["read_calls"] += nread * len(read_channels)
+            self.stats["read_bytes"] += nread * event_bytes
+            if traces_list:
+                total += len(traces_list)
+                yield traces_list, admins, convs
+            elif resume_after is None or traces is None:
+                return                    # else a batch skipped whole
+
     # -- process -----------------------------------------------------------
     def process(self, nevents: int = -1, capacity: int = DEFAULT_CAPACITY,
                 event_batch: int = DEFAULT_EVENT_BATCH,
@@ -915,10 +1047,11 @@ class TriggerProcessing:
         """Trigger the continuous events; returns the trigger table (a
         dict of numpy columns, {} without triggers), or None with
         ``lgc_output=False``. The reader threads keep ``prefetch_depth``
-        events (at least one) read ahead of the batches.
+        events (at least one, or a batch a thread) read ahead of the
+        batches.
 
-        ``nreaders`` reader threads split the files; ``> 1`` needs
-        ``nevents=-1`` and no ``resume``. ``timer``: a
+        ``nreaders`` reader threads read the batches (module docstring);
+        ``> 1`` needs ``nevents=-1`` and no ``resume``. ``timer``: a
         ``utils.logging.StageTimer`` that adds up the host seconds of the
         read, dispatch, drain and dump stages and of the spans inside them
         (README's port section names them). With ``lgc_save`` the table
@@ -988,17 +1121,46 @@ class TriggerProcessing:
         # a host injector needs float64 reads converted on the host, which
         # upload in the run's dtype; otherwise the stored codes upload
         inject, device_inject = split_injector(self._injector)
-        buf_dtype = stored if stored.kind in "iu" and inject is None else dtype
-        ring = BufferRing(max(pipeline_depth, 0) + 2,
-                          (event_batch, len(needed), nb), buf_dtype,
-                          pin=on_cuda, timer=timer)
+        in_place = _reads_in_place(stored, inject)
+        shape = (event_batch, len(needed), nb)
+        if in_place:
+            chunks = self._chunks(nevents, event_batch, resume_after)
+            nworkers = max(1, min(nreaders, len(chunks)))
+            # chunks a worker reads ahead: prefetch_depth events at least
+            ahead = max(1, -(-max(prefetch_depth, 1)
+                             // (nworkers * event_batch)))
+            rings = [BufferRing(ahead + 1, shape, stored, pin=on_cuda,
+                                timer=timer) for _ in range(nworkers)]
+            sel = [[f.channels.index(c) for c in read_channels]
+                   for f in self._index.files]
+            conv32 = np.stack([f.conv[s] for f, s in
+                               zip(self._index.files, sel)]
+                              ).astype(np.float32)
+            sel = [None if s == list(range(len(f.channels))) else s
+                   for f, s in zip(self._index.files, sel)]
+            whole = np.asarray([s is None for s in sel], bool)
+            self._index.extents()       # built once, before the readers
+            reader = FastReader()
+            source = OrderedChunkPrefetcher(
+                lambda ring, chunk: self._read_chunk(
+                    reader, ring, chunk, sel, whole, conv32, nb, timer),
+                [(rows, k) for k, rows in enumerate(chunks)], rings,
+                depth=ahead)
+            batches = iter(source)
+        else:
+            buf_dtype = (stored if stored.kind in "iu" and inject is None
+                         else dtype)
+            rings = [BufferRing(max(pipeline_depth, 0) + 2, shape,
+                                buf_dtype, pin=on_cuda, timer=timer)]
+            reader = RawReader(self._index)
+            source = prefetch_events(
+                reader, depth=max(prefetch_depth, 1), raw=inject is None,
+                dtype=None if inject is None else np.float64,
+                nreaders=nreaders, channels=read_channels, timer=timer)
+            batches = self._event_batches(source, nevents, event_batch,
+                                          resume_after, nb, inject,
+                                          read_channels, stored)
         uploader = Uploader(self._device, timer)
-        reader = RawReader(self._index)
-        source = prefetch_events(reader, depth=max(prefetch_depth, 1),
-                                 raw=inject is None,
-                                 dtype=None if inject is None else np.float64,
-                                 nreaders=nreaders, channels=read_channels,
-                                 timer=timer)
         run_layer = layer_spans(timer, "step.")
         writer = tables.AsyncWriter() if lgc_save else None
         state = DrainState()
@@ -1008,11 +1170,9 @@ class TriggerProcessing:
         total = events_done = events_dumped = 0
         self.stats = {"events": 0, "batches": 0, "upload_bytes": 0,
                       "upload_samples": 0, "read_calls": 0, "read_bytes": 0,
-                      "pinned_bytes": 0, "residual_triggers": 0,
-                      "vetoed_triggers": 0}
+                      "read_runs": 0, "run_events": 0, "pinned_bytes": 0,
+                      "residual_triggers": 0, "vetoed_triggers": 0}
         pinned_sets = 0
-        skipped = 0
-        event_bytes = len(read_channels) * nb * np.dtype(stored).itemsize
 
         def drain(entry):
             nonlocal events_done
@@ -1031,59 +1191,42 @@ class TriggerProcessing:
             events_done += len(admins)
 
         try:
-            while nevents < 0 or total < nevents:
-                want = (event_batch if nevents < 0
-                        else min(event_batch, nevents - total))
-                traces_list, admins, convs = [], [], []
-                traces = None
+            while True:
                 with stage("read"):
-                    for _ in range(want):
-                        traces, admin = source.read_next_event()
-                        if traces is None:
-                            break
-                        if resume_after is not None and (
-                                admin["series_number"],
-                                admin["event_number"]) <= resume_after:
-                            skipped += 1
-                            continue
-                        if traces.shape[-1] != nb:
-                            raise ValueError(
-                                f"event of {traces.shape[-1]} samples in "
-                                f"{admin.get('file_name')}; the run's "
-                                f"events have {nb}")
-                        if inject is None:
-                            convs.append(admin.pop("adc_conv"))
-                        else:
-                            traces = inject(traces, admin,
-                                            channels=read_channels)
-                        traces_list.append(traces)
-                        admins.append(admin)
-                # each event read is one preadv a channel row
-                nread = len(traces_list) + skipped
-                self.stats["read_calls"] += nread * len(read_channels)
-                self.stats["read_bytes"] += nread * event_bytes
-                skipped = 0
-                if not traces_list:
-                    if resume_after is not None and traces is not None:
-                        continue          # a batch skipped whole
+                    got = next(batches, None)
+                if got is None:
                     break
-                total += len(traces_list)
                 with stage("dispatch"):
                     with span(timer, "dispatch.fill"):
-                        host_t, host_a = ring.acquire()
-                        for i, tr in enumerate(traces_list):
-                            host_a[i] = tr
-                        conv = (np.stack(convs).astype(dtype) if convs
-                                else None)
+                        if in_place:
+                            ring, buf, admins, conv, reads = got
+                            for key, v in zip(READ_COUNTS, reads):
+                                self.stats[key] += v
+                            conv = conv.astype(dtype)
+                        else:
+                            traces_list, admins, convs = got
+                            ring = rings[0]
+                            buf = ring.acquire()
+                            for i, tr in enumerate(traces_list):
+                                buf[1][i] = tr
+                            conv = (np.stack(convs).astype(dtype) if convs
+                                    else None)
+                    total += len(admins)
                     with span(timer, "dispatch.enqueue"):
-                        packed, copies = [], []
-                        for d, (lo, hi) in zip(devices, bounds(
-                                len(traces_list), len(devices))):
-                            if hi == lo:
-                                continue              # an empty shard
+                        shards = [(d, lo, hi) for d, (lo, hi) in zip(
+                            devices, bounds(len(admins), len(devices)))
+                            if hi > lo]           # an empty shard is skipped
+                        xs, copies = [], []
+                        for d, lo, hi in shards:
                             x, copied = uploader.upload(
-                                host_t[lo:hi], None if conv is None
+                                buf[0][lo:hi], None if conv is None
                                 else conv[lo:hi], torch_dtype, device=d)
+                            xs.append(x)
+                            copies.append(copied)
+                        if on_cuda:
+                            ring.release(buf, copies)
+                        packed = []
+                        for x, (d, lo, hi) in zip(xs, shards):
                             if device_inject is not None:
                                 device_inject.inject(
                                     x, [a["series_number"]
@@ -1100,9 +1243,10 @@ class TriggerProcessing:
                             packed.append(_pack_sets(batch_sets, torch_dtype,
                                                      timer))
                             pinned_sets += _pinned_bytes(packed[-1])
-                            copies.append(copied)
                             del x, batch_sets
-                        ring.release((host_t, host_a), copies)
+                        if not on_cuda:
+                            ring.release(buf)
+                        del xs
                         inflight.append((admins, packed))
                 self.stats["batches"] += 1
                 while len(inflight) > max(pipeline_depth, 0):
@@ -1135,14 +1279,15 @@ class TriggerProcessing:
                 writer = None
             raise
         finally:
+            for ring in rings:
+                ring.close()
             source.close()
-            ring.close()
             reader.close()
         if writer is not None:
             writer.close()
         self.stats.update(events=total, upload_bytes=uploader.bytes,
                           upload_samples=uploader.samples,
-                          pinned_bytes=(ring.pinned_bytes
+                          pinned_bytes=(sum(r.pinned_bytes for r in rings)
                                         + uploader.pinned_bytes
                                         + pinned_sets),
                           residual_triggers=state.residual_triggers,
@@ -1204,6 +1349,13 @@ class TriggerProcessing:
         last = tables.read_table(dumps[-1][1])
         key = (int(last["series_number"][-1]), int(last["event_number"][-1]))
         return series, dumps[-1][0], key
+
+
+def _reads_in_place(stored: np.dtype, inject) -> bool:
+    """Whether the reader threads read whole batches straight into their
+    pinned buffers: the events store integer codes, which upload as stored,
+    and no host injector needs each event's float64 amps on the host."""
+    return stored.kind in "iu" and inject is None
 
 
 def _pack_sets(batch_sets: dict, dtype: torch.dtype, timer=None):

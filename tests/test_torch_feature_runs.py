@@ -1,10 +1,10 @@
-"""The feature shell's reads of back-to-back events (``FeatureProcessing
-._runs``): in a full-trace batch read in the stored dtype, every run of
-two or more whole events that lie back to back in one file is one
-``os.preadv`` straight into its rows of the batch buffer.
+"""The feature shell's reads of back-to-back events (``RawIndex.runs``):
+in a full-trace batch read in the stored dtype, every run of two or more
+whole events that lie back to back in one file is one ``os.preadv``
+straight into its rows of the batch buffer.
 
 Each case runs the shell twice, as it is and with every row read on its
-own (``_runs`` returning no run: the per-event path), and checks:
+own (``RawIndex.runs`` returning no run: the per-event path), and checks:
 
 - every filled batch buffer, byte for byte, against the stored codes
   (``np.fromfile`` at each event's offset, h5py for an ``H5Dataset``)
@@ -175,7 +175,7 @@ def run(recorded, monkeypatch, make_shell, runs=True, **kw):
     recorded["preadv"][:] = [0, 0]
     with monkeypatch.context() as m:
         if not runs:
-            m.setattr(FeatureProcessing, "_runs", lambda self, rows, arr: [])
+            m.setattr(RawIndex, "runs", lambda self, rows, whole, arr: [])
         shell = make_shell()
         table = shell.process(batch_size=BATCH, **kw)
     buffers = {b[0]: b[1:] for b in recorded["buffers"]}

@@ -8,7 +8,7 @@ shells' ``stats``) on the CPU.
 - ``stats["read_bytes"]`` and ``stats["read_calls"]``, which the shells
   count from the sizes of each batch, are the bytes of the channels read
   and the ``os.preadv`` calls that read them, as counted at the call
-  (in the feature shell one a run of back-to-back events: ``read_runs``,
+  (in both shells one a run of back-to-back events: ``read_runs``,
   ``run_events``);
 - in residual mode the trigger shell times the residual pass's host read
   (``residual.index_read``) and the drain's combine (``drain.combine``),
@@ -109,8 +109,10 @@ def run(shell, timer=None, nreaders=None):
     if isinstance(shell, FeatureProcessing):
         return shell.process(batch_size=BATCH, dtype=np.float32,
                              nreaders=nreaders or 2, timer=timer)
-    return shell.process(event_batch=TBATCH, nreaders=nreaders or 1,
-                         timer=timer)
+    # one batch read ahead: the third batch's read takes back the first's
+    # buffer (``read.ring_wait``)
+    return shell.process(event_batch=TBATCH, prefetch_depth=TBATCH,
+                         nreaders=nreaders or 1, timer=timer)
 
 
 def assert_bit_equal(got, want):
@@ -276,8 +278,11 @@ def test_trigger_shell_counts_its_reads(dumps, nreaders, preadv_calls):
     shell = trigger_shell(dumps)
     run(shell, nreaders=nreaders)
     nchan = len(E.SHELL_CHANNELS)
-    # the channels are read as a list: one preadv a channel row
-    assert shell.stats["read_calls"] == TEVENTS * nchan
+    # every channel is read: batches (0-1), (2 | 3), (4-5) of 2 dumps of 3,
+    # one preadv a run of back-to-back events and one for each other event
+    assert shell.stats["read_calls"] == 4
+    assert shell.stats["read_runs"] == 2
+    assert shell.stats["run_events"] == 4
     assert shell.stats["read_bytes"] == TEVENTS * nchan * LENGTH * 2
     assert [shell.stats["read_calls"],
             shell.stats["read_bytes"]] == preadv_calls
