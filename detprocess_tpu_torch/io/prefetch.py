@@ -12,8 +12,7 @@ Copy of ``detprocess_tpu/io/prefetch.py`` (pure threading):
 - :func:`prefetch_events`: the first or the second, by ``nreaders``.
 
 A reader error is raised on the consumer's side; ``close()`` stops the
-threads. With a ``timer`` (``utils.logging.StageTimer``) the event
-prefetchers' threads time each read as a span ``read.fill``.
+threads.
 """
 
 from __future__ import annotations
@@ -21,8 +20,6 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Iterator, Optional, Sequence
-
-from detprocess_tpu_torch.utils.logging import span
 
 _SENTINEL = object()
 
@@ -33,12 +30,11 @@ class EventPrefetcher:
 
     def __init__(self, reader, depth: int = 32,
                  channels: Optional[Sequence[str]] = None,
-                 dtype=None, raw: bool = False, timer=None):
+                 dtype=None, raw: bool = False):
         self._reader = reader
         self._channels = channels
         self._dtype = dtype
         self._raw = raw
-        self._timer = timer
         self._queue: queue.Queue = queue.Queue(maxsize=max(depth, 1))
         self._error: Optional[BaseException] = None
         self._done = False
@@ -54,9 +50,8 @@ class EventPrefetcher:
                 else:
                     kw = ({} if self._dtype is None
                           else {"dtype": self._dtype})
-                with span(self._timer, "read.fill"):
-                    traces, admin = self._reader.read_next_event(
-                        channels=self._channels, **kw)
+                traces, admin = self._reader.read_next_event(
+                    channels=self._channels, **kw)
                 if traces is None:
                     break
                 while not self._stop.is_set():
@@ -121,12 +116,11 @@ class ParallelEventPrefetcher:
 
     def __init__(self, readers: Sequence, depth: int = 32,
                  channels: Optional[Sequence[str]] = None,
-                 dtype=None, raw: bool = False, timer=None):
+                 dtype=None, raw: bool = False):
         self._readers = list(readers)
         self._channels = channels
         self._dtype = dtype
         self._raw = raw
-        self._timer = timer
         self._queue: queue.Queue = queue.Queue(maxsize=max(depth, 1))
         self._error: Optional[BaseException] = None
         self._done = False
@@ -156,9 +150,8 @@ class ParallelEventPrefetcher:
                 else:
                     kw = ({} if self._dtype is None
                           else {"dtype": self._dtype})
-                with span(self._timer, "read.fill"):
-                    traces, admin = reader.read_next_event(
-                        channels=self._channels, **kw)
+                traces, admin = reader.read_next_event(
+                    channels=self._channels, **kw)
                 if traces is None:
                     break
                 while not self._stop.is_set():
@@ -308,17 +301,15 @@ class OrderedChunkPrefetcher:
 
 def prefetch_events(reader, depth: int = 32,
                     channels: Optional[Sequence[str]] = None,
-                    dtype=None, raw: bool = False, nreaders: int = 1,
-                    timer=None):
+                    dtype=None, raw: bool = False, nreaders: int = 1):
     """A read-ahead wrapper of ``reader``: ``raw=True`` reads stored-dtype
     traces with no conversion; ``nreaders > 1`` splits the files over that
-    many threads (``reader.split``), in no fixed event order; ``timer``
-    times each read as a span ``read.fill``."""
+    many threads (``reader.split``), in no fixed event order."""
     if nreaders > 1 and hasattr(reader, "split"):
         readers = reader.split(nreaders)
         if len(readers) > 1:
             return ParallelEventPrefetcher(
                 readers, depth=depth, channels=channels, dtype=dtype,
-                raw=raw, timer=timer)
+                raw=raw)
     return EventPrefetcher(reader, depth=depth, channels=channels,
-                           dtype=dtype, raw=raw, timer=timer)
+                           dtype=dtype, raw=raw)

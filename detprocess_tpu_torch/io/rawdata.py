@@ -208,6 +208,16 @@ class RawIndex:
     def __len__(self) -> int:
         return len(self.order)
 
+    def admin(self, row: int) -> dict:
+        """The admin dict of row ``row``: its file's, with the event's
+        id, number, time and trigger type."""
+        admin = dict(self.files[int(self.file[row])].admin)
+        admin.update(event_id=int(self.event_id[row]),
+                     event_number=int(self.event_number[row]),
+                     event_time=float(self.event_time[row]),
+                     trigger_type=int(self.trigger_type[row]))
+        return admin
+
     @property
     def paths(self) -> List[str]:
         return [f.path for f in self.files]
@@ -826,11 +836,7 @@ class RawReader:
         traces = arr if dtype is None else arr.astype(dtype)
         if adctoamp:
             traces = traces * conv[:, None].astype(dtype)
-        admin = dict(f.admin)
-        admin.update(event_id=int(idx.event_id[row]),
-                     event_number=int(idx.event_number[row]),
-                     event_time=float(idx.event_time[row]),
-                     trigger_type=int(idx.trigger_type[row]))
+        admin = idx.admin(row)
         if not adctoamp:
             admin["adc_conv"] = conv.astype(np.float32)
         return traces, admin

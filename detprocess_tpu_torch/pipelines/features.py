@@ -24,14 +24,14 @@ A ``process()`` call:
    window leaves the trace (counted and reported), and packs the kept
    rows into batches of ``batch_size`` (only the last may be shorter).
 2. **Reads.** ``nreaders`` threads (``io/prefetch.OrderedChunkPrefetcher``)
-   read whole batches by pread (or h5py hyperslabs, for storage that
-   pread cannot serve) into buffers of their own, yielded in
-   batch order. Only the raw channels the plan mixes are read. Where
-   whole events of every channel are read in the stored dtype, each run
-   of events that lie back to back in one file is one read straight
-   into the batch buffer's rows. In a window-dense event (the batch's
-   windows cover at least ``COALESCE_FRACTION`` of its trace) the event
-   is read once and sliced.
+   read whole batches through ``io/batchread.BatchReader``, the trigger
+   shell's reader too, into buffers of their own, yielded in batch
+   order, each with its conversion factors. Only the raw channels the
+   plan mixes are read. Where whole events of every channel are read in
+   the stored dtype, each run of events that lie back to back in one file
+   is one read straight into the batch buffer's rows. In a window-dense
+   event (the batch's windows cover at least ``COALESCE_FRACTION`` of its
+   trace) the event is read once and sliced.
 3. **Upload.** In float32 the int16 ADC codes are read as stored into a
    ring of pinned host buffers, copied to the card ``non_blocking`` on a
    side stream behind an event that the compute stream waits on, and
@@ -85,7 +85,8 @@ import torch
 from detprocess_tpu_torch import device as dev
 from detprocess_tpu_torch.config.yamlconfig import resolve_config
 from detprocess_tpu_torch.io import tables
-from detprocess_tpu_torch.io.fastio import FastDataset, FastReader
+from detprocess_tpu_torch.io.batchread import READ_COUNTS, BatchReader
+from detprocess_tpu_torch.io.fastio import FastReader
 from detprocess_tpu_torch.io.filterdata import FilterData
 from detprocess_tpu_torch.io.prefetch import OrderedChunkPrefetcher
 from detprocess_tpu_torch.io.rawdata import RawIndex
@@ -217,15 +218,7 @@ class FeatureProcessing:
                 for g in self._plan.groups]
         return self._steps[(device, dtype)]
 
-    # -- rows and reads ----------------------------------------------------
-    def _read_channel_rows(self):
-        """Per file, the stored rows of the channels the plan reads (None:
-        all of them)."""
-        chans = self._plan.read_channels
-        return [None if chans is None else [f.channels.index(c)
-                                            for c in chans]
-                for f in self._index.files]
-
+    # -- rows ------------------------------------------------------------
     def _trigger_rows(self, nevents: int):
         """(event rows, window starts, table rows, dropped count) of the
         trigger table's first ``nevents`` rows (all for -1)."""
@@ -258,106 +251,6 @@ class FeatureProcessing:
             trows.append(r)
         return (np.asarray(rows, np.int64), np.asarray(starts, np.int64),
                 np.asarray(trows, np.int64), ntab - len(rows))
-
-    def _fill(self, fast, ring, chunk, raw_mode, dtype, timer):
-        """Read one batch (``chunk`` = event rows, window starts or None,
-        table rows or None, batch index) into a buffer of ``ring``, the
-        reads a span ``read.fill``; runs in a reader thread. Returns the
-        ring, the buffer, the event count, the chunk and the batch's
-        read counts (``_read_counts``)."""
-        buf = ring.acquire()
-        with span(timer, "read.fill", chunk[3]):
-            reads = self._read_batch(fast, buf[1], chunk, raw_mode, dtype)
-        return ring, buf, len(chunk[0]), chunk, reads
-
-    def _read_batch(self, fast, arr, chunk, raw_mode, dtype):
-        """Read one batch into ``arr``; returns its read counts
-        (``_read_counts``), counted from its sizes once the events are
-        read. In full-trace stored-dtype reads, each run of back-to-back
-        whole events (``RawIndex.runs``) is one ``preadv`` straight into
-        its rows of ``arr``; every other row is read on its own."""
-        rows, starts = chunk[0], chunk[1]
-        idx = self._index
-        chan_rows = self._chan_rows
-        n = arr.shape[-1]
-        runs = (idx.runs(rows, self._whole_event, arr)
-                if raw_mode and starts is None else [])
-        single = np.ones(len(rows), bool)
-        for a, b in runs:
-            ds = idx.datasets[int(rows[a])]
-            fast.read(FastDataset(ds.path, ds.offset,
-                                  (b - a,) + tuple(ds.shape), ds.dtype),
-                      out=arr[a:b])
-            single[a:b] = False
-        coalesce = set()
-        if starts is not None:
-            ev_rows, counts = np.unique(rows, return_counts=True)
-            coalesce = {int(r) for r, c in zip(ev_rows, counts)
-                        if c * n >= self.COALESCE_FRACTION
-                        * idx.files[int(idx.file[r])].nb_samples}
-        full = {}
-        whole = []                      # files of the coalesced reads
-        inject, _ = split_injector(self._injector)
-        for i in np.flatnonzero(single).tolist():
-            row = int(rows[i])
-            fi = int(idx.file[row])
-            ds = idx.datasets[row]
-            sel = chan_rows[fi]
-            window = None if starts is None else (int(starts[i]), n)
-            if window is not None and row in coalesce:
-                if row not in full:
-                    if len(full) >= 2:          # a few full traces at most
-                        full.clear()
-                    full[row] = fast.read(ds, None, rows=sel)
-                    whole.append(fi)
-                stored = full[row][:, window[0]:window[0] + n]
-            elif raw_mode and ds.dtype == arr.dtype:
-                fast.read(ds, window, rows=sel, out=arr[i])
-                continue
-            else:
-                stored = fast.read(ds, window, rows=sel)
-            if raw_mode:
-                arr[i] = stored
-                continue
-            conv = idx.files[fi].conv
-            conv = conv if sel is None else conv[sel]
-            if inject is not None:
-                admin = {"series_number": self._series[fi],
-                         "event_number": int(idx.event_number[row])}
-                arr[i] = inject(stored.astype(np.float64) * conv[:, None],
-                                admin, window_start=0 if window is None
-                                else window[0], channels=self._read_names)
-            else:
-                np.multiply(stored.astype(dtype), conv[:, None].astype(dtype),
-                            out=arr[i])
-        return self._read_counts(rows, starts, n, coalesce, whole, runs)
-
-    def _read_counts(self, rows, starts, n, coalesce, whole, runs):
-        """(``preadv`` calls, bytes read, calls that read a run, events
-        they read) of a batch read by ``_read_batch``, as
-        ``io/fastio.FastReader.read`` issues them: a run of back-to-back
-        whole events (``runs``) in one call, a whole event of every
-        channel in one call, else one call a channel row (short reads
-        retried aside; an h5py dataset counted as if read so); a window,
-        inside its trace (``_trigger_rows``), ``n`` samples a row.
-        ``whole``: the files of the coalesced whole-event reads, which
-        replace the windows of the ``coalesce`` rows."""
-        per_row, per_event, nsamp = self._read_geometry
-        fis = self._index.file[rows]
-        run_events = sum(b - a for a, b in runs)
-        if starts is None:
-            calls = per_event[fis].sum() - run_events + len(runs)
-            items = (per_row[fis] * nsamp[fis]).sum()
-        else:
-            if coalesce:
-                fis = fis[~np.isin(rows, np.fromiter(coalesce, np.int64))]
-            calls = per_row[fis].sum()
-            items = calls * n
-            whole = np.asarray(whole, np.int64)
-            calls += per_event[whole].sum()
-            items += (per_row[whole] * nsamp[whole]).sum()
-        return (int(calls), int(items) * self._read_itemsize, len(runs),
-                run_events)
 
     # -- process -----------------------------------------------------------
     def process(self, nevents: int = -1, batch_size: int = 256,
@@ -436,50 +329,29 @@ class FeatureProcessing:
             starts = None if starts is None else starts[skip:]
             trows = None if trows is None else trows[skip:]
         n = self._plan.raw_nb_samples
-        self._chan_rows = self._read_channel_rows()
-        self._read_names = list(self._plan.read_channels
-                                or self._available_channels)
-        self._series = np.asarray([f.admin["series_number"]
-                                   for f in self._index.files], np.int64)
-        nchan = (len(self._available_channels)
-                 if self._plan.read_channels is None
-                 else len(self._plan.read_channels))
-        # integer codes are read as stored, anything else as ``dtype``
-        stored = (self._index.datasets[int(rows[0])].dtype if len(rows)
-                  else dtype)
-        buf_dtype = stored if raw_mode and stored.kind in "iu" else dtype
-        # per file: the channel rows an event reads, the calls that read a
-        # whole event, the samples of a row (``_read_counts``)
-        per_row = np.asarray([len(f.channels) if sel is None else len(sel)
-                              for f, sel in zip(self._index.files,
-                                                self._chan_rows)], np.int64)
-        self._whole_event = np.asarray([sel is None
-                                        for sel in self._chan_rows], bool)
-        if raw_mode and not trigger_mode:
-            self._index.extents()       # built once, before the readers
-        self._read_geometry = (
-            per_row, np.where(self._whole_event, 1, per_row),
-            np.asarray([f.nb_samples for f in self._index.files], np.int64))
-        self._read_itemsize = np.dtype(stored).itemsize
-        conv32 = [f.conv.astype(np.float32) if sel is None
-                  else f.conv[sel].astype(np.float32)
-                  for f, sel in zip(self._index.files, self._chan_rows)]
+        series = np.asarray([f.admin["series_number"]
+                             for f in self._index.files], np.int64)
+        fast = FastReader()
+        reader = BatchReader(self._index, fast, self._plan.read_channels, n,
+                             dtype, host_convert=not raw_mode,
+                             injector=inject,
+                             coalesce_fraction=self.COALESCE_FRACTION,
+                             timer=timer)
 
         chunks = [(rows[i:i + batch_size],
                    None if starts is None else starts[i:i + batch_size],
                    None if trows is None else trows[i:i + batch_size], k)
                   for k, i in enumerate(range(0, len(rows), batch_size))]
         nworkers = max(1, min(nreaders, len(chunks)))
-        shape = (min(batch_size, max(len(rows), 1)), nchan, n)
-        rings = [BufferRing(self.READ_AHEAD + 1, shape, buf_dtype,
+        shape = (min(batch_size, max(len(rows), 1)), len(reader.channels), n)
+        rings = [BufferRing(self.READ_AHEAD + 1, shape, reader.dtype,
                             pin=on_cuda, timer=timer)
                  for _ in range(nworkers)]
-        fast = FastReader()
-        reader = OrderedChunkPrefetcher(
-            lambda ring, chunk: self._fill(fast, ring, chunk, raw_mode,
-                                           dtype, timer),
+        source = OrderedChunkPrefetcher(
+            lambda ring, chunk: reader.fill(ring, chunk[0], chunk[1],
+                                            chunk[3]) + (chunk,),
             chunks, rings, depth=self.READ_AHEAD)
-        batches = iter(reader)
+        batches = iter(source)
         uploader = Uploader(self._device, timer)
         run_layer = layer_spans(timer, "spec.")
 
@@ -500,15 +372,11 @@ class FeatureProcessing:
         try:
             while (got := next_batch()) is not None:
                 with stage("dispatch"):
-                    ring, buf, nb, chunk, reads = got
-                    for k, v in zip(("read_calls", "read_bytes",
-                                     "read_runs", "run_events"), reads):
+                    ring, buf, reads, conv, chunk = got
+                    nb = len(chunk[0])
+                    for k, v in zip(READ_COUNTS, reads):
                         self.stats[k] += v
                     host_t, _ = buf
-                    conv = None
-                    if raw_mode:
-                        conv = np.stack([conv32[int(f)] for f in
-                                         self._index.file[chunk[0]]])
                     shards = [(d, lo, hi) for d, (lo, hi) in
                               zip(devices, bounds(nb, len(devices)))
                               if hi > lo]        # an empty shard is skipped
@@ -530,11 +398,11 @@ class FeatureProcessing:
                         rows = chunk[0][lo:hi]
                         if device_inject is not None:
                             device_inject.inject(
-                                x, self._series[self._index.file[rows]],
+                                x, series[self._index.file[rows]],
                                 self._index.event_number[rows],
                                 window_starts=(None if chunk[1] is None
                                                else chunk[1][lo:hi]),
-                                channels=self._read_names)
+                                channels=reader.channels)
                         feats = {}
                         for step in steps[d]:
                             feats.update(step(x, run_layer=run_layer))
@@ -586,7 +454,7 @@ class FeatureProcessing:
         finally:
             for ring in rings:
                 ring.close()
-            reader.close()
+            source.close()
             fast.close()
             self.stats["pinned_bytes"] = (sum(r.pinned_bytes for r in rings)
                                           + uploader.pinned_bytes

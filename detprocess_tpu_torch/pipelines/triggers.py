@@ -13,22 +13,21 @@ float64 and leaves NaN holes in an object column.
 A ``process()`` call:
 
 1. **Reads.** The events of the :class:`RawIndex` are read in its order,
-   in their stored dtype (int16 codes for pytesdaq data), only the raw
-   channels that the trigger channels filter. Where they store integer
-   codes and no host injector is set, ``nreaders`` threads
-   (``io/prefetch.OrderedChunkPrefetcher``) read whole batches of
-   ``event_batch`` events straight into pinned buffers of a
+   only the raw channels that the trigger channels filter. ``nreaders``
+   threads (``io/prefetch.OrderedChunkPrefetcher``) read whole batches of
+   ``event_batch`` events through ``io/batchread.BatchReader``, the
+   feature shell's reader too, into pinned buffers of a
    :class:`~detprocess_tpu_torch.io.upload.BufferRing` of their own,
-   yielded in batch order: each run of events that lie back to back in
-   one file is one read (``RawIndex.runs``), every other event one read
-   (one a channel row where only some channels are read).
-   Otherwise ``io/prefetch.prefetch_events`` threads read event by event
-   (``nreaders > 1`` splits the files over them, in no fixed event order)
-   and the main thread stacks ``event_batch`` events into a pinned buffer.
+   yielded in batch order with each event's admin dict: each run of
+   events that lie back to back in one file is one read
+   (``RawIndex.runs``), every other event one read (one a channel row
+   where only some channels are read). Integer codes stay as stored;
+   float storage is cast into the run's dtype.
    ``nreaders > 1`` needs ``nevents=-1`` and no ``resume``.
 2. **Upload.** The batch's buffer is copied to the card on a side stream
-   and converted there (``io/upload.Uploader``); it is read into again
-   only after its copy has completed.
+   and converted there (``io/upload.Uploader``), unless a host injector
+   has converted it; it is read into again only after its copy has
+   completed.
 3. **Compute.** Each trigger channel's :class:`TriggerStep` (built once
    per dtype and capacity) on its channel gather: base and residual trigger
    sets, batched over events. On the card a float32 run's FIR segments
@@ -47,8 +46,9 @@ A ``process()`` call:
 
 Salting (:meth:`TriggerProcessing.set_salting`, JAX :410): a host
 injector (``Salting.make_injector``) adds the salts into each event's
-float64 traces, read and converted on the host, which then upload in the
-run's dtype (JAX :1047, :1462-1473); a device injector
+float64 traces, converted on the host in the reader threads, which are
+cast into the buffer and upload in the run's dtype (JAX :1047,
+:1462-1473); a device injector
 (``Salting.make_device_injector``) keeps the int16 upload, and its plan
 for the batch's events is added on the device right after the conversion
 (JAX :1528-1536). Both map the salts' channels by name onto the channels
@@ -88,11 +88,11 @@ import torch
 from detprocess_tpu_torch import device as dev
 from detprocess_tpu_torch.config.yamlconfig import resolve_config
 from detprocess_tpu_torch.io import tables
+from detprocess_tpu_torch.io.batchread import READ_COUNTS, BatchReader
 from detprocess_tpu_torch.io.filterdata import FilterData, check_fs_consistent
-from detprocess_tpu_torch.io.fastio import FastDataset, FastReader
-from detprocess_tpu_torch.io.prefetch import (OrderedChunkPrefetcher,
-                                              prefetch_events)
-from detprocess_tpu_torch.io.rawdata import RawIndex, RawReader
+from detprocess_tpu_torch.io.fastio import FastReader
+from detprocess_tpu_torch.io.prefetch import OrderedChunkPrefetcher
+from detprocess_tpu_torch.io.rawdata import RawIndex
 from detprocess_tpu_torch.io.upload import BufferRing, Uploader
 from detprocess_tpu_torch.ops import filterbank
 from detprocess_tpu_torch.ops import trigger as trig_ops
@@ -807,8 +807,6 @@ def _suffixed(base_vals: np.ndarray, p: np.ndarray, n: int) -> np.ndarray:
 
 INT_FIELDS = ("indices", "count", "count_total", "n_above",
               "n_vetoed")
-# a batch's read counts, as the reader threads return them
-READ_COUNTS = ("read_calls", "read_bytes", "read_runs", "run_events")
 
 
 class TriggerProcessing:
@@ -936,99 +934,6 @@ class TriggerProcessing:
                 total += len(rows)
         return chunks
 
-    def _read_chunk(self, fast, ring, chunk, sel, whole, conv, nb, timer):
-        """Read the events of ``chunk`` (index rows, batch index) into a
-        buffer of ``ring``, the reads a span ``read.fill``; runs in a
-        reader thread. Each run of back-to-back whole events
-        (``RawIndex.runs``) is one ``preadv`` straight into its rows; every
-        other event is read on its own into its row (``sel``: per file, the
-        channel rows read, None for all; ``whole``: per file, whether that
-        is None). Returns the ring, the buffer, the events' admin dicts,
-        their float32 conversion factors [n, C] (``conv``: per file) and
-        the read counts (``READ_COUNTS``)."""
-        rows, k = chunk
-        idx = self._index
-        buf = ring.acquire()
-        arr = buf[1]
-        with span(timer, "read.fill", k):
-            runs = idx.runs(rows, whole, arr)
-            single = np.ones(len(rows), bool)
-            for a, b in runs:
-                ds = idx.datasets[int(rows[a])]
-                fast.read(FastDataset(ds.path, ds.offset,
-                                      (b - a,) + tuple(ds.shape), ds.dtype),
-                          out=arr[a:b])
-                single[a:b] = False
-            nrun = int((~single).sum())
-            calls, nbytes = len(runs), nrun * arr[0].nbytes
-            for i in np.flatnonzero(single).tolist():
-                row = int(rows[i])
-                fi = int(idx.file[row])
-                ds = idx.datasets[row]
-                if ds.shape[-1] != nb:
-                    raise ValueError(
-                        f"event of {ds.shape[-1]} samples in "
-                        f"{idx.files[fi].path}; the run's events have {nb}")
-                if ds.dtype == arr.dtype:
-                    fast.read(ds, rows=sel[fi], out=arr[i])
-                else:
-                    arr[i] = fast.read(ds, rows=sel[fi])
-                calls += 1 if sel[fi] is None else len(sel[fi])
-                nbytes += arr[i].size * ds.dtype.itemsize
-        admins = []
-        for row in rows.tolist():
-            admin = dict(idx.files[int(idx.file[row])].admin)
-            admin.update(event_id=int(idx.event_id[row]),
-                         event_number=int(idx.event_number[row]),
-                         event_time=float(idx.event_time[row]),
-                         trigger_type=int(idx.trigger_type[row]))
-            admins.append(admin)
-        return (ring, buf, admins, conv[idx.file[rows]],
-                (calls, nbytes, len(runs), nrun))
-
-    def _event_batches(self, source, nevents, event_batch, resume_after, nb,
-                       inject, read_channels, stored):
-        """(traces, admin dicts, float32 conversion factors) of each batch
-        of events that ``source`` (``io/prefetch.prefetch_events``) reads
-        one by one, converted and salted on the host by a host injector
-        ``inject``; each event read is one ``preadv`` a channel row."""
-        event_bytes = len(read_channels) * nb * np.dtype(stored).itemsize
-        total = 0
-        while nevents < 0 or total < nevents:
-            want = (event_batch if nevents < 0
-                    else min(event_batch, nevents - total))
-            traces_list, admins, convs = [], [], []
-            traces = None
-            skipped = 0
-            for _ in range(want):
-                traces, admin = source.read_next_event()
-                if traces is None:
-                    break
-                if resume_after is not None and (
-                        admin["series_number"],
-                        admin["event_number"]) <= resume_after:
-                    skipped += 1
-                    continue
-                if traces.shape[-1] != nb:
-                    raise ValueError(
-                        f"event of {traces.shape[-1]} samples in "
-                        f"{admin.get('file_name')}; the run's "
-                        f"events have {nb}")
-                if inject is None:
-                    convs.append(admin.pop("adc_conv"))
-                else:
-                    traces = inject(traces, admin, channels=read_channels)
-                traces_list.append(traces)
-                admins.append(admin)
-            nread = len(traces_list) + skipped
-            self.stats["read_calls"] += nread * len(read_channels)
-            self.stats["read_bytes"] += nread * event_bytes
-            if traces_list:
-                total += len(traces_list)
-                yield traces_list, admins, convs
-            elif resume_after is None or traces is None:
-                return                    # else a batch skipped whole
-
     # -- process -----------------------------------------------------------
     def process(self, nevents: int = -1, capacity: int = DEFAULT_CAPACITY,
                 event_batch: int = DEFAULT_EVENT_BATCH,
@@ -1116,50 +1021,31 @@ class TriggerProcessing:
 
         on_cuda = self._device.type == "cuda"
         nb = int(self._index.get_metadata()["nb_samples"])
-        stored = (self._index.datasets[int(self._index.order[0])].dtype
-                  if len(self._index) else dtype)
-        # a host injector needs float64 reads converted on the host, which
-        # upload in the run's dtype; otherwise the stored codes upload
+        # a host injector needs float64 amps on the host, which are cast
+        # into the run's dtype; otherwise the conversion runs on the card
         inject, device_inject = split_injector(self._injector)
-        in_place = _reads_in_place(stored, inject)
-        shape = (event_batch, len(needed), nb)
-        if in_place:
-            chunks = self._chunks(nevents, event_batch, resume_after)
-            nworkers = max(1, min(nreaders, len(chunks)))
-            # chunks a worker reads ahead: prefetch_depth events at least
-            ahead = max(1, -(-max(prefetch_depth, 1)
-                             // (nworkers * event_batch)))
-            rings = [BufferRing(ahead + 1, shape, stored, pin=on_cuda,
-                                timer=timer) for _ in range(nworkers)]
-            sel = [[f.channels.index(c) for c in read_channels]
-                   for f in self._index.files]
-            conv32 = np.stack([f.conv[s] for f, s in
-                               zip(self._index.files, sel)]
-                              ).astype(np.float32)
-            sel = [None if s == list(range(len(f.channels))) else s
-                   for f, s in zip(self._index.files, sel)]
-            whole = np.asarray([s is None for s in sel], bool)
-            self._index.extents()       # built once, before the readers
-            reader = FastReader()
-            source = OrderedChunkPrefetcher(
-                lambda ring, chunk: self._read_chunk(
-                    reader, ring, chunk, sel, whole, conv32, nb, timer),
-                [(rows, k) for k, rows in enumerate(chunks)], rings,
-                depth=ahead)
-            batches = iter(source)
-        else:
-            buf_dtype = (stored if stored.kind in "iu" and inject is None
-                         else dtype)
-            rings = [BufferRing(max(pipeline_depth, 0) + 2, shape,
-                                buf_dtype, pin=on_cuda, timer=timer)]
-            reader = RawReader(self._index)
-            source = prefetch_events(
-                reader, depth=max(prefetch_depth, 1), raw=inject is None,
-                dtype=None if inject is None else np.float64,
-                nreaders=nreaders, channels=read_channels, timer=timer)
-            batches = self._event_batches(source, nevents, event_batch,
-                                          resume_after, nb, inject,
-                                          read_channels, stored)
+        fast = FastReader()
+        reader = BatchReader(self._index, fast, read_channels, nb, dtype,
+                             host_convert=inject is not None,
+                             injector=inject, timer=timer)
+        chunks = self._chunks(nevents, event_batch, resume_after)
+        nworkers = max(1, min(nreaders, len(chunks)))
+        # chunks a worker reads ahead: prefetch_depth events at least
+        ahead = max(1, -(-max(prefetch_depth, 1) // (nworkers * event_batch)))
+        rings = [BufferRing(ahead + 1, (event_batch, len(needed), nb),
+                            reader.dtype, pin=on_cuda, timer=timer)
+                 for _ in range(nworkers)]
+
+        def fill(ring, chunk):
+            """A reader thread's batch, with its events' admin dicts."""
+            rows, k = chunk
+            return reader.fill(ring, rows, batch=k) + (
+                [self._index.admin(row) for row in rows.tolist()],)
+
+        source = OrderedChunkPrefetcher(
+            fill, [(rows, k) for k, rows in enumerate(chunks)], rings,
+            depth=ahead)
+        batches = iter(source)
         uploader = Uploader(self._device, timer)
         run_layer = layer_spans(timer, "step.")
         writer = tables.AsyncWriter() if lgc_save else None
@@ -1198,19 +1084,11 @@ class TriggerProcessing:
                     break
                 with stage("dispatch"):
                     with span(timer, "dispatch.fill"):
-                        if in_place:
-                            ring, buf, admins, conv, reads = got
-                            for key, v in zip(READ_COUNTS, reads):
-                                self.stats[key] += v
+                        ring, buf, reads, conv, admins = got
+                        for key, v in zip(READ_COUNTS, reads):
+                            self.stats[key] += v
+                        if conv is not None:
                             conv = conv.astype(dtype)
-                        else:
-                            traces_list, admins, convs = got
-                            ring = rings[0]
-                            buf = ring.acquire()
-                            for i, tr in enumerate(traces_list):
-                                buf[1][i] = tr
-                            conv = (np.stack(convs).astype(dtype) if convs
-                                    else None)
                     total += len(admins)
                     with span(timer, "dispatch.enqueue"):
                         shards = [(d, lo, hi) for d, (lo, hi) in zip(
@@ -1282,7 +1160,7 @@ class TriggerProcessing:
             for ring in rings:
                 ring.close()
             source.close()
-            reader.close()
+            fast.close()
         if writer is not None:
             writer.close()
         self.stats.update(events=total, upload_bytes=uploader.bytes,
@@ -1349,13 +1227,6 @@ class TriggerProcessing:
         last = tables.read_table(dumps[-1][1])
         key = (int(last["series_number"][-1]), int(last["event_number"][-1]))
         return series, dumps[-1][0], key
-
-
-def _reads_in_place(stored: np.dtype, inject) -> bool:
-    """Whether the reader threads read whole batches straight into their
-    pinned buffers: the events store integer codes, which upload as stored,
-    and no host injector needs each event's float64 amps on the host."""
-    return stored.kind in "iu" and inject is None
 
 
 def _pack_sets(batch_sets: dict, dtype: torch.dtype, timer=None):

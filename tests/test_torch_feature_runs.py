@@ -1,10 +1,12 @@
-"""The feature shell's reads of back-to-back events (``RawIndex.runs``):
-in a full-trace batch read in the stored dtype, every run of two or more
-whole events that lie back to back in one file is one ``os.preadv``
-straight into its rows of the batch buffer.
+"""The feature shell's reads of back-to-back events (``RawIndex.runs``,
+through ``io/batchread.BatchReader``): in a full-trace batch read in the
+stored dtype, every run of two or more whole events that lie back to back
+in one file is one ``os.preadv`` straight into its rows of the batch
+buffer.
 
 Each case runs the shell twice, as it is and with every row read on its
-own (``RawIndex.runs`` returning no run: the per-event path), and checks:
+own (``RawIndex.runs`` returning no run: the reader's per-event branch),
+and checks:
 
 - every filled batch buffer, byte for byte, against the stored codes
   (``np.fromfile`` at each event's offset, h5py for an ``H5Dataset``)
@@ -28,6 +30,7 @@ import pytest
 import torch
 
 from detprocess_tpu_torch import entry as E
+from detprocess_tpu_torch.io.batchread import BatchReader
 from detprocess_tpu_torch.io.fastio import FastDataset, H5Dataset
 from detprocess_tpu_torch.io.rawdata import RawIndex, series_to_number
 from detprocess_tpu_torch.pipelines.features import FeatureProcessing
@@ -145,16 +148,16 @@ def recorded(monkeypatch):
     [calls, bytes] of every ``os.preadv``, from any thread."""
     rec = {"buffers": [], "preadv": [0, 0]}
     lock = threading.Lock()
-    real_read, real_preadv = FeatureProcessing._read_batch, os.preadv
+    real_fill, real_preadv = BatchReader.fill, os.preadv
 
-    def read_batch(self, fast, arr, chunk, raw_mode, dtype):
-        counts = real_read(self, fast, arr, chunk, raw_mode, dtype)
+    def fill(self, ring, rows, starts=None, batch=None):
+        out = real_fill(self, ring, rows, starts, batch)
         with lock:
-            rec["buffers"].append((chunk[3], np.array(chunk[0]),
-                                   None if chunk[1] is None
-                                   else np.array(chunk[1]),
-                                   arr[:len(chunk[0])].copy()))
-        return counts
+            rec["buffers"].append((batch, np.array(rows),
+                                   None if starts is None
+                                   else np.array(starts),
+                                   out[1][1][:len(rows)].copy()))
+        return out
 
     def preadv(*args):
         n = real_preadv(*args)
@@ -163,7 +166,7 @@ def recorded(monkeypatch):
             rec["preadv"][1] += n
         return n
 
-    monkeypatch.setattr(FeatureProcessing, "_read_batch", read_batch)
+    monkeypatch.setattr(BatchReader, "fill", fill)
     monkeypatch.setattr(os, "preadv", preadv)
     return rec
 

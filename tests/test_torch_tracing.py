@@ -5,9 +5,10 @@ shells' ``stats``) on the CPU.
 - a ``FeatureProcessing`` run with two reader threads and a
   ``TriggerProcessing`` run report every span the shells place, and leave
   their tables bit-equal to a run without a timer;
-- ``stats["read_bytes"]`` and ``stats["read_calls"]``, which the shells
-  count from the sizes of each batch, are the bytes of the channels read
-  and the ``os.preadv`` calls that read them, as counted at the call
+- ``stats["read_bytes"]`` and ``stats["read_calls"]``, which the shells'
+  reader (``io/batchread.BatchReader``) counts at each read, are the
+  bytes of the channels read and the ``os.preadv`` calls that read them,
+  as counted at the call
   (in both shells one a run of back-to-back events: ``read_runs``,
   ``run_events``);
 - in residual mode the trigger shell times the residual pass's host read

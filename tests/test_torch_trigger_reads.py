@@ -1,18 +1,20 @@
-"""The trigger shell's reads (``TriggerProcessing._read_chunk``): where the
-events store integer codes and no host injector is set, reader threads
-read each batch of ``event_batch`` events straight into a buffer of their
-own ring, in batch order: one ``os.preadv`` a run of back-to-back whole
-events (``RawIndex.runs``), one for each other event, one a channel row
-where only some channels are read, h5py for an ``H5Dataset``.
+"""The trigger shell's reads (``io/batchread.BatchReader``, the feature
+shell's reader): reader threads read each batch of ``event_batch``
+events straight into a buffer of their own ring, in batch order: one
+``os.preadv`` a run of back-to-back whole events in the buffer's dtype
+(``RawIndex.runs``), one for each other event, one a channel row where
+only some channels are read, h5py for an ``H5Dataset``.
 
-Each case runs the shell on the CPU in float64 as it is and on the
-per-event path (``prefetch_events`` threads, the batch stacked by the
-main thread), and checks:
+Each case runs the shell on the CPU in float64 as it is and with every
+event read on its own (``RawIndex.runs`` returning no run: the reader's
+per-event branch), and checks:
 
-- every filled buffer, byte for byte, against the stored codes (read
-  with ``np.fromfile`` or h5py), and each row's conversion factors;
+- every filled buffer, byte for byte, against the stored values (read
+  with ``np.fromfile`` or h5py; with a host injector, their salted
+  float64 amps) and against the per-event branch's, and each row's
+  conversion factors;
 - the trigger table, row for row after sorting by (series, event,
-  channel, index), bit for bit against the per-event path's;
+  channel, index), bit for bit against the per-event branch's;
 - the ``os.preadv`` calls and bytes against ``stats["read_calls"]`` and
   ``read_bytes`` (an h5py read counted as one call a channel row), and
   ``read_runs``, ``run_events`` against the runs a plain loop over each
@@ -20,9 +22,10 @@ main thread), and checks:
 
 Data: 7 continuous events of the shell's 4 channels in 2 dumps of 4 and
 3, batches of 3: (0-2), (3 | 4-5) across the dumps, and a tail batch
-(6). A host injector takes the per-event path. In the stream traffic's
-layout (4 dumps of 64 events, batches of 8) every event is read in a
-run.
+(6); the same events stored as float32, which a float64 run casts into
+its buffers one event at a time. A host injector reads each event on its
+own into float64 buffers. In the stream traffic's layout (4 dumps of 64
+events, batches of 8) every event is read in a run.
 """
 
 import glob
@@ -35,9 +38,10 @@ import torch
 
 from detprocess_tpu_torch import entry as E
 from detprocess_tpu_torch.io import tables
+from detprocess_tpu_torch.io.batchread import BatchReader
 from detprocess_tpu_torch.io.fastio import FastDataset, H5Dataset
 from detprocess_tpu_torch.io.rawdata import RawIndex, write_flat_dump
-from detprocess_tpu_torch.pipelines import triggers
+from detprocess_tpu_torch.ops.saltinject import split_injector
 from detprocess_tpu_torch.pipelines.salting import Salting
 from detprocess_tpu_torch.pipelines.triggers import TriggerProcessing
 from test_torch_feature_runs import _twin, plain_runs, read_stored
@@ -58,6 +62,30 @@ def flat(tmp_path_factory):
         torch.Generator().manual_seed(5), NEVENTS, NFILES, "cpu", LENGTH,
         ncoincident=4, nsingles=1)
     return paths
+
+
+@pytest.fixture(scope="module")
+def float_flat(flat, tmp_path_factory):
+    """The flat dumps' events stored as float32: each code divided by 4
+    (exact), so that four times the conversion factor gives the int16
+    dumps' amps."""
+    root = tmp_path_factory.mktemp("treads_f32")
+    paths = []
+    for src in flat:
+        codes = np.fromfile(src, np.int16).reshape(
+            -1, len(E.SHELL_CHANNELS), LENGTH)
+        paths.append(str(root / os.path.basename(src)))
+        write_flat_dump(paths[-1], codes.astype(np.float32) / 4)
+    return paths
+
+
+def float_index(paths):
+    return lambda: RawIndex.from_flat(
+        paths, E.SHELL_CHANNELS, LENGTH, E.FS, E.TSHELL_SERIES,
+        dtype=np.float32, adc_conversion_factor=4 * E.SHELL_CAL,
+        detector_config={c: {"close_loop_norm": cln}
+                         for c, cln in zip(E.SHELL_CHANNELS, E.SHELL_CLN)},
+        data_type="continuous")
 
 
 @pytest.fixture(scope="module")
@@ -114,18 +142,20 @@ def subset_config():
 
 @pytest.fixture
 def recorded(monkeypatch):
-    """Every filled buffer (rows, the rows' codes, their factors) by batch
-    and the [calls, bytes] of every ``os.preadv``, from any thread."""
+    """Every filled buffer (rows, the rows' values, their factors or
+    None) by batch and the [calls, bytes] of every ``os.preadv``, from
+    any thread."""
     rec = {"buffers": {}, "preadv": [0, 0]}
     lock = threading.Lock()
-    real_read, real_preadv = TriggerProcessing._read_chunk, os.preadv
+    real_fill, real_preadv = BatchReader.fill, os.preadv
 
-    def read_chunk(self, fast, ring, chunk, *args):
-        out = real_read(self, fast, ring, chunk, *args)
-        rows = np.array(chunk[0])
+    def fill(self, ring, rows, starts=None, batch=None):
+        out = real_fill(self, ring, rows, starts, batch)
         with lock:
-            rec["buffers"][chunk[1]] = (rows, out[1][1][:len(rows)].copy(),
-                                        out[3].copy())
+            rec["buffers"][batch] = (np.array(rows),
+                                     out[1][1][:len(rows)].copy(),
+                                     None if out[3] is None
+                                     else out[3].copy())
         return out
 
     def preadv(*args):
@@ -135,20 +165,20 @@ def recorded(monkeypatch):
             rec["preadv"][1] += n
         return n
 
-    monkeypatch.setattr(TriggerProcessing, "_read_chunk", read_chunk)
+    monkeypatch.setattr(BatchReader, "fill", fill)
     monkeypatch.setattr(os, "preadv", preadv)
     return rec
 
 
 def run(recorded, monkeypatch, make_shell, per_event=False, **kw):
     """(table, stats, buffers by batch, preadv [calls, bytes]) of one
-    float64 ``process`` call; ``per_event`` takes the per-event path."""
+    float64 ``process`` call; ``per_event`` reads every event on its
+    own."""
     recorded["buffers"].clear()
     recorded["preadv"][:] = [0, 0]
     with monkeypatch.context() as m:
         if per_event:
-            m.setattr(triggers, "_reads_in_place",
-                      lambda stored, inject: False)
+            m.setattr(RawIndex, "runs", lambda self, rows, whole, arr: [])
         shell = make_shell()
         table = shell.process(event_batch=BATCH, dtype=np.float64, **kw)
     return (table, dict(shell.stats), dict(recorded["buffers"]),
@@ -178,20 +208,23 @@ def shell_maker(index_fn, config=None, injector=None):
 
 def check(recorded, monkeypatch, index_fn, *, config=None, sel=None,
           nreaders=1, nevents=-1, injector=None):
-    """Run the case both ways and hold it to the stored codes, the
-    per-event path and the plain count of runs; returns the stats."""
+    """Run the case both ways and hold it to the stored values, the
+    per-event branch and the plain count of runs; returns the table and
+    the stats."""
     make = shell_maker(index_fn, config, injector)
     table, stats, bufs, preadv = run(recorded, monkeypatch, make,
                                      nreaders=nreaders, nevents=nevents)
-    table0, stats0, bufs0, _ = run(recorded, monkeypatch, make,
-                                   per_event=True, nevents=nevents)
-    assert not bufs0
+    table0, stats0, bufs0, preadv0 = run(recorded, monkeypatch, make,
+                                         per_event=True, nevents=nevents)
     assert stats0["read_runs"] == stats0["run_events"] == 0
     assert_bit_equal(sorted_table(table), sorted_table(table0))
     assert len(table["trigger_index"]) > 0
     index = index_fn()
+    host = split_injector(injector)[0]
+    names = E.SHELL_CHANNELS if sel is None else [E.SHELL_CHANNELS[i]
+                                                  for i in sel]
     want_rows = index.order if nevents < 0 else index.order[:nevents]
-    assert sorted(bufs) == list(range(len(bufs)))
+    assert sorted(bufs) == sorted(bufs0) == list(range(len(bufs)))
     assert np.array_equal(np.concatenate([bufs[b][0] for b in sorted(bufs)]),
                           want_rows)
     assert stats["events"] == stats0["events"] == len(want_rows)
@@ -199,18 +232,31 @@ def check(recorded, monkeypatch, index_fn, *, config=None, sel=None,
     nruns = nrun_events = calls = h5_calls = h5_bytes = 0
     per_row = 1 if sel is None else len(sel)
     for b, (rows, arr, conv) in bufs.items():
+        rows0, arr0, conv0 = bufs0[b]
+        assert np.array_equal(rows, rows0)
+        assert arr.dtype == arr0.dtype == (np.float64 if host else arr.dtype)
+        assert np.array_equal(arr.view(np.uint8), arr0.view(np.uint8)), b
         assert len(rows) == (BATCH if b < len(bufs) - 1
                              else len(want_rows) - BATCH * b)
+        assert (conv is None) == (conv0 is None) == (host is not None)
+        stored = None
         for i, row in enumerate(rows.tolist()):
-            want = read_stored(index.datasets[row])
-            want = want if sel is None else want[sel]
-            assert arr.dtype == want.dtype
-            assert np.array_equal(arr[i].view(np.uint8),
-                                  np.ascontiguousarray(want).view(np.uint8))
+            stored = read_stored(index.datasets[row])
+            stored = stored if sel is None else stored[sel]
             f = index.files[int(index.file[row])]
             fconv = f.conv if sel is None else f.conv[sel]
-            assert np.array_equal(conv[i], fconv.astype(np.float32))
-        runs = plain_runs(index, rows.tolist(), sel is None)
+            want = (stored.astype(arr.dtype) if host is None else
+                    host(stored.astype(np.float64) * fconv[:, None],
+                         index.admin(row), channels=names))
+            assert np.array_equal(arr[i].view(np.uint8),
+                                  np.ascontiguousarray(want).view(np.uint8))
+            if host is None:
+                assert np.array_equal(conv[i], fconv.astype(np.float32))
+                assert np.array_equal(conv0[i], conv[i])
+            if isinstance(index.datasets[row], H5Dataset):
+                h5_bytes += stored.nbytes
+        runs = plain_runs(index, rows.tolist(),
+                          sel is None and arr.dtype == stored.dtype)
         nruns += len(runs)
         nrun_events += sum(j - i for i, j in runs)
         for k, r in enumerate(rows.tolist()):
@@ -218,16 +264,19 @@ def check(recorded, monkeypatch, index_fn, *, config=None, sel=None,
                 continue
             if isinstance(index.datasets[r], H5Dataset):
                 h5_calls += per_row
-                h5_bytes += arr[k].nbytes
             else:
                 calls += per_row
     calls += nruns
     assert [stats["read_runs"], stats["run_events"]] == [nruns, nrun_events]
     assert preadv[0] == calls
-    assert [stats["read_calls"], stats["read_bytes"]] == [
-        calls + h5_calls, preadv[1] + h5_bytes]
-    assert stats["read_bytes"] == stats["upload_bytes"]
-    return stats
+    # the per-event branch's calls, less those the runs replace
+    assert preadv[0] == preadv0[0] - nrun_events + nruns
+    assert preadv[1] == preadv0[1]
+    for st, pr in ((stats, preadv), (stats0, preadv0)):
+        assert [st["read_calls"], st["read_bytes"]] == [pr[0] + h5_calls,
+                                                        pr[1] + h5_bytes]
+    assert stats["read_bytes"] == stats["upload_samples"] * stored.itemsize
+    return table, stats
 
 
 def flat_index(paths):
@@ -235,21 +284,29 @@ def flat_index(paths):
 
 
 @pytest.mark.parametrize("nreaders", [1, 2, 3])
-def test_batches_across_two_dumps_and_a_tail(flat, recorded, monkeypatch,
-                                             nreaders):
-    stats = check(recorded, monkeypatch, flat_index(flat),
-                  nreaders=nreaders)
+def test_batches_across_two_dumps_and_a_tail(flat, float_flat, recorded,
+                                             monkeypatch, nreaders):
+    table, stats = check(recorded, monkeypatch, flat_index(flat),
+                         nreaders=nreaders)
     # (0-2), (3 | 4-5), (6): row 3 ends dump 1, row 4 starts dump 2
     assert [stats["read_runs"], stats["run_events"]] == [2, 5]
     assert stats["read_calls"] == 4
     assert stats["read_bytes"] == NEVENTS * 4 * LENGTH * 2
+    # float32 storage: cast into the float64 buffers one event at a time,
+    # converted on the card to the int16 dumps' amps
+    ftable, stats = check(recorded, monkeypatch, float_index(float_flat),
+                          nreaders=nreaders)
+    assert [stats["read_runs"], stats["run_events"]] == [0, 0]
+    assert stats["read_calls"] == NEVENTS
+    assert stats["read_bytes"] == NEVENTS * 4 * LENGTH * 4
+    assert_bit_equal(ftable, table)
 
 
 @pytest.mark.parametrize("nreaders", [1, 2, 3])
 def test_channel_subset_reads_each_row(flat, recorded, monkeypatch,
                                        nreaders):
-    stats = check(recorded, monkeypatch, flat_index(flat),
-                  config=subset_config(), sel=[1, 2], nreaders=nreaders)
+    _, stats = check(recorded, monkeypatch, flat_index(flat),
+                     config=subset_config(), sel=[1, 2], nreaders=nreaders)
     assert [stats["read_runs"], stats["run_events"]] == [0, 0]
     assert stats["read_calls"] == NEVENTS * 2
 
@@ -265,7 +322,7 @@ def test_hdf5_entries(hdf5, recorded, monkeypatch, nreaders):
 
 
 def test_nevents_prefix(flat, recorded, monkeypatch):
-    stats = check(recorded, monkeypatch, flat_index(flat), nevents=5)
+    _, stats = check(recorded, monkeypatch, flat_index(flat), nevents=5)
     # (0-2), (3 | 4)
     assert [stats["read_runs"], stats["run_events"]] == [1, 3]
     with pytest.raises(ValueError, match="nreaders > 1"):
@@ -282,9 +339,9 @@ def test_resume_continues_as_the_per_event_path(flat, recorded, monkeypatch,
                                                 tmp_path):
     """A run of the first dump (4 events; a flat dump numbers its events
     from 1, and ``resume`` goes by (series, event)) cut after 2 events,
-    then resumed: the resumed batches are those the per-event path reads,
-    (2), (3); the dumps are the per-event path's, bit for bit, and hold
-    the uncut run's triggers."""
+    then resumed: the resumed batches are (2), (3), with runs and without;
+    the dumps are the per-event branch's, bit for bit, and hold the uncut
+    run's triggers."""
     make = shell_maker(flat_index(flat[:1]))
     kw = dict(lgc_save=True, output_format="npz", nb_events_per_dump=3,
               series_name="I1_D20261018_T120000")
@@ -296,8 +353,7 @@ def test_resume_continues_as_the_per_event_path(flat, recorded, monkeypatch,
         _, stats, bufs, _ = run(recorded, monkeypatch, make, per_event,
                                 output_path=cut, resume=True, **kw)
         assert stats["events"] == 2
-        assert [bufs[b][0].tolist() for b in sorted(bufs)] == (
-            [] if per_event else [[2], [3]])
+        assert [bufs[b][0].tolist() for b in sorted(bufs)] == [[2], [3]]
         dumps[per_event] = _dump_table(cut)
     assert_bit_equal(dumps[False], dumps[True])
     whole = str(tmp_path / "whole")
@@ -318,15 +374,16 @@ def test_device_injector(flat, recorded, monkeypatch, salting, nreaders):
 
 def test_host_injector_takes_the_per_event_path(flat, recorded, monkeypatch,
                                                 salting):
-    """A host injector needs float64 amps on the host: no batch is read in
-    place, each event is one ``preadv`` a channel row, and its salts give
-    the device injector's triggers."""
-    host = shell_maker(flat_index(flat),
-                       injector=salting.make_injector(E.SHELL_CHANNELS))
-    table, stats, bufs, preadv = run(recorded, monkeypatch, host)
-    assert not bufs
+    """A host injector needs float64 amps on the host: the reader threads
+    read each event on its own, one ``preadv`` a whole event, and salt it
+    into float64 buffers; two reader threads give one's tables, and the
+    salts give the device injector's triggers."""
+    table, stats = check(recorded, monkeypatch, flat_index(flat),
+                         nreaders=2,
+                         injector=salting.make_injector(E.SHELL_CHANNELS))
     assert [stats["read_runs"], stats["run_events"]] == [0, 0]
-    assert stats["read_calls"] == preadv[0] == NEVENTS * 4
+    assert stats["read_calls"] == NEVENTS
+    assert stats["upload_bytes"] == 8 * stats["upload_samples"]
     device = shell_maker(flat_index(flat),
                          injector=salting.make_device_injector(
                              E.SHELL_CHANNELS))
